@@ -1,0 +1,16 @@
+"""nbdistributed_tpu_torch: the PyTorch/CUDA port of ``nbdistributed_tpu``.
+
+The JAX package beside this one is the reference.  This package carries
+the serving slice of the model stack: the Llama-family transformer
+(:mod:`.models.transformer`), KV-cache generation
+(:mod:`.models.generate`) and the continuous-batching
+:class:`~.models.serving.DecodeServer`, with the two TPU kernels on
+that path (flash-attention forward, flash-decode) rewritten by hand in
+CUDA C++ for Hopper (:mod:`.ops`).
+
+It imports ``torch`` and never ``jax``.  Entry points run on the GPU
+unless the caller passes ``device="cpu"``; on CPU tensors every kernel
+wrapper takes its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"
