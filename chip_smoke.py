@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``nbdistributed_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written CUDA kernels from the checkout,
-holds each against its plain PyTorch version, drives the serving slice
-at the full width of SmolLM2-135M, and times each kernel.
+holds each against its plain PyTorch version, drives the serving and
+training slices at the full width of SmolLM2-135M, and times each
+kernel.
 
     python3 chip_smoke.py
 
@@ -12,20 +13,37 @@ Phases (each prints one or more lines; any failure exits non-zero):
    name and power limit;
 2. K1, the flash-attention forward, called through its wrappers,
    against its plain version in bf16 (and one fp32 case) at the
-   slice's shapes;
+   serving shapes and the training path's (B=4, S=2048, the training
+   batch's packed-document segments);
 3. K4, flash-decode, called through its wrapper, against its plain
    version in bf16: per-row positions over [0, T-1], a window, an int8
    cache, the lse, and the serving path's own shape and positions;
-4. the main path, with every launch count set to 0 just before and
+4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
+   wrapper the path calls, against the plain backward in bf16 (causal
+   S=2048 with group 3 at D=64 and D=128, non-causal Sq != Sk, a
+   window, segments, offsets, D=32, and the training path's shape
+   with its batch's segments) and one fp32 case; the K1 forward that
+   feeds each case is held to the plain forward first;
+5. the serving path, with every launch count set to 0 just before and
    read just after: full-width ``forward`` (bf16, B=1, S=512) and a
    bf16 ``DecodeServer`` answering 12 staggered requests; K1 must have
    launched once per layer, K4 once per layer per decode step.  The
    kernel-path logits are then held against the plain path's, and the
    same requests are served in fp32 and held against solo ``generate``;
-5. a profile of bf16 decode steps: device time per step against the
+6. a profile of bf16 decode steps: device time per step against the
    host's wall time, and the kernels that take it;
-6. timing of each kernel at the main path's shapes, beside its plain
-   version, one PyTorch library call and the card's bound.
+7. the training path, counts reset just before and read just after:
+   8 bf16 AdamW steps with remat on one fixed batch of B=4 x S=2048
+   packed documents, fed through ``batch_iterator`` and
+   ``prefetch_to_device``; per step K1 must launch 60 times (forward
+   and remat recompute), K2 and K3 30 times each; every loss finite
+   and the last below the first.  Then a profile of one step, the
+   fp32 loss and every gradient through the kernels against the plain
+   path (B=1, S=2048), and three bf16 LoRA steps (base untouched, loss
+   falls);
+8. timing of each kernel at the main paths' shapes (K1 at both the
+   serving and the training shape), beside its plain version, one
+   PyTorch library call and the card's bound.
 
 Then one JSON line listing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -102,6 +120,15 @@ def tol_ratio(got, want, atol, rtol):
 K1_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
 K4_TOL = (1e-3, 8e-3)
 LSE_TOL = 1e-4
+# K2/K3 sum up to S * group terms per element (dK/dV over every row of
+# the group that sees a key), in tiles, where the plain version sums in
+# one GEMM: bf16 keeps K1's one-ulp room; fp32 allows the longer sums'
+# reassociation (~1e-6 of the sum of |terms|, which reach ~10-100).
+K23_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-4, 1e-4)}
+# fp32 loss and gradients through the kernels against the plain path
+# (autograd of attention_reference), relative L2 per leaf: 30 layers of
+# fp32 sums in different orders, each ~1e-6 relative.
+TRAIN_FP32_TOL = 1e-4
 
 
 # ----------------------------------------------------------------------
@@ -116,28 +143,63 @@ def k1_inputs(B, S, H, Hkv, D, dtype, seed):
     return q, k, v
 
 
+def case_segments(kind, B, S):
+    """Segment ids (B, S), int32 on the card: None; ``"cuts"``, the same
+    documents in every row, cut at 300, 301 and 700; or ``"train"``, the
+    training path's own batch (``packed_batch``, documents of 64-1536
+    tokens packed by ``pack_tokens``)."""
+    import torch
+    if kind is None:
+        return None
+    if kind == "train":
+        from nbdistributed_tpu_torch.models import smol_135m_config
+        seg = packed_batch(smol_135m_config(), B, S,
+                           seed=TRAIN_BATCH_SEED)["segments"]
+        return seg.to(torch.int32).contiguous()
+    cuts = torch.tensor([0, 300, 301, 700, S])
+    seg = torch.bucketize(torch.arange(S), cuts[1:-1], right=True)
+    return seg[None].expand(B, S).to("cuda", torch.int32).contiguous()
+
+
+def check_k1(name, out, lse, ref, ref_lse, dtype):
+    """Hold K1's (out, lse) to the plain version's; returns the output's
+    max abs error."""
+    import torch
+    atol, rtol = K1_TOL[str(dtype).split(".")[-1]]
+    e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+    ratio = tol_ratio(out, ref, atol, rtol)
+    say("k1_vs_plain", case=name, max_abs_err=e_out, tol_ratio=ratio,
+        atol=atol, rtol=rtol, lse_err=e_lse, lse_tol=LSE_TOL)
+    check(torch.isfinite(out.float()).all().item(),
+          f"K1 {name}: non-finite output")
+    check(ratio <= 1 and e_lse <= LSE_TOL,
+          f"K1 {name}: error {e_out} (ratio {ratio}) / lse {e_lse} "
+          f"over tolerance")
+    return e_out
+
+
 def phase_k1():
     """K1 through the wrappers the path calls — ``flash_attention`` for
     the output, ``_flash_forward`` (the JAX counterpart's entry, which
-    returns the lse) — against ``_flash_forward_plain``."""
+    returns the lse) — against ``_flash_forward_plain``, at the serving
+    shapes and at the training path's (B=4, S=2048, its batch's
+    segments)."""
     import torch
     from nbdistributed_tpu_torch.ops import attention as A
 
-    cases = [("causal_S1024", 2, 1024, torch.bfloat16, None, False),
-             ("causal_ragged_S1000", 2, 1000, torch.bfloat16, None, False),
-             ("window256_S1024", 2, 1024, torch.bfloat16, 256, False),
-             ("segments_S1024", 2, 1024, torch.bfloat16, None, True),
-             ("forward_shape_S512", 1, 512, torch.bfloat16, None, False),
-             ("fp32_ragged_S1000", 2, 1000, torch.float32, None, False)]
+    bf16 = torch.bfloat16
+    cases = [("causal_S1024", 2, 1024, bf16, None, None),
+             ("causal_ragged_S1000", 2, 1000, bf16, None, None),
+             ("window256_S1024", 2, 1024, bf16, 256, None),
+             ("segments_S1024", 2, 1024, bf16, None, "cuts"),
+             ("forward_shape_S512", 1, 512, bf16, None, None),
+             ("train_shape_S2048_segments", TRAIN_B, 2048, bf16, None,
+              "train"),
+             ("fp32_ragged_S1000", 2, 1000, torch.float32, None, None)]
     worst = 0.0
     for name, B, S, dtype, window, segs in cases:
         q, k, v = k1_inputs(B, S, 9, 3, 64, dtype, seed=len(name))
-        seg = None
-        if segs:
-            cuts = torch.tensor([0, 300, 301, 700, S])
-            seg = torch.bucketize(torch.arange(S), cuts[1:-1], right=True)
-            seg = seg[None].expand(B, S).to("cuda", torch.int32)
-            seg = seg.contiguous()
+        seg = case_segments(segs, B, S)
         out = A.flash_attention(q, k, v, causal=True, scale=0.125,
                                 window=window, segment_ids=seg)
         out2, lse = A._flash_forward(q, k, v, causal=True, scale=0.125,
@@ -146,18 +208,9 @@ def phase_k1():
         ref, ref_lse = A._flash_forward_plain(
             q, k, v, causal=True, scale=0.125, window=window,
             segment_ids=seg, kv_segment_ids=seg)
-        atol, rtol = K1_TOL[str(dtype).split(".")[-1]]
-        e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
-        ratio = tol_ratio(out, ref, atol, rtol)
-        say("k1_vs_plain", case=name, max_abs_err=e_out, tol_ratio=ratio,
-            atol=atol, rtol=rtol, lse_err=e_lse, lse_tol=LSE_TOL)
-        check(torch.isfinite(out.float()).all().item(), f"K1 {name}: "
-              f"non-finite output")
+        e_out = check_k1(name, out, lse, ref, ref_lse, dtype)
         check(torch.equal(out, out2), f"K1 {name}: flash_attention and "
               f"_flash_forward disagree")
-        check(ratio <= 1 and e_lse <= LSE_TOL,
-              f"K1 {name}: error {e_out} (ratio {ratio}) / lse {e_lse} "
-              f"over tolerance")
         if dtype == torch.bfloat16:
             worst = max(worst, e_out)
     return worst
@@ -239,7 +292,87 @@ def phase_k4():
 
 
 # ----------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: K2/K3 against the plain backward
+
+def check_k23(name, got, want, dtype):
+    """Hold K2/K3's (dq, dk, dv) to the plain backward's; returns
+    ``{grad: {max_abs_err, tol_ratio}}``."""
+    import torch
+    atol, rtol = K23_TOL[str(dtype).split(".")[-1]]
+    row = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"K2/K3 {name}: {gname} is {a.dtype} {tuple(a.shape)}")
+        check(torch.isfinite(a.float()).all().item(),
+              f"K2/K3 {name}: non-finite {gname}")
+        row[gname] = dict(max_abs_err=max_err(a, b),
+                          tol_ratio=tol_ratio(a, b, atol, rtol))
+    say("k23_vs_plain", case=name, atol=atol, rtol=rtol, **row)
+    for gname, r in row.items():
+        check(r["tol_ratio"] <= 1, f"K2/K3 {name}: {gname} error "
+              f"{r['max_abs_err']} (ratio {r['tol_ratio']}) over tolerance")
+    return row
+
+
+def phase_k23():
+    """K2/K3 through ``_flash_backward`` — the wrapper the autograd
+    backward calls, which launches K2 then K3 — against
+    ``_flash_backward_plain`` on the same inputs, with the forward's
+    (out, lse) from K1, held first to the plain forward's.  Returns the
+    worst bf16 errors of K2, K3 and those K1 forwards."""
+    import torch
+    from nbdistributed_tpu_torch.ops import attention as A
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # name, B, Sq, Sk, H, Hkv, D, dtype, causal, window, segments, offsets
+    cases = [
+        ("causal_S2048_g3_D64", 2, 2048, 2048, 9, 3, 64, bf16, True, None,
+         None, (0, 0)),
+        ("causal_S2048_g3_D128", 1, 2048, 2048, 6, 2, 128, bf16, True,
+         None, None, (0, 0)),
+        ("noncausal_Sq1000_Sk1500", 2, 1000, 1500, 9, 3, 64, bf16, False,
+         None, None, (0, 0)),
+        ("window256_S1024", 2, 1024, 1024, 9, 3, 64, bf16, True, 256,
+         None, (0, 0)),
+        ("segments_S1024", 2, 1024, 1024, 9, 3, 64, bf16, True, None,
+         "cuts", (0, 0)),
+        ("offsets_q512_Sq512_Sk1024", 2, 512, 1024, 9, 3, 64, bf16, True,
+         None, None, (512, 0)),
+        ("D32_causal_S1000", 2, 1000, 1000, 4, 2, 32, bf16, True, None,
+         None, (0, 0)),
+        ("train_shape_S2048_segments", TRAIN_B, 2048, 2048, 9, 3, 64, bf16,
+         True, None, "train", (0, 0)),
+        ("fp32_causal_ragged_S1000", 2, 1000, 1000, 9, 3, 64, fp32, True,
+         None, None, (0, 0)),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0, "k1": 0.0}
+    for (name, B, Sq, Sk, H, Hkv, D, dtype, causal, window, segs,
+         offsets) in cases:
+        g = torch.Generator(device="cuda").manual_seed(len(name))
+        q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+        k = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+        v = torch.randn(B, Sk, Hkv, D, generator=g, device="cuda").to(dtype)
+        do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+        seg = case_segments(segs, B, Sq)
+        args = dict(causal=causal, scale=1.0 / D ** 0.5, offsets=offsets,
+                    window=window, segment_ids=seg, kv_segment_ids=seg)
+        out, lse = A._flash_forward(q, k, v, **args)
+        got = A._flash_backward(q, k, v, out, lse, do, **args)
+        torch.cuda.synchronize()
+        e_k1 = check_k1(f"{name} (K2/K3 input)", out, lse,
+                        *A._flash_forward_plain(q, k, v, **args), dtype)
+        want = A._flash_backward_plain(q, k, v, out, lse, do, **args)
+        row = check_k23(name, got, want, dtype)
+        if dtype == bf16:
+            worst["k1"] = max(worst["k1"], e_k1)
+            worst["dq"] = max(worst["dq"], row["dq"]["max_abs_err"])
+            worst["dkv"] = max(worst["dkv"], row["dk"]["max_abs_err"],
+                               row["dv"]["max_abs_err"])
+    return worst
+
+
+# ----------------------------------------------------------------------
+# phase 5: the serving path
 
 def make_requests(cfg, n=12, seed=11):
     import torch
@@ -291,8 +424,7 @@ def phase_main_path(seed=0):
     tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g)
     prompts = make_requests(cfg)
 
-    flash_attention.launches = 0
-    flash_decode_attention.launches = 0
+    reset_launch_counts()
     logits = forward(params, tokens, cfg)
     outputs, steps, wall, step_s = serve(params, cfg, prompts)
     k1 = flash_attention.launches
@@ -329,15 +461,47 @@ def phase_main_path(seed=0):
     return {"k1": k1, "k4": k4, "steps": steps}, prompts, params
 
 
-def phase_profile(params, n_steps=8):
-    """Where a bf16 decode step's time goes: ``torch.profiler`` over
-    ``n_steps`` steps of a full 8-slot server (128-token prompts) —
-    device kernel time per step against the host's wall time, and the
-    kernels that take it."""
+def profile_steps(step, n_steps):
+    """``torch.profiler`` over ``n_steps`` calls of ``step``: device
+    kernel time per step against the host's wall time, the idle share,
+    kernels per step and the kernels that take the most time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    kernels = []
+    for e in prof.key_averages():
+        # A user annotation (``Optimizer.step#AdamW.step``) spans kernels
+        # already counted: it is a range, not device work.
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us / 1e3 / n_steps, e.count / n_steps, e.key))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    return dict(wall_ms_per_step=wall_ms,
+                device_ms_per_step=busy if kernels else "not measured",
+                idle_share=1 - busy / wall_ms if kernels else "not measured",
+                kernels_per_step=sum(k[1] for k in kernels),
+                top=[dict(name=k[2][:80], ms_per_step=k[0],
+                          calls_per_step=k[1]) for k in kernels[:8]])
+
+
+def phase_profile(params, n_steps=8):
+    """Where a bf16 decode step's time goes: a profile of ``n_steps``
+    steps of a full 8-slot server (128-token prompts)."""
+    import torch
     from nbdistributed_tpu_torch.models import (DecodeServer,
                                                 smol_135m_config)
 
@@ -349,30 +513,7 @@ def phase_profile(params, n_steps=8):
                                  generator=g).tolist(), n_steps + 4)
     srv.step()
     srv.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            srv.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels.append((us / 1e3 / n_steps, e.count / n_steps, e.key))
-    kernels.sort(reverse=True)
-    busy = sum(k[0] for k in kernels)
-    row = dict(wall_ms_per_step=wall_ms,
-               device_ms_per_step=busy if kernels else "not measured",
-               idle_share=1 - busy / wall_ms if kernels else "not measured",
-               kernels_per_step=sum(k[1] for k in kernels),
-               top=[dict(name=k[2][:80], ms_per_step=k[0],
-                         calls_per_step=k[1]) for k in kernels[:8]])
+    row = profile_steps(srv.step, n_steps)
     say("profile_decode_step", **row)
     return row
 
@@ -419,7 +560,175 @@ def phase_fp32(prompts, seed=0):
 
 
 # ----------------------------------------------------------------------
-# phase 5: timing
+# phase 7: the training path
+
+TRAIN_B, TRAIN_STEPS, TRAIN_BATCH_SEED = 4, 8, 7
+
+
+def packed_batch(cfg, B, S, seed):
+    """One (B, S) batch of random documents of 64-1536 tokens, packed by
+    ``pack_tokens`` (eos-separated, segments on) and fed through
+    ``batch_iterator`` and ``prefetch_to_device`` as a trainer feeds
+    them."""
+    import numpy as np
+    from nbdistributed_tpu_torch.utils.data import (batch_iterator,
+                                                    pack_tokens,
+                                                    prefetch_to_device)
+
+    rng = np.random.default_rng(seed)
+    docs, total = [], 0
+    while total < (B + 1) * S:
+        n = int(rng.integers(64, 1537))
+        docs.append(rng.integers(1, cfg.vocab_size, n))
+        total += n + 1
+    windows, segs = pack_tokens(docs, S, eos_id=0, return_segments=True)
+    it = batch_iterator({"tokens": windows, "segments": segs},
+                        batch_size=B, rank=0, world_size=1, seed=seed)
+    return next(prefetch_to_device(it, device="cuda"))
+
+
+def launch_counts():
+    from nbdistributed_tpu_torch.ops import attention as A
+    return {"k1": A.flash_attention.launches,
+            "k2": A.flash_attention_bwd_dq.launches,
+            "k3": A.flash_attention_bwd_dkv.launches}
+
+
+def reset_launch_counts():
+    from nbdistributed_tpu_torch.ops import attention as A
+    from nbdistributed_tpu_torch.ops import decode as K
+    A.flash_attention.launches = 0
+    A.flash_attention_bwd_dq.launches = 0
+    A.flash_attention_bwd_dkv.launches = 0
+    K.flash_decode_attention.launches = 0
+
+
+def phase_train(seed=0):
+    """The training path at full width: counts reset, ``TRAIN_STEPS``
+    bf16 AdamW steps with remat on one fixed packed batch, counts read.
+    Then one profiled step."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                make_train_step,
+                                                num_tokens_per_step,
+                                                param_leaves,
+                                                smol_135m_config)
+
+    cfg = smol_135m_config(remat=True)
+    params = init_params(cfg, seed)
+    batch = packed_batch(cfg, TRAIN_B, cfg.max_seq_len, TRAIN_BATCH_SEED)
+    step = make_train_step(cfg, AdamW(param_leaves(params), lr=1e-3))
+    want = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
+            "k3": N_LAYERS_SMOL}
+
+    reset_launch_counts()
+    losses, secs, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, batch)))
+        secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    counts = launch_counts()
+
+    n_tok = num_tokens_per_step(batch["tokens"].shape)
+    steady = sorted(secs[2:])
+    ms = 1e3 * steady[len(steady) // 2]
+    say("train_bf16", steps=TRAIN_STEPS, losses=losses,
+        launches=counts, launches_per_step=per_step[0],
+        want_per_step=want, tokens_per_step=n_tok,
+        ms_per_step_median_3_8=ms, tokens_per_s=n_tok / (ms / 1e3),
+        ms_per_step=[1e3 * t for t in secs],
+        segments=int(batch["segments"].max() - batch["segments"].min() + 1),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for i, c in enumerate(per_step):
+        check(c == want, f"train step {i + 1} launched {c}, want {want}")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
+          f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+
+    row = profile_steps(lambda: step(params, batch), 1)
+    # The profiler slows the host, so its idle share overstates an
+    # unprofiled step's.  Estimate the latter from the profiled device
+    # time over the unprofiled median step: an estimate, not a reading.
+    if isinstance(row["device_ms_per_step"], float):
+        row["idle_share_estimate_unprofiled"] = \
+            1 - row["device_ms_per_step"] / ms
+    say("profile_train_step", **row)
+    return ({"k1": counts["k1"], "k2": counts["k2"], "k3": counts["k3"],
+             "steps": TRAIN_STEPS, "ms_per_step": ms,
+             "tokens_per_s": n_tok / (ms / 1e3), "losses": losses}, row)
+
+
+def phase_train_fp32_vs_plain(seed=0):
+    """fp32 loss and every gradient leaf through the kernels
+    (``use_flash=True``: K1 forward, K2/K3 backward) against the plain
+    path (``use_flash=False``: autograd of ``attention_reference``) at
+    full width, B=1, S=2048, packed documents, remat on."""
+    import torch
+    from nbdistributed_tpu_torch.models import (init_params, loss_fn,
+                                                named_param_leaves,
+                                                smol_135m_config)
+
+    cfg = smol_135m_config(dtype=torch.float32, remat=True)
+    params = init_params(cfg, seed)
+    named = named_param_leaves(params)
+    leaves = [t.requires_grad_() for _, t in named]
+    batch = packed_batch(cfg, 1, cfg.max_seq_len, seed=8)
+
+    def value_and_grad(c):
+        loss = loss_fn(params, batch, c)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    lk, gk = value_and_grad(cfg)
+    lp, gp = value_and_grad(dataclasses.replace(cfg, use_flash=False))
+    rel = {name: float((a - b).norm() / b.norm())
+           for (name, _), a, b in zip(named, gk, gp)}
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(rel, key=rel.get)
+    say("train_fp32_kernels_vs_plain", loss_kernels=lk, loss_plain=lp,
+        loss_rel_err=loss_rel, grad_rel_l2=rel, worst_leaf=worst,
+        tol=TRAIN_FP32_TOL)
+    check(all(torch.isfinite(g).all().item() for g in gk),
+          "non-finite kernel-path gradient")
+    check(loss_rel <= TRAIN_FP32_TOL and rel[worst] <= TRAIN_FP32_TOL,
+          f"fp32 train: loss {loss_rel}, {worst} {rel[worst]} over "
+          f"{TRAIN_FP32_TOL}")
+    return {"loss_rel_err": loss_rel, "worst_leaf": worst,
+            "worst_rel_l2": rel[worst]}
+
+
+def phase_lora(seed=0, steps=3):
+    """Three bf16 LoRA steps at full width on the training batch: the
+    base parameters stay bit-identical and the loss falls."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                lora_init, lora_num_params,
+                                                make_lora_train_step,
+                                                param_leaves,
+                                                smol_135m_config)
+
+    cfg = smol_135m_config(remat=True)
+    base = init_params(cfg, seed)
+    before = [t.clone() for t in param_leaves(base)]
+    lora = lora_init(1, cfg, rank=8)
+    step = make_lora_train_step(cfg, AdamW(param_leaves(lora), lr=5e-3))
+    batch = packed_batch(cfg, TRAIN_B, cfg.max_seq_len, TRAIN_BATCH_SEED)
+    losses = [float(step(base, lora, batch)) for _ in range(steps)]
+    same = all(torch.equal(a, b) for a, b in zip(before, param_leaves(base)))
+    say("lora_bf16", steps=steps, losses=losses, base_identical=same,
+        adapter_params=lora_num_params(lora))
+    check(same, "LoRA steps changed the base parameters")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
+          f"non-finite LoRA loss: {losses}")
+    check(losses[-1] < losses[0], f"LoRA loss did not fall: {losses}")
+    return losses
+
+
+# ----------------------------------------------------------------------
+# phase 8: timing
 
 def sdpa(q, k, v, **kw):
     import torch.nn.functional as F
@@ -431,32 +740,41 @@ def sdpa(q, k, v, **kw):
             q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1), **kw)
 
 
+def time_k1(q, k, v, iters=30):
+    """K1 (causal, scale 1/8) through the launcher its wrapper calls,
+    beside its plain version and ``scaled_dot_product_attention``."""
+    from nbdistributed_tpu_torch.ops import attention as A
+
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    args = dict(causal=True, scale=0.125, offsets=(0, 0), window=None,
+                segment_ids=None, kv_segment_ids=None)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = cuda_ms(lambda: A._flash_forward_cuda(q, k, v, **args), iters)
+    plain = cuda_ms(lambda: A._flash_forward_plain(q, k, v, **args), iters)
+    lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=0.125),
+                  iters)
+    pairs = B * H * S * (S + 1) // 2               # causal (q, k) pairs
+    flops = 4 * pairs * D
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D) + 4 * B * H * S
+    t_f, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=1e3 * max(t_f, t_b),
+                bound_by="operations" if t_f >= t_b else "bytes",
+                flops=flops, bytes=nbytes, causal_pairs=pairs,
+                shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D))
+
+
 def phase_timing():
     import torch
-    from nbdistributed_tpu_torch.ops import attention as A
     from nbdistributed_tpu_torch.ops import decode as K
 
     rows = {}
     # Each kernel is timed through the launcher its wrapper calls, so
     # the wrapper's argument checks stay out of the kernel's time.
     # K1 at the forward's shape: B=1, S=512, H=9, Hkv=3, D=64, causal.
-    B, S, H, Hkv, D = 1, 512, 9, 3, 64
-    q, k, v = k1_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=1)
-    args = dict(causal=True, scale=0.125, offsets=(0, 0), window=None,
-                segment_ids=None, kv_segment_ids=None)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = cuda_ms(lambda: A._flash_forward_cuda(q, k, v, **args))
-    plain = cuda_ms(lambda: A._flash_forward_plain(q, k, v, **args))
-    lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=0.125))
-    pairs = B * H * S * (S + 1) // 2               # causal (q, k) pairs
-    flops = 4 * pairs * D
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D) + 4 * B * H * S
-    t_f, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    rows["K1"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                      bound_ms=1e3 * max(t_f, t_b),
-                      bound_by="operations" if t_f >= t_b else "bytes",
-                      flops=flops, bytes=nbytes,
-                      shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D))
+    rows["K1"] = time_k1(*k1_inputs(1, 512, 9, 3, 64, torch.bfloat16,
+                                    seed=1))
 
     # K4 at the serving shape: B=8 slots, T=max_len=1024, positions as
     # the 16..232-token streams give them; one cache per layer so each
@@ -503,8 +821,74 @@ def phase_timing():
                       bound_by="operations" if t_f >= t_b else "bytes",
                       flops=flops, bytes=nbytes, valid_tokens=n_valid,
                       shape=dict(B=B, Hkv=Hkv, group=group, D=D, T=T))
+    rows.update(time_train_shape())
     for name, row in rows.items():
         say("timing", kernel=name, **row)
+    return rows
+
+
+def time_train_shape():
+    """K1, K2 and K3 at the train shape (B=4, S=2048, H=9, Hkv=3, D=64,
+    bf16, causal; the kernels mask segments inside their tiles and skip
+    none, so the batch's segments do not change their time), each
+    through the launcher its wrapper calls.  K1 as in ``time_k1``; K2
+    and K3 beside the plain backward (one call computes dq, dk and dv)
+    and one library yardstick for the pair: the backward of
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` on the same
+    inputs, timed as ``torch.autograd.grad`` on a retained graph."""
+    import torch
+    from nbdistributed_tpu_torch.ops import attention as A
+
+    B, S, H, Hkv, D = TRAIN_B, 2048, 9, 3, 64
+    q, k, v = k1_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=21)
+    g = torch.randn(B, S, H, D, device="cuda").to(torch.bfloat16)
+    args = dict(causal=True, scale=0.125, offsets=(0, 0), window=None,
+                segment_ids=None, kv_segment_ids=None)
+    # What is timed is what phases 2 and 4 checked: hold K1's (out, lse)
+    # to the plain forward before K2/K3 use them, then K2/K3 to the
+    # plain backward.
+    out, lse = A._flash_forward_cuda(q, k, v, **args)
+    k1_err = check_k1("timing_train_shape", out, lse,
+                      *A._flash_forward_plain(q, k, v, **args),
+                      torch.bfloat16)
+    delta = A._flash_bwd_prep(out, g)
+    dq_ms = cuda_ms(lambda: A.flash_attention_bwd_dq(q, k, v, g, lse, delta,
+                                                     **args), 20)
+    dkv_ms = cuda_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, g, lse,
+                                                       delta, **args), 20)
+    want = A._flash_backward_plain(q, k, v, out, lse, g, **args)
+    got = (A.flash_attention_bwd_dq(q, k, v, g, lse, delta, **args),
+           *A.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **args))
+    row = check_k23("timing_train_shape", got, want, torch.bfloat16)
+    errs = {"K2": row["dq"]["max_abs_err"],
+            "K3": max(row["dk"]["max_abs_err"], row["dv"]["max_abs_err"])}
+    del want, got
+    rows = {"K1_train": dict(time_k1(q, k, v, 20), max_abs_err=k1_err)}
+    plain = cuda_ms(lambda: A._flash_backward_plain(q, k, v, out, lse, g,
+                                                    **args), 5, 1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    o = sdpa(qt, kt, vt, is_causal=True, scale=0.125)
+    go = g.transpose(1, 2)
+    lib = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                              retain_graph=True), 20)
+
+    pairs = B * H * S * (S + 1) // 2               # causal (q, k) pairs
+    io_q = 2 * B * S * H * D                       # one bf16 (B, S, H, D)
+    io_k = 2 * B * S * Hkv * D
+    io_rows = 2 * 4 * B * H * S                    # lse + delta, fp32
+    for name, ms, products, nbytes in (
+            ("K2", dq_ms, 3, 3 * io_q + 2 * io_k + io_rows),
+            ("K3", dkv_ms, 4, 2 * io_q + 4 * io_k + io_rows)):
+        flops = products * 2 * D * pairs
+        t_f, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          max_abs_err=errs[name],
+                          library="sdpa backward (K2+K3 pair)",
+                          bound_ms=1e3 * max(t_f, t_b),
+                          bound_by="operations" if t_f >= t_b else "bytes",
+                          flops=flops, bytes=nbytes, causal_pairs=pairs,
+                          shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D))
     return rows
 
 
@@ -539,30 +923,55 @@ def main() -> int:
 
     k1_err = phase_k1()
     k4_err = phase_k4()
+    k23_err = phase_k23()
     counts, prompts, params = phase_main_path()
     profile_row = phase_profile(params)
     del params
     phase_fp32(prompts)
+    torch.cuda.empty_cache()
+    train, train_profile = phase_train()
+    torch.cuda.empty_cache()
+    train_fp32 = phase_train_fp32_vs_plain()
+    torch.cuda.empty_cache()
+    lora_losses = phase_lora()
+    torch.cuda.empty_cache()
     timing = phase_timing()
 
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def kernel(name, source, replaces, launches, err, key, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"nbdistributed_tpu_torch/ops/csrc/{source}",
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    **{k: timing[key][k] for k in timed}, **extra)
+
+    # K1 runs on both paths: its launches are the two runs' sum, its
+    # times the serving shape's, with the train shape's beside them.
+    # Each error is the worst bf16 one of every check of the kernel.
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="nbdistributed_tpu_torch/ops/csrc/flash_attention.cu",
-             replaces="nbdistributed_tpu/ops/attention.py:405",
-             launches=counts["k1"], max_abs_err=k1_err,
-             **{k: timing["K1"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}),
-        dict(name="flash_decode", route="cuda",
-             source="nbdistributed_tpu_torch/ops/csrc/flash_decode.cu",
-             replaces="nbdistributed_tpu/ops/decode.py:214",
-             launches=counts["k4"], max_abs_err=k4_err,
-             **{k: timing["K4"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}),
+        kernel("flash_attention_fwd", "flash_attention.cu",
+               "nbdistributed_tpu/ops/attention.py:405",
+               counts["k1"] + train["k1"],
+               max(k1_err, k23_err["k1"], timing["K1_train"]["max_abs_err"]),
+               "K1", launches_by_path={"serve": counts["k1"],
+                                       "train": train["k1"]},
+               train_shape={k: timing["K1_train"][k] for k in timed}),
+        kernel("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+               "nbdistributed_tpu/ops/attention.py:688", train["k2"],
+               max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2"),
+        kernel("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+               "nbdistributed_tpu/ops/attention.py:747", train["k3"],
+               max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3"),
+        kernel("flash_decode", "flash_decode.cu",
+               "nbdistributed_tpu/ops/decode.py:214", counts["k4"], k4_err,
+               "K4"),
     ]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "timing": timing,
-         "counts": counts, "profile": profile_row, "ptxas": ptxas},
+         "counts": counts, "profile": profile_row, "train": train,
+         "train_profile": train_profile, "train_fp32_vs_plain": train_fp32,
+         "lora_losses": lora_losses, "ptxas": ptxas},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,12 +1,15 @@
 """nbdistributed_tpu_torch: the PyTorch/CUDA port of ``nbdistributed_tpu``.
 
 The JAX package beside this one is the reference.  This package carries
-the serving slice of the model stack: the Llama-family transformer
-(:mod:`.models.transformer`), KV-cache generation
-(:mod:`.models.generate`) and the continuous-batching
-:class:`~.models.serving.DecodeServer`, with the two TPU kernels on
-that path (flash-attention forward, flash-decode) rewritten by hand in
-CUDA C++ for Hopper (:mod:`.ops`).
+the serving and training slices of the model stack: the Llama-family
+transformer with its loss, remat and AdamW train step
+(:mod:`.models.transformer`), LoRA (:mod:`.models.lora`), the
+chunked-vocab loss (:mod:`.ops.xent`), data sharding and packing
+(:mod:`.utils.data`), KV-cache generation (:mod:`.models.generate`) and
+the continuous-batching :class:`~.models.serving.DecodeServer`, with
+the four TPU kernels on those paths (flash-attention forward, its dQ
+and dK/dV backward, flash-decode) rewritten by hand in CUDA C++ for
+Hopper (:mod:`.ops`).
 
 It imports ``torch`` and never ``jax``.  Entry points run on the GPU
 unless the caller passes ``device="cpu"``; on CPU tensors every kernel

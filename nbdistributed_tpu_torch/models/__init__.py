@@ -1,19 +1,30 @@
-"""The Llama-family model stack of the serving slice (counterpart of
-``nbdistributed_tpu/models``)."""
+"""The Llama-family model stack of the serving and training slices
+(counterpart of ``nbdistributed_tpu/models``)."""
 
-from .convert import params_from_jax, params_to_numpy
+from .convert import (lora_from_jax, lora_to_numpy, params_from_jax,
+                      params_to_numpy)
 from .generate import (forward_with_cache, generate, init_kv_cache,
                        truncate_logits)
+from .lora import (ALL_TARGETS, ATTN_TARGETS, lora_init, lora_merge,
+                   lora_num_params, make_lora_train_step)
 from .quant import dequantize_weight, quantize_weight
 from .serving import DecodeServer
-from .transformer import (TransformerConfig, forward, forward_hidden,
-                          init_params, llama2_7b_config,
-                          mistral_7b_config, smol_135m_config,
-                          tiny_config, tinyllama_1b_config)
+from .transformer import (AdamW, TransformerConfig, apply_optimizer_updates,
+                          forward, forward_hidden, init_params,
+                          llama2_7b_config, loss_fn, make_layer_fn,
+                          make_train_step, mistral_7b_config,
+                          named_param_leaves, num_tokens_per_step,
+                          packed_positions, param_leaves, shifted_xent,
+                          smol_135m_config, tiny_config, tinyllama_1b_config)
 
-__all__ = ["DecodeServer", "TransformerConfig", "dequantize_weight",
-           "forward", "forward_hidden", "forward_with_cache", "generate",
-           "init_kv_cache", "init_params", "llama2_7b_config",
-           "mistral_7b_config", "params_from_jax", "params_to_numpy",
-           "quantize_weight", "smol_135m_config", "tiny_config",
+__all__ = ["ALL_TARGETS", "ATTN_TARGETS", "AdamW", "DecodeServer",
+           "TransformerConfig", "apply_optimizer_updates",
+           "dequantize_weight", "forward", "forward_hidden",
+           "forward_with_cache", "generate", "init_kv_cache", "init_params",
+           "llama2_7b_config", "lora_from_jax", "lora_init", "lora_merge",
+           "lora_num_params", "lora_to_numpy", "loss_fn", "make_layer_fn",
+           "make_lora_train_step", "make_train_step", "mistral_7b_config",
+           "named_param_leaves", "num_tokens_per_step", "packed_positions", "param_leaves",
+           "params_from_jax", "params_to_numpy", "quantize_weight",
+           "shifted_xent", "smol_135m_config", "tiny_config",
            "tinyllama_1b_config", "truncate_logits"]

@@ -29,6 +29,10 @@ def _leaf_to_torch(arr, device) -> torch.Tensor:
                                     dtype=_TORCH_DTYPE[name])
 
 
+def _leaf_to_numpy(t) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
 def _check_shapes(tree: dict, cfg: TransformerConfig) -> None:
     from .transformer import layer_weight_dims
 
@@ -68,10 +72,25 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig,
 def params_to_numpy(params: dict) -> dict:
     """The inverse, for tests: every leaf as a float32 numpy array
     (bf16 widened exactly)."""
-    def leaf(t):
-        return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return {"embed": _leaf_to_numpy(params["embed"]),
+            "layers": {k: _leaf_to_numpy(v)
+                       for k, v in params["layers"].items()},
+            "final_norm": _leaf_to_numpy(params["final_norm"]),
+            "lm_head": _leaf_to_numpy(params["lm_head"])}
 
-    return {"embed": leaf(params["embed"]),
-            "layers": {k: leaf(v) for k, v in params["layers"].items()},
-            "final_norm": leaf(params["final_norm"]),
-            "lm_head": leaf(params["lm_head"])}
+
+def lora_from_jax(np_tree: dict, device=None) -> dict:
+    """The JAX adapter tree ``{"layers": {name: {"a", "b"}}}`` of numpy
+    arrays -> the port's on ``device`` (None = the GPU), each leaf in
+    its own dtype."""
+    dev = resolve_device(device)
+    return {"layers": {name: {ab: _leaf_to_torch(arr, dev)
+                              for ab, arr in leaves.items()}
+                       for name, leaves in np_tree["layers"].items()}}
+
+
+def lora_to_numpy(lora: dict) -> dict:
+    """The inverse of :func:`lora_from_jax`, every leaf as float32."""
+    return {"layers": {name: {ab: _leaf_to_numpy(t)
+                              for ab, t in leaves.items()}
+                       for name, leaves in lora["layers"].items()}}

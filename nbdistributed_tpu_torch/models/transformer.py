@@ -15,10 +15,13 @@ int8/int4 weights belong to later slices (ROADMAP).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention_reference, flash_attention
+from ..ops.xent import shifted_chunked_xent
 from ..ops._common import resolve_device
 from ..utils import fan_in_normal
 
@@ -39,6 +42,18 @@ class TransformerConfig:
     # Mistral-style sliding window: each position attends at most the
     # previous `sliding_window` tokens.  None = full causal.
     sliding_window: int | None = None
+    # Recompute each layer in the backward pass (per-layer
+    # torch.utils.checkpoint): activation memory O(S*D) per layer
+    # instead of every layer's internals, for one extra forward.
+    remat: bool = False
+    # What a rematerialized layer keeps: None (recompute the whole
+    # layer), "attn_only" / "mlp_only" (recompute that block only),
+    # "dots" (save matmul outputs; later slice, ROADMAP A5).
+    remat_policy: str | None = None
+    # Chunked-vocab cross-entropy (ops/xent.py): the loss walks the
+    # lm_head in blocks of this many vocab columns and never holds the
+    # (B, S, V) logits.  None = the standard full-logits tail.
+    ce_chunk: int | None = None
 
     @property
     def head_dim(self) -> int:
@@ -193,11 +208,54 @@ def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
-@torch.no_grad()
+def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None):
+    """The per-layer recipe (attention block + MLP block, optionally
+    rematerialized with ``torch.utils.checkpoint(use_reentrant=False)``)
+    — ``transformer.py:438``.  Returns ``one_layer(x, layer) -> x``."""
+
+    def one_layer(x, layer):
+        x = _attention_block(x, layer, cfg, positions, segment_ids)
+        return _mlp_block(x, layer, cfg)
+
+    # Validate the policy BEFORE the remat gate: a config carrying a
+    # policy but remat=False (or an unknown policy string) must fail
+    # loudly, not silently train with full activation memory.
+    policy = cfg.remat_policy
+    if policy not in (None, "dots", "attn_only", "mlp_only"):
+        raise ValueError(f"unknown remat_policy {policy!r} "
+                         f"(None, 'dots', 'attn_only' or 'mlp_only')")
+    if policy is not None and not cfg.remat:
+        raise ValueError("remat_policy is set but remat=False — the "
+                         "policy would be silently ignored; set "
+                         "remat=True (or drop the policy)")
+    if not cfg.remat:
+        return one_layer
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save matmul outputs, recompute the "
+            "rest) is not ported yet: ROADMAP A5")
+
+    def remat(fn):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    if policy == "attn_only":
+        # Recompute the attention block (the flash kernel re-runs off
+        # its saved lse); the MLP's d_ff-wide activations stay saved.
+        attn = remat(lambda x, layer: _attention_block(
+            x, layer, cfg, positions, segment_ids))
+        return lambda x, layer: _mlp_block(attn(x, layer), layer, cfg)
+    if policy == "mlp_only":
+        mlp = remat(lambda x, layer: _mlp_block(x, layer, cfg))
+        return lambda x, layer: mlp(_attention_block(
+            x, layer, cfg, positions, segment_ids), layer)
+    return remat(one_layer)
+
+
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
                    positions=None, *, segment_ids=None):
     """tokens: (B, S) int -> final-norm hidden states (B, S, D) in
-    ``cfg.dtype``, on the parameters' device."""
+    ``cfg.dtype``, on the parameters' device.  Differentiable in the
+    parameters."""
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
@@ -208,10 +266,9 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
     if segment_ids is not None:
         segment_ids = _as_tokens(segment_ids, device)
     x = params["embed"][tokens].to(cfg.dtype)
+    one_layer = make_layer_fn(cfg, positions, segment_ids)
     for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
-        x = _attention_block(x, layer, cfg, positions, segment_ids)
-        x = _mlp_block(x, layer, cfg)
+        x = one_layer(x, layer_params(params, i))
     return _rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -223,3 +280,181 @@ def forward(params: dict, tokens, cfg: TransformerConfig, positions=None,
     x = forward_hidden(params, tokens, cfg, positions,
                        segment_ids=segment_ids)
     return qlinear(x, params["lm_head"]).float()
+
+
+# ----------------------------------------------------------------------
+# loss
+
+def shifted_xent(logits, tokens, segment_ids=None):
+    """Next-token cross-entropy of logits (B, S, V) from a full-S
+    forward: positions 0..S-2 predict tokens[:, 1:] (``transformer.py
+    :532``).  With ``segment_ids`` the boundary targets (seg[i] !=
+    seg[i+1]) drop and the mean runs over the rest."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())
+    if segment_ids is None:
+        return nll.mean()
+    keep = (segment_ids[:, :-1] == segment_ids[:, 1:])[..., None]
+    return (torch.where(keep, nll, 0.0).sum()
+            / keep.sum().clamp(min=1))
+
+
+def packed_positions(segment_ids):
+    """Within-document positions of a packed batch: position restarts
+    at 0 at every document boundary.  segment_ids (B, S) non-decreasing
+    per row -> (B, S) long."""
+    seg = torch.as_tensor(segment_ids)
+    pos = torch.arange(seg.shape[1], device=seg.device)[None]
+    is_start = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
+                          seg[:, 1:] != seg[:, :-1]], dim=1)
+    seg_start = torch.cummax(torch.where(is_start, pos, 0), dim=1).values
+    return pos - seg_start
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig):
+    """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the
+    forward runs on all S tokens and the logits are shifted
+    (``transformer.py:593``).  ``batch["segments"]`` (optional, (B, S)):
+    packed documents — attention stays inside each document, RoPE
+    positions restart per document, boundary targets drop.  With
+    ``cfg.ce_chunk`` the loss takes the chunked-vocab tail and the
+    (B, S, V) logits never exist."""
+    device = params["embed"].device
+    tokens = _as_tokens(batch["tokens"], device)
+    seg = batch.get("segments")
+    positions = None
+    if seg is not None:
+        seg = _as_tokens(seg, device)
+        positions = packed_positions(seg)
+    if cfg.ce_chunk is not None:
+        hidden = forward_hidden(params, tokens, cfg, positions,
+                                segment_ids=seg)
+        return shifted_chunked_xent(hidden, params["lm_head"], tokens,
+                                    segment_ids=seg, chunk=cfg.ce_chunk)
+    logits = forward(params, tokens, cfg, positions, segment_ids=seg)
+    return shifted_xent(logits, tokens, segment_ids=seg)
+
+
+# ----------------------------------------------------------------------
+# training step
+
+def named_param_leaves(tree: dict, prefix: str = "") -> list:
+    """``(path, tensor)`` for each tensor of a nested dict, in sorted-key
+    order (the JAX pytree order); paths join keys with ``/``."""
+    out = []
+    for key in sorted(tree):
+        leaf, name = tree[key], f"{prefix}{key}"
+        out += (named_param_leaves(leaf, name + "/")
+                if isinstance(leaf, dict) else [(name, leaf)])
+    return out
+
+
+def param_leaves(tree: dict) -> list:
+    """The tensors of a nested dict, in sorted-key order (the JAX
+    pytree order)."""
+    return [leaf for _, leaf in named_param_leaves(tree)]
+
+
+@torch.no_grad()
+def _apply_update(p, u) -> None:
+    """p <- (fp32(p) + u) cast once to p's dtype, in place."""
+    p.copy_((p.float() + u).to(p.dtype))
+
+
+def apply_optimizer_updates(params: dict, updates: dict) -> None:
+    """Add ``updates`` (same tree) to ``params`` in place with fp32
+    accumulation, casting back to each leaf's storage dtype — the one
+    mixed-precision update convention (``transformer.py:656``)."""
+    for p, u in zip(param_leaves(params), param_leaves(updates)):
+        _apply_update(p, u.float())
+
+
+class AdamW(torch.optim.Optimizer):
+    """``optax.adamw`` in ``torch.optim`` form: the same defaults (b1
+    0.9, b2 0.999, eps 1e-8, weight_decay 1e-4, where ``torch.optim.
+    AdamW`` has 1e-2) and the same update
+    ``u = -lr * (m_hat / (sqrt(v_hat) + eps) + weight_decay * p)``.
+
+    Mixed precision as in the JAX package: the moments are kept in the
+    leaf's dtype, as optax keeps them with ``mu_dtype=None``; each
+    leaf's update is computed in fp32 from its grad and moments, added
+    to the fp32 value of the leaf and cast once to the leaf's dtype
+    (``apply_optimizer_updates``).  A bf16 leaf is therefore never
+    stepped in bf16 arithmetic.  Leaves are updated in place."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        if lr <= 0:
+            raise ValueError(f"lr must be > 0, got {lr}")
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, b1, b2 = group["lr"], group["b1"], group["b2"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = st["step"]
+                g = p.grad.float()
+                mu = st["mu"].float() * b1 + (1 - b1) * g
+                nu = st["nu"].float() * b2 + (1 - b2) * (g * g)
+                # Stored in the leaf's dtype, then used as stored.
+                mu = st["mu"].copy_(mu).float()
+                nu = st["nu"].copy_(nu).float()
+                mu_hat = mu / (1 - b1 ** t)
+                nu_hat = nu / (1 - b2 ** t)
+                u = mu_hat / (nu_hat.sqrt() + eps) + wd * p.float()
+                _apply_update(p, -lr * u)
+
+
+def _trainable(optimizer) -> list:
+    leaves = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in leaves:
+        if not p.is_leaf:
+            raise ValueError("the optimizer's parameters must be leaf "
+                             "tensors")
+        p.requires_grad_(True)
+    return leaves
+
+
+def _optimizer_step(optimizer, loss_of):
+    """Returns ``step(*args) -> loss``: clear the grads of the
+    optimizer's leaves, ``loss_of(*args)``, its gradients by autograd
+    and one ``optimizer`` step.  The loss comes back detached."""
+    leaves = _trainable(optimizer)
+
+    def step(*args):
+        for p in leaves:
+            p.grad = None
+        loss = loss_of(*args)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_train_step(cfg: TransformerConfig, optimizer):
+    """Returns ``step(params, batch) -> loss``: :func:`loss_fn`, its
+    gradients by autograd (through K2/K3 when ``cfg.use_flash``) and
+    one ``optimizer`` step, which updates ``params`` in place (the
+    counterpart of ``transformer.py:665``, whose step returns new
+    params and optimizer state instead).  ``optimizer`` holds the
+    leaves of ``params`` (e.g. ``AdamW(param_leaves(params), lr)``);
+    they are made to require grad.  The loss comes back detached."""
+    return _optimizer_step(optimizer,
+                           lambda params, batch: loss_fn(params, batch, cfg))
+
+
+def num_tokens_per_step(batch_shape) -> int:
+    return math.prod(batch_shape)

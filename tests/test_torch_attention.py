@@ -97,8 +97,9 @@ def test_public_flash_attention_and_reference_match_jax():
 
 
 def test_wrapper_refuses_what_it_cannot_run():
-    """No silent fallback: mixed or non-CPU/CUDA devices, grad inputs
-    and a window without causality raise; launches stay 0 on the CPU."""
+    """No silent fallback: mixed or non-CPU/CUDA devices and a window
+    without causality raise; gradients flow through the plain
+    backward; launches stay 0 on the CPU."""
     q, k, v = (torch.from_numpy(x) for x in _inputs(4, 1, 8, 8, 2, 1, 16))
     before = flash_attention.launches
     flash_attention(q, k, v)
@@ -106,14 +107,18 @@ def test_wrapper_refuses_what_it_cannot_run():
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="CPU tensors"):
         flash_attention(*meta)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q.clone().requires_grad_(), k, v)
+    qg = q.clone().requires_grad_()
+    dq, = torch.autograd.grad(flash_attention(qg, k, v).sum(), qg)
+    assert dq.shape == q.shape and torch.isfinite(dq).all()
+    assert dq.abs().sum() > 0
     with pytest.raises(ValueError, match="causal"):
         flash_attention(q, k, v, causal=False, window=4)
     with pytest.raises(ValueError, match="Sq == Sk"):
         flash_attention(q[:, :4], k, v,
                         segment_ids=torch.zeros(1, 4, dtype=torch.int32))
     assert flash_attention.launches == 0
+    assert tattn.flash_attention_bwd_dq.launches == 0
+    assert tattn.flash_attention_bwd_dkv.launches == 0
 
 
 def test_kernel_launch_on_a_cpu_box_raises_not_falls_back(monkeypatch):
@@ -125,8 +130,14 @@ def test_kernel_launch_on_a_cpu_box_raises_not_falls_back(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     q, k, v = (torch.from_numpy(x) for x in _inputs(5, 1, 8, 8, 2, 1, 32))
+    args = dict(causal=True, scale=0.25, offsets=(0, 0), window=None,
+                segment_ids=None, kv_segment_ids=None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tattn._flash_forward_cuda(q, k, v, causal=True, scale=0.25,
-                                  offsets=(0, 0), window=None,
-                                  segment_ids=None, kv_segment_ids=None)
+        tattn._flash_forward_cuda(q, k, v, **args)
+    out, lse = tattn._flash_forward_plain(q, k, v, **args)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tattn._flash_backward_cuda(q, k, v, out, lse, torch.ones_like(q),
+                                   **args)
     assert flash_attention.launches == 0
+    assert tattn.flash_attention_bwd_dq.launches == 0
+    assert tattn.flash_attention_bwd_dkv.launches == 0

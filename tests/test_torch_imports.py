@@ -91,13 +91,28 @@ def test_decode_group_limit_matches_kernel():
     assert m and int(m.group(1)) == decode.MAX_GROUP
 
 
+# The wrapper module's ARGTYPES attribute of each C entry point.
+_ARGTYPES_ATTR = {"nbd_flash_attention_bwd_dq": "DQ_ARGTYPES",
+                  "nbd_flash_attention_bwd_dkv": "DKV_ARGTYPES"}
+
+
 @pytest.mark.parametrize("module,source,fn", [
     ("attention", "flash_attention.cu", "nbd_flash_attention_fwd"),
-    ("decode", "flash_decode.cu", "nbd_flash_decode")])
+    ("decode", "flash_decode.cu", "nbd_flash_decode"),
+    ("attention", "flash_attention_bwd.cu", "nbd_flash_attention_bwd_dq"),
+    ("attention", "flash_attention_bwd.cu", "nbd_flash_attention_bwd_dkv")])
 def test_ctypes_bindings_match_c_signatures(module, source, fn):
     """The wrappers' ctypes argtypes follow the kernels' C entry points
     parameter by parameter (a mismatch passes ints as floats or cuts
     pointers, and shows only on the card)."""
     mod = importlib.import_module(f"nbdistributed_tpu_torch.ops.{module}")
     want = _c_signature(PORT / "ops" / "csrc" / source, fn)
-    assert None not in want and mod.ARGTYPES == want
+    got = getattr(mod, _ARGTYPES_ATTR.get(fn, "ARGTYPES"))
+    assert None not in want and got == want
+
+
+def test_every_kernel_source_is_built():
+    """Every CUDA source is in the build list, and nothing else is."""
+    from nbdistributed_tpu_torch.ops import _build
+    sources = sorted(p.stem for p in (PORT / "ops" / "csrc").glob("*.cu"))
+    assert sorted(_build.KERNELS) == sources
