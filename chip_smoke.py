@@ -12,18 +12,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
 1. build the kernels (one ``nvcc`` per source, in parallel); the card's
    name and power limit;
 2. K1, the flash-attention forward, called through its wrappers,
-   against its plain version in bf16 (and one fp32 case) at the
-   serving shapes and the training path's (B=4, S=2048, the training
-   batch's packed-document segments);
+   against its plain version in bf16 (and one fp32 case): one 64 x 64
+   tile, group 1, the serving shapes and the training path's (B=4,
+   S=2048, without and with the training batch's packed-document
+   segments);
 3. K4, flash-decode, called through its wrapper, against its plain
    version in bf16: per-row positions over [0, T-1], a window, an int8
    cache, the lse, and the serving path's own shape and positions;
 4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
-   wrapper the path calls, against the plain backward in bf16 (causal
-   S=2048 with group 3 at D=64 and D=128, non-causal Sq != Sk, a
-   window, segments, offsets, D=32, and the training path's shape
-   with its batch's segments) and one fp32 case; the K1 forward that
-   feeds each case is held to the plain forward first;
+   wrapper the path calls, against the plain backward in bf16 (one
+   tile, group 1, causal S=2048 with group 3 at D=64 and D=128,
+   non-causal Sq != Sk, a window, segments, offsets, D=32, and the
+   training path's shape with its batch's segments) and one fp32 case;
+   the K1 forward that feeds each case is held to the plain forward
+   first;
 5. the serving path, with every launch count set to 0 just before and
    read just after: full-width ``forward`` (bf16, B=1, S=512) and a
    bf16 ``DecodeServer`` answering 12 staggered requests; K1 must have
@@ -45,7 +47,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    serving and the training shape), beside its plain version, one
    PyTorch library call and the card's bound.
 
-Then one JSON line listing the kernels, and as the last line
+Then one JSON line listing the kernels (each with its design, bf16 /
+fp32, and ptxas's registers, spills and static shared memory per
+instantiation), and as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 when there is no CUDA device.
@@ -110,20 +114,21 @@ def tol_ratio(got, want, atol, rtol):
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-# Both sides of a kernel check compute in fp32 from the same inputs and
-# round once to the output dtype, so a bf16 element may differ by one
-# bf16 ulp (at most 2^-7 = 7.8e-3 of its magnitude) where the two fp32
-# results straddle a rounding boundary, and by almost nothing else.
-# K1 sums its keys in another order than the plain version (tile by
-# tile, rescaled), so it gets a little more room than K4; the lse is
-# fp32 on both sides.  Measured errors are in PERF.md beside each limit.
+# The plain side computes in fp32 and rounds once to the output dtype,
+# so a bf16 element may differ by one bf16 ulp (at most 2^-7 = 7.8e-3 of
+# its magnitude) where two fp32 results straddle a rounding boundary.
+# K1 sums its keys in another order (tile by tile, rescaled) and in bf16
+# rounds P to bf16 before P.V, as attention_reference does, so it gets
+# more room than K4; the lse is fp32 on both sides.  Measured errors are
+# in PERF.md beside each limit.
 K1_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
 K4_TOL = (1e-3, 8e-3)
 LSE_TOL = 1e-4
 # K2/K3 sum up to S * group terms per element (dK/dV over every row of
 # the group that sees a key), in tiles, where the plain version sums in
-# one GEMM: bf16 keeps K1's one-ulp room; fp32 allows the longer sums'
-# reassociation (~1e-6 of the sum of |terms|, which reach ~10-100).
+# one GEMM: bf16 keeps K1's room (K3 feeds P and dS to the tensor cores
+# as bf16 hi + lo pairs: one rounding alone goes past it); fp32 allows
+# the longer sums' reassociation (~1e-6 of the sum of |terms|, ~10-100).
 K23_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-4, 1e-4)}
 # fp32 loss and gradients through the kernels against the plain path
 # (autograd of attention_reference), relative L2 per leaf: 30 layers of
@@ -181,24 +186,30 @@ def check_k1(name, out, lse, ref, ref_lse, dtype):
 def phase_k1():
     """K1 through the wrappers the path calls — ``flash_attention`` for
     the output, ``_flash_forward`` (the JAX counterpart's entry, which
-    returns the lse) — against ``_flash_forward_plain``, at the serving
-    shapes and at the training path's (B=4, S=2048, its batch's
+    returns the lse) — against ``_flash_forward_plain``: one 64 x 64
+    tile (the tensor-core layout alone), group 1, the serving shapes and
+    the training path's (B=4, S=2048, without and with its batch's
     segments)."""
     import torch
     from nbdistributed_tpu_torch.ops import attention as A
 
     bf16 = torch.bfloat16
-    cases = [("causal_S1024", 2, 1024, bf16, None, None),
-             ("causal_ragged_S1000", 2, 1000, bf16, None, None),
-             ("window256_S1024", 2, 1024, bf16, 256, None),
-             ("segments_S1024", 2, 1024, bf16, None, "cuts"),
-             ("forward_shape_S512", 1, 512, bf16, None, None),
-             ("train_shape_S2048_segments", TRAIN_B, 2048, bf16, None,
+    # name, B, S, H, Hkv, dtype, window, segments
+    cases = [("one_tile_S64", 1, 64, 1, 1, bf16, None, None),
+             ("group1_S1024", 2, 1024, 4, 4, bf16, None, None),
+             ("causal_S1024", 2, 1024, 9, 3, bf16, None, None),
+             ("causal_ragged_S1000", 2, 1000, 9, 3, bf16, None, None),
+             ("window256_S1024", 2, 1024, 9, 3, bf16, 256, None),
+             ("segments_S1024", 2, 1024, 9, 3, bf16, None, "cuts"),
+             ("forward_shape_S512", 1, 512, 9, 3, bf16, None, None),
+             ("train_shape_S2048", TRAIN_B, 2048, 9, 3, bf16, None, None),
+             ("train_shape_S2048_segments", TRAIN_B, 2048, 9, 3, bf16, None,
               "train"),
-             ("fp32_ragged_S1000", 2, 1000, torch.float32, None, None)]
+             ("fp32_ragged_S1000", 2, 1000, 9, 3, torch.float32, None,
+              None)]
     worst = 0.0
-    for name, B, S, dtype, window, segs in cases:
-        q, k, v = k1_inputs(B, S, 9, 3, 64, dtype, seed=len(name))
+    for name, B, S, H, Hkv, dtype, window, segs in cases:
+        q, k, v = k1_inputs(B, S, H, Hkv, 64, dtype, seed=len(name))
         seg = case_segments(segs, B, S)
         out = A.flash_attention(q, k, v, causal=True, scale=0.125,
                                 window=window, segment_ids=seg)
@@ -326,6 +337,10 @@ def phase_k23():
     bf16, fp32 = torch.bfloat16, torch.float32
     # name, B, Sq, Sk, H, Hkv, D, dtype, causal, window, segments, offsets
     cases = [
+        ("one_tile_S64", 1, 64, 64, 1, 1, 64, bf16, True, None, None,
+         (0, 0)),
+        ("group1_S1024", 2, 1024, 1024, 4, 4, 64, bf16, True, None, None,
+         (0, 0)),
         ("causal_S2048_g3_D64", 2, 2048, 2048, 9, 3, 64, bf16, True, None,
          None, (0, 0)),
         ("causal_S2048_g3_D128", 1, 2048, 2048, 6, 2, 128, bf16, True,
@@ -894,6 +909,48 @@ def time_train_shape():
 
 # ----------------------------------------------------------------------
 
+# The kernel functions of each source, as ptxas names them.
+KERNEL_FUNCTIONS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                    "flash_bwd_dq_kernel", "flash_bwd_dkv_wgmma_kernel",
+                    "flash_bwd_dkv_kernel", "decode_kernel")
+
+
+def ptxas_report(log):
+    """Registers, spills and static shared memory of every instantiation
+    of ``KERNEL_FUNCTIONS``, from nvcc's ``-Xptxas -v`` output, keyed by
+    the kernel's name and its mangled template arguments, as
+    ``flash_fwd_wgmma_kernel<Li64E>`` (D = 64) or
+    ``decode_kernel<13__nv_bfloat16aLi64E>`` (bf16 query, int8 cache)."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((n for n in KERNEL_FUNCTIONS
+                         if re.search(rf"\d{n}I", mangled)), None)
+            # ...<len><name>I<template arguments>Ev<parameters>: every
+            # kernel is a template returning void.
+            args = (re.search(rf"\d{name}I(\w*?)Ev", mangled)
+                    if name else None)
+            cur = f"{name}<{args[1]}>" if args else None
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            out[cur]["static_smem_bytes"] = int(m[1])
+    return out
+
+
 def gpu_name_and_power():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -914,12 +971,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     spent = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in _build.KERNELS}
+    ptxas = {n: ptxas_report(_build.build_log(n)) for n in _build.KERNELS}
     card = gpu_name_and_power()
     say("build", seconds=time.perf_counter() - t0, per_kernel_s=spent,
-        card=card, torch=torch.__version__, cuda=torch.version.cuda)
+        card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        ptxas=ptxas)
 
     k1_err = phase_k1()
     k4_err = phase_k4()
@@ -939,32 +995,42 @@ def main() -> int:
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def kernel(name, source, replaces, launches, err, key, **extra):
+    def kernel(name, source, replaces, launches, err, key, design,
+               functions, **extra):
+        lib = source.removesuffix(".cu")
         return dict(name=name, route="cuda",
                     source=f"nbdistributed_tpu_torch/ops/csrc/{source}",
                     replaces=replaces, launches=launches, max_abs_err=err,
-                    **{k: timing[key][k] for k in timed}, **extra)
+                    **{k: timing[key][k] for k in timed}, design=design,
+                    ptxas={f: r for f, r in ptxas[lib].items()
+                           if f.split("<")[0] in functions}, **extra)
 
     # K1 runs on both paths: its launches are the two runs' sum, its
     # times the serving shape's, with the train shape's beside them.
     # Each error is the worst bf16 one of every check of the kernel.
+    tensor_cores = "wgmma bf16 / scalar fp32"
     kernels = [
         kernel("flash_attention_fwd", "flash_attention.cu",
                "nbdistributed_tpu/ops/attention.py:405",
                counts["k1"] + train["k1"],
                max(k1_err, k23_err["k1"], timing["K1_train"]["max_abs_err"]),
-               "K1", launches_by_path={"serve": counts["k1"],
-                                       "train": train["k1"]},
+               "K1", tensor_cores,
+               ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
+               launches_by_path={"serve": counts["k1"],
+                                 "train": train["k1"]},
                train_shape={k: timing["K1_train"][k] for k in timed}),
         kernel("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:688", train["k2"],
-               max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2"),
+               max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2",
+               "scalar fp32 FMA, both dtypes", ("flash_bwd_dq_kernel",)),
         kernel("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:747", train["k3"],
-               max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3"),
+               max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3",
+               tensor_cores,
+               ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")),
         kernel("flash_decode", "flash_decode.cu",
                "nbdistributed_tpu/ops/decode.py:214", counts["k4"], k4_err,
-               "K4"),
+               "K4", "scalar fp32 FMA", ("decode_kernel",)),
     ]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -4,8 +4,9 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface (pointers,
 ints, the CUDA stream; it returns the ``cudaGetLastError()`` code of
 its launch) and is compiled on its own by ``nvcc`` for ``sm_90a`` into
 a shared library under ``build/nbd_torch_kernels/`` at the root of the
-checkout.  The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded.
+checkout.  The library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and
+a stale one is never loaded.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them.  Nothing here runs at import time: the CPU tests import
 every module on machines without ``nvcc``.
@@ -51,7 +52,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # A source's hash covers the headers it may include (csrc/*.cuh).
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -17,35 +17,281 @@
 // forward's shape (B = 1, S = 512, H = 9, D = 64, bf16) the two floors
 // are close -- 0.47 us of bytes, 0.31 us of tensor-core work -- and the
 // work grows as S^2 against the bytes' S, so past S ~ 800 the tensor
-// cores set the floor.  This first version does its products with fp32
-// FMAs from shared memory (no mma/wgmma yet), so it runs far above
-// either floor; moving the two products onto wgmma is later work.
-// Design: one block per (batch * kv head, tile of 64 "folded" rows),
-// row r = qi * group + g, so the whole GQA group of a query position
-// shares each K/V tile staged in shared memory (K/V are read once per
-// group, never repeated to H heads).  The k loop runs only over the
-// tiles the block's causal / window range can see, as
-// _causal_k_iters / _window_first_k_block do on the TPU.
+// cores set the floor (train shape B = 4, S = 2048: 19.3 GFLOP, 20 us).
+//
+// Layout shared by both versions: one block per (batch * kv head, tile
+// of 64 "folded" rows), row r = qi * group + g, so the whole GQA group of
+// a query position shares each K/V tile staged in shared memory (K/V are
+// read once per group, never repeated to H heads).  The k loop runs only
+// over the tiles the block's causal / window range can see (key_range in
+// sm90.cuh, as _causal_k_iters / _window_first_k_block on the TPU).
+//
+// bf16: the tensor-core kernel (flash_fwd_wgmma_kernel).  One warpgroup
+// of 128 threads per block.  Q stays in shared memory as bf16, loaded
+// once; K/V tiles of 64 keys come through a two-stage ring filled by
+// 16-byte cp.async, so the next tile loads while this one computes.
+// S = Q K^T is wgmma m64n64k16 from shared memory (both K-major); the
+// online softmax runs on the accumulator registers in the log2 domain
+// (scale * log2 e folded into S, exp2f), each row's max and sum over the
+// four lanes that hold it; P is rounded to bf16 in registers and is the
+// register A operand of O += P V (wgmma, V the MN-major B).  The mask is
+// applied only on tiles that need it (tile_needs_mask: the causal
+// diagonal, window edges, ragged Sk, padded rows, mixed segments), with
+// the tile's key segments staged in shared memory; full tiles skip it.
+// Row tiles are launched in reverse, so the heaviest causal tiles start
+// first.  O is normalised in registers and stored as bf16 pairs.  P is
+// rounded to bf16 before its product, as attention_reference casts the
+// probabilities to v's dtype; l sums the fp32 p, so the lse is exact.
+// D = 32 is held zero-padded to 64 columns (the wgmma tile's K is 64
+// elements of a 128-byte swizzle row).  tests/test_torch_attention_tiles.py
+// mirrors the tile loop and its masks, and this rounding, on the CPU.
+//
+// fp32: the scalar kernel (flash_fwd_kernel), fp32 FMAs from shared
+// memory, by design: the tensor cores take fp32 only as TF32, whose ~3
+// decimal digits cannot meet the fp32 checks (1e-5), and fp32 is the
+// port's checking dtype; serving and training run in bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
+#include "sm90.cuh"
 
 namespace {
 
+using nbd::kTileBytes;
+using nbd::kWarpgroup;
+using nbd::padded_dim;
+
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBM = 64;      // folded query rows per block
 constexpr int kBN = 64;      // keys per tile
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // scalar kernel
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ----------------------------------------------------------------------
+// bf16: tensor cores
+
+// Shared memory of flash_fwd_wgmma_kernel, byte offsets from a
+// 1024-byte-aligned base: Q, two stages of K and of V (each kNcb tiles),
+// two stages of the tile's key segments.
+template <int D>
+struct FwdSmem {
+  static constexpr int kNcb = padded_dim(D) / 64;  // 64-column blocks
+  static constexpr int kQ = 0;
+  static constexpr int kK = kNcb * kTileBytes;
+  static constexpr int kV = kK + 2 * kNcb * kTileBytes;
+  static constexpr int kSeg = kV + 2 * kNcb * kTileBytes;
+  static constexpr size_t kBytes = kSeg + 2 * kBN * sizeof(int) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup) flash_fwd_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ qseg, const int* __restrict__ kseg, int Sq, int Sk, int H, int Hkv,
+    int group, float scale, int causal, int window, int q_off, int k_off) {
+  using L = FwdSmem<D>;
+  constexpr int kNcb = L::kNcb, kSteps = padded_dim(D) / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = nbd::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  int* seg_s = reinterpret_cast<int*>(smem_raw + (base - raw) + L::kSeg);
+
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest causal tiles first
+  const int nrows = Sq * group;
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const bool has_seg = kseg != nullptr;
+
+  // This thread's two rows, 16 w + g + 8 h: query index (-1 if padded)
+  // and segment; and whether one segment covers every row of the block.
+  const int seg0 = has_seg ? qseg[static_cast<size_t>(b) * Sq + row0 / group] : 0;
+  int qi_t[2], seg_t[2];
+  bool rows_vote = true;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = row0 + 16 * w + g + 8 * h;
+    qi_t[h] = R < nrows ? R / group : -1;
+    seg_t[h] = (has_seg && R < nrows) ? qseg[static_cast<size_t>(b) * Sq + R / group] : 0;
+    rows_vote = rows_vote && (qi_t[h] < 0 || seg_t[h] == seg0);
+  }
+  const bool rows_uniform = __syncthreads_and(rows_vote) != 0;
+
+  auto kv_row = [&](const __nv_bfloat16* x, int ki) -> const __nv_bfloat16* {
+    return ki < Sk ? x + ((static_cast<size_t>(b) * Sk + ki) * Hkv + hk) * D : nullptr;
+  };
+  // Start the copy of key tile kb0 (K, V and the keys' segments) into
+  // stage st.
+  auto issue = [&](int kb0, int st) {
+    nbd::load_tile<D, kWarpgroup>(base + L::kK + st * kNcb * kTileBytes, tid, k,
+                                  [&](int r) { return kv_row(k, kb0 + r); });
+    nbd::load_tile<D, kWarpgroup>(base + L::kV + st * kNcb * kTileBytes, tid, v,
+                                  [&](int r) { return kv_row(v, kb0 + r); });
+    if (has_seg && tid < kBN) {
+      const int ki = kb0 + tid;
+      nbd::cp_async4(seg_s + st * kBN + tid,
+                     kseg + static_cast<size_t>(b) * Sk + min(ki, Sk - 1), ki < Sk);
+    }
+    nbd::cp_async_commit();
+  };
+
+  nbd::load_tile<D, kWarpgroup>(base + L::kQ, tid, q, [&](int r) -> const __nv_bfloat16* {
+    const int R = row0 + r;
+    if (R >= nrows) return nullptr;
+    return q + ((static_cast<size_t>(b) * Sq + R / group) * H + hk * group + R % group) * D;
+  });
+  int kbeg, kend;
+  nbd::key_range(row0, nrows, group, Sk, causal, window, q_off, k_off, &kbeg, &kend);
+  if (kbeg < kend)
+    issue(kbeg, 0);
+  else
+    nbd::cp_async_commit();
+
+  float acc[kNcb][32];
+#pragma unroll
+  for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * kLog2e;
+
+  int st = 0;
+  for (int kb0 = kbeg; kb0 < kend; kb0 += kBN, st ^= 1) {
+    if (kb0 + kBN < kend) {
+      issue(kb0 + kBN, st ^ 1);
+      nbd::cp_async_wait<1>();
+    } else {
+      nbd::cp_async_wait<0>();
+    }
+    nbd::fence_proxy_async();
+    // Tile kb0 (and Q) in shared memory; one segment over its keys and rows?
+    // The vote is also the barrier that makes every thread's copies visible
+    // to the whole warpgroup, so it runs on every tile.
+    const bool vote = !has_seg || tid >= kBN || kb0 + tid >= Sk || seg_s[st * kBN + tid] == seg0;
+    const bool tile_vote = __syncthreads_and(vote) != 0;
+    const bool seg_uniform = rows_uniform && tile_vote;
+    const uint32_t kt = base + L::kK + st * kNcb * kTileBytes;
+    const uint32_t vt = base + L::kV + st * kNcb * kTileBytes;
+
+    // S = Q K^T (fp32 in registers).
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
+      nbd::wgmma_ss(s, nbd::desc_kmajor(base + L::kQ + off), nbd::desc_kmajor(kt + off), kk > 0);
+    }
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+    nbd::fence_regs(s);
+
+    // Online softmax in the log2 domain; s[4 j + 2 h + e] is row
+    // 16 w + g + 8 h, key kb0 + 8 j + 2 t + e.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= sl2;
+    if (nbd::tile_needs_mask(row0, kb0, nrows, group, Sk, causal, window, q_off, k_off, has_seg,
+                             seg_uniform)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const bool keep = nbd::pair_kept(qi_t[h], kb0 + c, Sk, causal, window, q_off, k_off) &&
+                              (!has_seg || seg_t[h] == seg_s[st * kBN + c]);
+            if (!keep) s[4 * j + 2 * h + e] = kNegInf;
+          }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[4 * j + 2 * h + e] - m_new);
+          s[4 * j + 2 * h + e] = p;
+          sum += p;
+        }
+      l[h] = l[h] * corr[h] + sum;  // this thread's columns; summed over the row at the end
+    }
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+
+    // O += P V, P rounded to bf16 as the register A operand.
+    uint32_t a[4][4];
+    nbd::acc_to_a(s, a);
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        nbd::wgmma_rs(acc[c], a[kk], nbd::desc_mnmajor(vt + c * kTileBytes + kk * 16 * 128));
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c) nbd::fence_regs(acc[c]);
+    __syncthreads();  // every thread is done with stage st before it is refilled
+  }
+  nbd::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int R = row0 + 16 * w + g + 8 * h;
+    if (qi_t[h] < 0) continue;
+    const int qi = qi_t[h], hq = hk * group + R % group;
+    const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* dst = o + ((static_cast<size_t>(b) * Sq + qi) * H + hq) * D;
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * t;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+              acc[c][4 * j + 2 * h] * inv, acc[c][4 * j + 2 * h + 1] * inv);
+      }
+    if (t == 0)
+      lse[(static_cast<size_t>(b) * H + hq) * Sq + qi] = m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f));
+  }
 }
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                const int* qseg, const int* kseg, int B, int Sq, int Sk, int H, int Hkv,
+                float scale, int causal, int window, int q_off, int k_off, cudaStream_t s) {
+  static std::atomic<unsigned long long> attr_done{0};
+  constexpr size_t smem = FwdSmem<D>::kBytes;
+  cudaError_t err = nbd::ensure_smem(reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>),
+                                     smem, attr_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = H / Hkv;
+  const int tiles = (Sq * group + kBM - 1) / kBM;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(B * Hkv, tiles);
+  flash_fwd_wgmma_kernel<D><<<grid, kWarpgroup, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, qseg, kseg, Sq,
+      Sk, H, Hkv, group, scale, causal, window, q_off, k_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------------------------
+// fp32: scalar FMAs
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -53,10 +299,10 @@ constexpr size_t smem_bytes() {
          sizeof(int) * 2 * kBM;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ qseg,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, const int* __restrict__ qseg,
     const int* __restrict__ kseg, int Sq, int Sk, int H, int Hkv, int group,
     float scale, int causal, int window, int q_off, int k_off) {
   static_assert(kBM == 64 && kBN == 64 && kThreads == 256, "tiling below assumes 16x16 threads");
@@ -86,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     float x = 0.f;
     if (R < nrows) {
       const int qi = R / group, g = R % group;
-      x = to_f(q[((static_cast<size_t>(b) * Sq + qi) * H + hk * group + g) * D + d]) * scale;
+      x = q[((static_cast<size_t>(b) * Sq + qi) * H + hk * group + g) * D + d] * scale;
     }
     q_s[r * DP + d] = x;
   }
@@ -98,15 +344,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     l_s[tid] = 0.f;
   }
 
-  // Keys this block's rows can see: [kbeg, kend).
-  const int qi_lo = row0 / group;
-  const int qi_hi = (min(row0 + kBM, nrows) - 1) / group;
-  int kbeg = 0, kend = Sk;
-  if (causal) {
-    kend = min(Sk, qi_hi + q_off - k_off + 1);
-    if (window > 0) kbeg = max(0, qi_lo + q_off - k_off - window + 1);
-  }
-  kbeg = (kbeg / kBN) * kBN;
+  int kbeg, kend;
+  nbd::key_range(row0, nrows, group, Sk, causal, window, q_off, k_off, &kbeg, &kend);
 
   float acc[4][DJ];
 #pragma unroll
@@ -121,8 +360,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float kx = 0.f, vx = 0.f;
       if (ki < Sk) {
         const size_t off = ((static_cast<size_t>(b) * Sk + ki) * Hkv + hk) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       k_s[c * DP + d] = kx;
       v_s[c * D + d] = vx;
@@ -153,11 +392,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, ki = kb0 + c;
-        bool keep = qi >= 0 && ki < Sk;
-        if (causal) {
-          keep = keep && (ki + k_off <= qi + q_off);
-          if (window > 0) keep = keep && (ki + k_off > qi + q_off - window);
-        }
+        bool keep = nbd::pair_kept(qi, ki, Sk, causal, window, q_off, k_off);
         if (kseg != nullptr && keep) keep = sg_s[r] == kseg[static_cast<size_t>(b) * Sk + ki];
         p_s[r * PP + c] = keep ? s[i][j] : kNegInf;
       }
@@ -220,9 +455,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     if (R >= nrows) continue;
     const int qi = R / group, g = R % group;
     const float l_safe = fmaxf(l_s[r], 1e-30f);
-    T* dst = o + ((static_cast<size_t>(b) * Sq + qi) * H + hk * group + g) * D;
+    float* dst = o + ((static_cast<size_t>(b) * Sq + qi) * H + hk * group + g) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = from_f<T>(acc[i][j] / l_safe);
+    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = acc[i][j] / l_safe;
   }
   if (tid < kBM && row0 + tid < nrows) {
     const int R = row0 + tid, qi = R / group, g = R % group;
@@ -231,56 +466,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 }
 
-// Opt flash_fwd_kernel<T, D> into its dynamic shared memory (over the
-// 48 KB default) once per device, not before every launch.
-template <typename T, int D>
-cudaError_t ensure_smem_attr() {
-  static std::atomic<unsigned long long> done{0};  // bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes<D>()));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* qseg, const int* kseg, int B, int Sq, int Sk, int H, int Hkv,
-           float scale, int causal, int window, int q_off, int k_off, cudaStream_t s) {
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, float* lse,
+                const int* qseg, const int* kseg, int B, int Sq, int Sk, int H, int Hkv,
+                float scale, int causal, int window, int q_off, int k_off, cudaStream_t s) {
+  static std::atomic<unsigned long long> attr_done{0};
   const size_t smem = smem_bytes<D>();
-  cudaError_t err = ensure_smem_attr<T, D>();
+  cudaError_t err =
+      nbd::ensure_smem(reinterpret_cast<const void*>(flash_fwd_kernel<D>), smem, attr_done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int group = H / Hkv;
   dim3 grid((Sq * group + kBM - 1) / kBM, B * Hkv);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, qseg, kseg, Sq, Sk, H, Hkv, group, scale, causal, window,
+  flash_fwd_kernel<D><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, qseg, kseg, Sq, Sk, H, Hkv, group, scale, causal, window,
       q_off, k_off);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int by_dim(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-           const int* qseg, const int* kseg, int B, int Sq, int Sk, int H, int Hkv,
-           float scale, int causal, int window, int q_off, int k_off, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+#define NBD_FWD_ARGS q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16.  window <= 0 means none; qseg /
-// kseg (B, Sq) / (B, Sk) int32 or null.  Returns cudaGetLastError().
+// kseg (B, Sq) / (B, Sk) int32 or null.  bf16 q, k, v must be 16-byte
+// aligned (cp.async).  Returns cudaGetLastError().
 extern "C" int nbd_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* o, float* lse, const int* qseg,
                                        const int* kseg, int B, int Sq, int Sk, int H,
@@ -289,9 +499,22 @@ extern "C" int nbd_flash_attention_fwd(const void* q, const void* k, const void*
   if (Hkv <= 0 || H % Hkv != 0 || B <= 0 || Sq <= 0 || Sk <= 0 || B * Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_dim<float>(D, q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s);
-  if (dtype == 1)
-    return by_dim<__nv_bfloat16>(D, q, k, v, o, lse, qseg, kseg, B, Sq, Sk, H, Hkv, scale, causal, window, q_off, k_off, s);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: return launch_fp32<32>(NBD_FWD_ARGS);
+      case 64: return launch_fp32<64>(NBD_FWD_ARGS);
+      case 128: return launch_fp32<128>(NBD_FWD_ARGS);
+      default: break;
+    }
+  } else if (dtype == 1) {
+    if (!nbd::aligned16(q) || !nbd::aligned16(k) || !nbd::aligned16(v))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    switch (D) {
+      case 32: return launch_bf16<32>(NBD_FWD_ARGS);
+      case 64: return launch_bf16<64>(NBD_FWD_ARGS);
+      case 128: return launch_bf16<128>(NBD_FWD_ARGS);
+      default: break;
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,10 +25,7 @@
 // shape (B = 4, S = 2048, H = 9, Hkv = 3, D = 64, bf16) that is
 // 75.5M pairs: 29 GFLOP for K2 (29 us at 989 TFLOP/s) against ~35 MB
 // of I/O (~10 us at 3.35 TB/s), and 39 GFLOP for K3 (39 us) -- both
-// bound by operations.  This first version does every product with
-// scalar fp32 FMAs from shared memory (no mma/wgmma yet), so it runs
-// far above that floor; moving the products onto the tensor cores is
-// later work.
+// bound by operations.
 //
 // Design.  Blocks on the H100 run in no order, so nothing is carried
 // between them as the TPU's sequential grid carries its fp32 scratch:
@@ -37,25 +34,62 @@
 //     row r = qi * group + g, exactly K1's layout: the whole GQA group
 //     of a query position shares each K/V tile.  The block's Q, dO,
 //     lse and delta stay in shared memory while it walks the key tiles
-//     its causal / window range can see (_causal_k_iters /
-//     _window_first_k_block).
+//     its causal / window range can see (key_range in sm90.cuh:
+//     _causal_k_iters / _window_first_k_block).  Scalar fp32 FMAs from
+//     shared memory in both dtypes; its tensor-core redesign is next.
 //   * K3: one block per (batch * kv head, tile of 64 keys).  K and V
 //     stay in shared memory while the block walks the folded rows --
 //     the group's heads and the query tiles together -- that its
-//     range can see (_causal_first_q_block / _window_last_q_block in
-//     folded rows), so dK/dV sum over the group inside the block, in
-//     registers, with no float atomics: the result is the same on
-//     every run.
+//     range can see (row_range: _causal_first_q_block /
+//     _window_last_q_block in folded rows), so dK/dV sum over the group
+//     inside the block, in registers, with no float atomics: the result
+//     is the same on every run.
 // Padded query rows and keys beyond Sk carry p = 0 (the TPU kernel's
 // seq_q_valid), so they add nothing.  Rows with no key at all are
 // undefined, as on the TPU.
+//
+// K3 in bf16 runs on the tensor cores (flash_bwd_dkv_wgmma_kernel): the
+// keys are the wgmma M.  One warpgroup per 64-column block of dK/dV (one
+// for D <= 64, two for D = 128, each holding 64 fp32 registers of dK+dV
+// per thread instead of 128).  K and V sit in shared memory as bf16,
+// loaded once; (Q, dO) row tiles of 64 come through a two-stage cp.async
+// ring with the tile's lse, delta and segments (4-byte cp.async) and
+// query index.  Per row tile: S^T = K Q^T and dP^T = V dO^T (wgmma from
+// shared memory, both operands K-major), then in registers
+// P^T = exp2(S^T scale log2 e - lse log2 e), masked only where
+// tile_needs_mask says so, and dS^T = P^T (dP^T - delta); then
+// dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A operands
+// and dO, Q read as MN-major B from the same shared tiles -- keys as M is
+// what keeps any transpose out of shared memory.  P^T and dS^T each go in
+// as two bf16 operands, hi = bf16(x) and lo = bf16(x - hi): dK and dV sum
+// thousands of rows, and one bf16 rounding of every term alone takes the
+// result past the bf16 limits (measured on the card and in the CPU
+// emulation, PERF.md); hi + lo keeps ~16 bits for 1.5x the products.
+// dK is scaled once at the end.  Key tiles are launched in order, so the
+// heaviest causal tiles (small kb0, the most rows) start first.  D = 32
+// is zero-padded to 64 columns.  At D = 128 each of the two warpgroups
+// computes the whole 64 x 64 S^T and dP^T (over all 128 columns) and its
+// own exp2 and mask, and uses them only for its 64 columns of dK/dV:
+// those products and that math are done twice (D = 64 is the train
+// path's width; splitting them through shared memory is queued in
+// ROADMAP).  tests/test_torch_attention_tiles.py
+// mirrors the tile loop, its masks and this rounding on the CPU.
+//
+// In fp32 both kernels stay scalar by design: the tensor cores take fp32
+// only as TF32, whose ~3 decimal digits cannot meet the fp32 checks
+// (1e-4), and fp32 is the port's checking dtype; training runs in bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
-#include <atomic>
+#include <type_traits>
 
 namespace {
+
+using nbd::kTileBytes;
+using nbd::kWarpgroup;
+using nbd::padded_dim;
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kBM = 64;      // folded query rows per tile
 constexpr int kBN = 64;      // keys per tile
@@ -212,11 +246,7 @@ __device__ void p_and_ds(const Args& a, const Smem<D>& sm, int kb0) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j, ki = kb0 + c;
-      bool keep = qi >= 0 && ki < a.Sk;
-      if (a.causal) {
-        keep = keep && (ki + a.k_off <= qi + a.q_off);
-        if (a.window > 0) keep = keep && (ki + a.k_off > qi + a.q_off - a.window);
-      }
+      bool keep = nbd::pair_kept(qi, ki, a.Sk, a.causal, a.window, a.q_off, a.k_off);
       if (has_seg) keep = keep && sm.qsg[r] == sm.ksg[c];
       const float p = keep ? expf(s[i][j] - lse) : 0.f;
       sm.p[r * kPP + c] = p;
@@ -240,15 +270,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 
   load_rows<T, D>(a, sm, b, hk, row0);
 
-  // Keys this block's rows can see: [kbeg, kend).
-  const int qi_lo = row0 / a.group;
-  const int qi_hi = (min(row0 + kBM, nrows) - 1) / a.group;
-  int kbeg = 0, kend = a.Sk;
-  if (a.causal) {
-    kend = min(a.Sk, qi_hi + a.q_off - a.k_off + 1);
-    if (a.window > 0) kbeg = max(0, qi_lo + a.q_off - a.k_off - a.window + 1);
-  }
-  kbeg = (kbeg / kBN) * kBN;
+  int kbeg, kend;
+  nbd::key_range(row0, nrows, a.group, a.Sk, a.causal, a.window, a.q_off, a.k_off, &kbeg,
+                 &kend);
 
   float acc[4][DJ];
 #pragma unroll
@@ -300,25 +324,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   const Smem<D> sm(smem);
   const int b = blockIdx.y / a.Hkv, hk = blockIdx.y % a.Hkv;
   const int kb0 = blockIdx.x * kBN;
-  const int nrows = a.Sq * a.group;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   load_keys<T, D>(a, sm, b, hk, kb0);
 
-  // Folded rows that can see this key tile: [rbeg, rend).  The first
-  // query that sees key kb0 sits on its offset diagonal
-  // (_causal_first_q_block); with a window the last one sits window - 1
-  // positions past the tile's last key (_window_last_q_block).
-  int rbeg = 0, rend = nrows;
-  if (a.causal) {
-    const int qlo = max(0, kb0 + a.k_off - a.q_off);
-    rbeg = qlo < a.Sq ? qlo * a.group : nrows;
-    if (a.window > 0) {
-      const int qhi = kb0 + kBN - 1 + a.k_off - a.q_off + a.window - 1;
-      rend = qhi < 0 ? 0 : (qhi + 1 < a.Sq ? (qhi + 1) * a.group : nrows);
-    }
-  }
-  rbeg = (rbeg / kBM) * kBM;
+  int rbeg, rend;
+  nbd::row_range(kb0, a.Sq, a.group, a.causal, a.window, a.q_off, a.k_off, &rbeg, &rend);
 
   float dk[4][DJ], dv[4][DJ];
 #pragma unroll
@@ -372,45 +383,240 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   }
 }
 
-template <typename T, int D, bool kDkv>
-void* kernel_ptr() {
-  if constexpr (kDkv)
-    return reinterpret_cast<void*>(flash_bwd_dkv_kernel<T, D>);
+// ----------------------------------------------------------------------
+// K3 in bf16: tensor cores
+
+// Shared memory of flash_bwd_dkv_wgmma_kernel, byte offsets from a
+// 1024-byte-aligned base: K, V (kNcb tiles each), two stages of Q and of
+// dO, two stages of the row tile's lse, delta, query index (-1: padded)
+// and segment.
+template <int D>
+struct DkvSmem {
+  static constexpr int kNcb = padded_dim(D) / 64;  // 64-column blocks = warpgroups
+  static constexpr int kK = 0;
+  static constexpr int kV = kNcb * kTileBytes;
+  static constexpr int kQ = 2 * kNcb * kTileBytes;
+  static constexpr int kO = kQ + 2 * kNcb * kTileBytes;
+  static constexpr int kRows = kO + 2 * kNcb * kTileBytes;
+  static constexpr size_t kBytes = kRows + 4 * 2 * kBM * sizeof(float) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup * (padded_dim(D) / 64))
+    flash_bwd_dkv_wgmma_kernel(Args a) {
+  using L = DkvSmem<D>;
+  constexpr int kNcb = L::kNcb, kThr = kWarpgroup * kNcb, kSteps = padded_dim(D) / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = nbd::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kRows);  // [2][64]
+  float* dl_s = lse_s + 2 * kBM;
+  int* qi_s = reinterpret_cast<int*>(dl_s + 2 * kBM);
+  int* sg_s = qi_s + 2 * kBM;
+
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const int b = blockIdx.x / a.Hkv, hk = blockIdx.x % a.Hkv;
+  const int kb0 = blockIdx.y * kBN;  // launched in order: heaviest causal tiles first
+  const int nrows = a.Sq * a.group;
+  const int tid = threadIdx.x, wg = tid / kWarpgroup;  // wg: this warpgroup's dK/dV columns
+  const int w = (tid % kWarpgroup) / 32, g = (tid % 32) / 4, t = tid % 4;
+  const bool has_seg = a.kseg != nullptr;
+
+  // K, V; this thread's two keys kb0 + 16 w + g + 8 h and their segments;
+  // whether one segment covers every key of the tile.
+  auto kv_row = [&](const bf16* x, int r) -> const bf16* {
+    const int ki = kb0 + r;
+    return ki < a.Sk ? x + ((static_cast<size_t>(b) * a.Sk + ki) * a.Hkv + hk) * D : nullptr;
+  };
+  nbd::load_tile<D, kThr>(base + L::kK, tid, k, [&](int r) { return kv_row(k, r); });
+  nbd::load_tile<D, kThr>(base + L::kV, tid, v, [&](int r) { return kv_row(v, r); });
+  const int seg0 = has_seg ? a.kseg[static_cast<size_t>(b) * a.Sk + kb0] : 0;
+  int ki_t[2], seg_t[2];
+  bool keys_vote = true;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ki_t[h] = kb0 + 16 * w + g + 8 * h;
+    seg_t[h] = (has_seg && ki_t[h] < a.Sk) ? a.kseg[static_cast<size_t>(b) * a.Sk + ki_t[h]] : 0;
+    keys_vote = keys_vote && (ki_t[h] >= a.Sk || seg_t[h] == seg0);
+  }
+  const bool keys_uniform = __syncthreads_and(keys_vote) != 0;
+
+  // Start the copy of row tile row0 into stage st: Q, dO and the rows'
+  // lse, delta and segments (zero for padded rows); the query index.
+  auto issue = [&](int row0, int st) {
+    auto row_ptr = [&](const bf16* x) {
+      return [=](int r) -> const bf16* {
+        const int R = row0 + r;
+        if (R >= nrows) return nullptr;
+        return x + ((static_cast<size_t>(b) * a.Sq + R / a.group) * a.H + hk * a.group +
+                    R % a.group) * D;
+      };
+    };
+    nbd::load_tile<D, kThr>(base + L::kQ + st * kNcb * kTileBytes, tid, q, row_ptr(q));
+    nbd::load_tile<D, kThr>(base + L::kO + st * kNcb * kTileBytes, tid, dout, row_ptr(dout));
+    if (tid < kBM) {
+      const int R = row0 + tid;
+      const bool ok = R < nrows;
+      const int qi = ok ? R / a.group : 0, gg = ok ? R % a.group : 0;
+      const size_t li = (static_cast<size_t>(b) * a.H + hk * a.group + gg) * a.Sq + qi;
+      nbd::cp_async4(lse_s + st * kBM + tid, a.lse + li, ok);
+      nbd::cp_async4(dl_s + st * kBM + tid, a.delta + li, ok);
+      if (has_seg) nbd::cp_async4(sg_s + st * kBM + tid, a.qseg + size_t(b) * a.Sq + qi, ok);
+      qi_s[st * kBM + tid] = ok ? qi : -1;
+    }
+    nbd::cp_async_commit();
+  };
+
+  int rbeg, rend;
+  nbd::row_range(kb0, a.Sq, a.group, a.causal, a.window, a.q_off, a.k_off, &rbeg, &rend);
+  if (rbeg < rend)
+    issue(rbeg, 0);
   else
-    return reinterpret_cast<void*>(flash_bwd_dq_kernel<T, D>);
+    nbd::cp_async_commit();
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  int st = 0;
+  for (int row0 = rbeg; row0 < rend; row0 += kBM, st ^= 1) {
+    if (row0 + kBM < rend) {
+      issue(row0 + kBM, st ^ 1);
+      nbd::cp_async_wait<1>();
+    } else {
+      nbd::cp_async_wait<0>();
+    }
+    nbd::fence_proxy_async();
+    // Row tile row0 (and K, V) in shared memory; one segment over its rows
+    // and keys?  The vote is also the barrier that makes every thread's
+    // copies visible to the whole block, so it runs on every tile.
+    const bool vote =
+        !has_seg || tid >= kBM || row0 + tid >= nrows || sg_s[st * kBM + tid] == seg0;
+    const bool tile_vote = __syncthreads_and(vote) != 0;
+    const bool seg_uniform = keys_uniform && tile_vote;
+    const uint32_t qt = base + L::kQ + st * kNcb * kTileBytes;
+    const uint32_t ot = base + L::kO + st * kNcb * kTileBytes;
+
+    // S^T = K Q^T and dP^T = V dO^T; element 4 j + 2 h + e is key
+    // kb0 + 16 w + g + 8 h, row row0 + 8 j + 2 t + e.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
+      nbd::wgmma_ss(s, nbd::desc_kmajor(base + L::kK + off), nbd::desc_kmajor(qt + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
+      nbd::wgmma_ss(dp, nbd::desc_kmajor(base + L::kV + off), nbd::desc_kmajor(ot + off), kk > 0);
+    }
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+    nbd::fence_regs(s);
+    nbd::fence_regs(dp);
+
+    const bool masked = nbd::tile_needs_mask(row0, kb0, nrows, a.group, a.Sk, a.causal, a.window,
+                                             a.q_off, a.k_off, has_seg, seg_uniform);
+    const int so = st * kBM;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e, c = 8 * j + 2 * t + e;
+          float p = exp2f(fmaf(s[i], sl2, -lse_s[so + c] * kLog2e));
+          if (masked && !(nbd::pair_kept(qi_s[so + c], ki_t[h], a.Sk, a.causal, a.window,
+                                         a.q_off, a.k_off) &&
+                          (!has_seg || sg_s[so + c] == seg_t[h])))
+            p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dl_s[so + c]);
+        }
+
+    // dV += P^T dO, dK += dS^T Q: P^T and dS^T as bf16 hi + lo register
+    // A operands (one rounding alone overshoots the bf16 limits on sums of
+    // thousands of rows), dO and Q MN-major.
+    uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+    nbd::acc_to_a_split(s, p_hi, p_lo);
+    nbd::acc_to_a_split(dp, ds_hi, ds_lo);
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bo = nbd::desc_mnmajor(ot + wg * kTileBytes + kk * 16 * 128);
+      nbd::wgmma_rs(dv, p_hi[kk], bo);
+      nbd::wgmma_rs(dv, p_lo[kk], bo);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bq = nbd::desc_mnmajor(qt + wg * kTileBytes + kk * 16 * 128);
+      nbd::wgmma_rs(dk, ds_hi[kk], bq);
+      nbd::wgmma_rs(dk, ds_lo[kk], bq);
+    }
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+    nbd::fence_regs(dv);
+    nbd::fence_regs(dk);
+    __syncthreads();  // every thread is done with stage st before it is refilled
+  }
+  nbd::cp_async_wait<0>();
+
+  bf16* dkp = static_cast<bf16*>(a.dk);
+  bf16* dvp = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (ki_t[h] >= a.Sk) continue;
+    const size_t off = ((static_cast<size_t>(b) * a.Sk + ki_t[h]) * a.Hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * wg + 8 * j + 2 * t;
+      if (col >= D) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + off + col) = __floats2bfloat162_rn(
+          dk[4 * j + 2 * h] * a.scale, dk[4 * j + 2 * h + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + off + col) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
-// Opt each kernel into its dynamic shared memory (over the 48 KB
-// default) once per device, not before every launch.
-template <typename T, int D, bool kDkv>
-cudaError_t ensure_smem_attr() {
-  static std::atomic<unsigned long long> done{0};  // bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  const unsigned long long bit = 1ull << dev;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel_ptr<T, D, kDkv>(),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_bytes<D>()));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+// ----------------------------------------------------------------------
+// launches
+
+// One launch: grid (x, y) of `threads`, the kernel opted into `smem`
+// bytes of dynamic shared memory once per device (attr_done: one static
+// per kernel).
+int launch_kernel(void (*kernel)(Args), const Args& a, dim3 grid, int threads, size_t smem,
+                  std::atomic<unsigned long long>& attr_done, cudaStream_t s) {
+  cudaError_t err = nbd::ensure_smem(reinterpret_cast<const void*>(kernel), smem, attr_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<grid, threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D, bool kDkv>
 int launch(const Args& a, int B, cudaStream_t s) {
-  cudaError_t err = ensure_smem_attr<T, D, kDkv>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes<D>();
-  if constexpr (kDkv) {
-    dim3 grid((a.Sk + kBN - 1) / kBN, B * a.Hkv);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(a);
+  static std::atomic<unsigned long long> attr_done{0};
+  const int BH = B * a.Hkv;
+  if constexpr (kDkv && std::is_same_v<T, __nv_bfloat16>) {
+    return launch_kernel(flash_bwd_dkv_wgmma_kernel<D>, a, dim3(BH, (a.Sk + kBN - 1) / kBN),
+                         kWarpgroup * (padded_dim(D) / 64), DkvSmem<D>::kBytes, attr_done, s);
+  } else if constexpr (kDkv) {
+    return launch_kernel(flash_bwd_dkv_kernel<T, D>, a, dim3((a.Sk + kBN - 1) / kBN, BH),
+                         kThreads, smem_bytes<D>(), attr_done, s);
   } else {
-    dim3 grid((a.Sq * a.group + kBM - 1) / kBM, B * a.Hkv);
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(a);
+    return launch_kernel(flash_bwd_dq_kernel<T, D>, a,
+                         dim3((a.Sq * a.group + kBM - 1) / kBM, BH), kThreads, smem_bytes<D>(),
+                         attr_done, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kDkv>
@@ -426,6 +632,9 @@ int dispatch(const Args& a, int B, int D, int dtype, cudaStream_t s) {
       default: break;
     }
   } else if (dtype == 1) {
+    if (kDkv && !(nbd::aligned16(a.q) && nbd::aligned16(a.k) && nbd::aligned16(a.v) &&
+                  nbd::aligned16(a.dout)))
+      return static_cast<int>(cudaErrorMisalignedAddress);
     switch (D) {
       case 32: return launch<__nv_bfloat16, 32, kDkv>(a, B, s);
       case 64: return launch<__nv_bfloat16, 64, kDkv>(a, B, s);
