@@ -17,8 +17,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    S=2048, without and with the training batch's packed-document
    segments);
 3. K4, flash-decode, called through its wrapper, against its plain
-   version in bf16: per-row positions over [0, T-1], a window, an int8
-   cache, the lse, and the serving path's own shape and positions;
+   version: per-row positions over [0, T-1], a window, int8 caches
+   with scales, fp32, T=1000 (ragged against the 128-key chunk), rows
+   whose window lies past every valid key (o = 0, lse = NEG_INF),
+   groups 1 and 8, D=32 and 128, one chunk (nsplit = 1), the lse, and
+   the serving path's own shape and positions and its full context;
 4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
    wrapper the path calls, against the plain backward in bf16 (one
    tile, group 1, causal S=2048 with group 3 at D=64 and D=128,
@@ -44,8 +47,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
    path (B=1, S=2048), and three bf16 LoRA steps (base untouched, loss
    falls);
 8. timing of each kernel at the main paths' shapes (K1 at both the
-   serving and the training shape), beside its plain version, one
-   PyTorch library call and the card's bound.
+   serving and the training shape, K4 at the serving shape and at full
+   context), beside its plain version, one PyTorch library call and the
+   card's bound; K4 and its yardsticks on the device by CUDA-graph
+   replay (a K4 call is shorter than the host's launch of it).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -103,6 +108,33 @@ def cuda_ms(fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=30, reps=10):
+    """Device time of one call of ``fn`` in ms: ``calls`` calls captured
+    in a CUDA graph, replayed ``reps`` times between CUDA events, so the
+    host's launch overhead stays out of the time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -119,10 +151,11 @@ def tol_ratio(got, want, atol, rtol):
 # its magnitude) where two fp32 results straddle a rounding boundary.
 # K1 sums its keys in another order (tile by tile, rescaled) and in bf16
 # rounds P to bf16 before P.V, as attention_reference does, so it gets
-# more room than K4; the lse is fp32 on both sides.  Measured errors are
-# in PERF.md beside each limit.
+# more room than K4; the lse is fp32 on both sides.  fp32 K4 sums its
+# keys in another order (chunks, warps) than the plain version's one
+# pass.  Measured errors are in PERF.md beside each limit.
 K1_TOL = {"bfloat16": (4e-3, 1e-2), "float32": (1e-5, 1e-5)}
-K4_TOL = (1e-3, 8e-3)
+K4_TOL = {"bfloat16": (1e-3, 8e-3), "float32": (1e-5, 1e-5)}
 LSE_TOL = 1e-4
 # K2/K3 sum up to S * group terms per element (dK/dV over every row of
 # the group that sees a key), in tiles, where the plain version sums in
@@ -238,12 +271,19 @@ def serving_pos(B):
     return torch.randint(16, 233, (B,), generator=g).to("cuda", torch.int32)
 
 
-def k4_inputs(B, Hkv, group, D, T, int8, seed, pos=None):
+def k4_inputs(B, Hkv, group, D, T, cache, seed, pos=None,
+              qdtype=None):
+    """Decode inputs on the card: q (B, H, D) in ``qdtype`` (bf16, or
+    fp32 for an fp32 cache); a (B, Hkv, T, D) cache, ``cache`` one of
+    "bf16", "fp32" or "int8" (with (B, Hkv, T, 1) fp32 scales); pos, by
+    default spread over [0, T-1]."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, Hkv * group, D, generator=g,
-                    device="cuda").to(torch.bfloat16)
-    if int8:
+    fp32 = cache == "fp32"
+    qdtype = qdtype or (torch.float32 if fp32 else torch.bfloat16)
+    q = torch.randn(B, Hkv * group, D, generator=g, device="cuda").to(qdtype)
+    ks = vs = None
+    if cache == "int8":
         kc = torch.randint(-127, 128, (B, Hkv, T, D), generator=g,
                            device="cuda").to(torch.int8)
         vc = torch.randint(-127, 128, (B, Hkv, T, D), generator=g,
@@ -251,34 +291,79 @@ def k4_inputs(B, Hkv, group, D, T, int8, seed, pos=None):
         ks = torch.rand(B, Hkv, T, 1, generator=g, device="cuda") * 0.02
         vs = torch.rand(B, Hkv, T, 1, generator=g, device="cuda") * 0.02
     else:
-        kc = torch.randn(B, Hkv, T, D, generator=g,
-                         device="cuda").to(torch.bfloat16)
-        vc = torch.randn(B, Hkv, T, D, generator=g,
-                         device="cuda").to(torch.bfloat16)
-        ks = vs = None
+        cdt = torch.float32 if fp32 else torch.bfloat16
+        kc = torch.randn(B, Hkv, T, D, generator=g, device="cuda").to(cdt)
+        vc = torch.randn(B, Hkv, T, D, generator=g, device="cuda").to(cdt)
     if pos is None:
         pos = torch.linspace(0, T - 1, B).round().to("cuda", torch.int32)
     return q, kc, vc, ks, vs, pos
 
 
+def past_valid_pos(B, T):
+    """Positions over [0, T-1] with the last two rows past the cache
+    (the sequence-parallel caller's case): with window 256, row B-1
+    (pos T+300) attends nothing (lo >= valid_k) and row B-2 (pos T+100)
+    the cache's last 155 keys."""
+    import torch
+    pos = torch.linspace(0, T - 1, B).round().to(torch.int32)
+    pos[-1], pos[-2] = T + 300, T + 100
+    return pos.to("cuda")
+
+
 def phase_k4():
     """K4 through ``flash_decode_attention``, the wrapper the path
-    calls, against ``decode_reference``: per-row positions over
-    [0, T-1] at T=2048 with a window and int8 variants, and the main
-    path's own shape (B=8 slots, T=max_len=1024, serving positions)."""
+    calls, against ``decode_reference``: per-row positions over [0, T-1]
+    at T=2048 with a window and int8 variants, fp32 caches, T=1000
+    (ragged against the 128-key chunk), rows whose window lies past
+    every valid key, groups 1 and 8, D=32 and 128 in each cache type
+    (every key-tile geometry of the kernel), one chunk (B*Hkv=576:
+    nsplit = 1, no combine), and the main path's own shape (B=8 slots,
+    T=max_len=1024, serving positions) and full context (T=2048, every
+    slot at 2047).  Returns the worst bf16 output error."""
     import torch
     from nbdistributed_tpu_torch.ops import decode as K
+    from nbdistributed_tpu_torch.ops._common import NEG_INF
 
+    fp32 = torch.float32
+    # name, B, Hkv, group, D, T, window, cache, positions, q dtype
+    cases = [("pos_spread", 8, 3, 3, 64, 2048, None, "bf16", None, None),
+             ("window256", 8, 3, 3, 64, 2048, 256, "bf16", None, None),
+             ("int8_scales", 8, 3, 3, 64, 2048, None, "int8", None, None),
+             ("int8_window256", 8, 3, 3, 64, 2048, 256, "int8", None, None),
+             ("fp32_pos_spread", 8, 3, 3, 64, 2048, None, "fp32", None,
+              None),
+             ("ragged_T1000", 8, 3, 3, 64, 1000, None, "bf16", None, None),
+             ("window_past_valid_T1000", 8, 3, 3, 64, 1000, 256, "bf16",
+              "past", None),
+             ("fp32_window_past_valid_T1000", 8, 3, 3, 64, 1000, 256,
+              "fp32", "past", None),
+             ("group1_T1000", 8, 9, 1, 64, 1000, None, "bf16", None, None),
+             ("group8_T1000", 8, 1, 8, 64, 1000, 256, "bf16", "past", None),
+             ("D32_T1000", 8, 3, 3, 32, 1000, None, "bf16", None, None),
+             ("D128_T1000", 8, 3, 3, 128, 1000, None, "bf16", None, None),
+             ("fp32_D32_T1000", 8, 3, 3, 32, 1000, None, "fp32", None, None),
+             ("fp32_D128_T1000", 8, 3, 3, 128, 1000, None, "fp32", None,
+              None),
+             ("int8_D32_T1000", 8, 3, 3, 32, 1000, None, "int8", None, None),
+             ("int8_D128_T1000", 8, 3, 3, 128, 1000, None, "int8", None,
+              None),
+             ("int8_fp32q_T1000", 8, 3, 3, 64, 1000, 256, "int8", "past",
+              fp32),
+             ("one_chunk_B64_T1000", 64, 9, 1, 64, 1000, 256, "bf16",
+              "past", None),
+             ("serving_shape_T1024", 8, 3, 3, 64, 1024, None, "bf16",
+              "serving", None),
+             ("full_context_T2048", 8, 3, 3, 64, 2048, None, "bf16", "full",
+              None)]
     worst = 0.0
-    atol, rtol = K4_TOL
-    cases = [("pos_spread", 2048, None, False, None),
-             ("window256", 2048, 256, False, None),
-             ("int8_scales", 2048, None, True, None),
-             ("int8_window256", 2048, 256, True, None),
-             ("serving_shape_T1024", 1024, None, False, serving_pos(8))]
-    for name, T, window, int8, pos in cases:
-        q, kc, vc, ks, vs, pos = k4_inputs(8, 3, 3, 64, T, int8,
-                                           seed=len(name), pos=pos)
+    for name, B, Hkv, group, D, T, window, cache, kind, qdt in cases:
+        pos = {None: None, "past": past_valid_pos(B, T),
+               "serving": serving_pos(B),
+               "full": torch.full((B,), T - 1, dtype=torch.int32,
+                                  device="cuda")}[kind]
+        q, kc, vc, ks, vs, pos = k4_inputs(B, Hkv, group, D, T, cache,
+                                           seed=len(name), pos=pos,
+                                           qdtype=qdt)
         out, lse = K.flash_decode_attention(q, kc, vc, pos, scale=0.125,
                                             window=window, k_s=ks, v_s=vs,
                                             return_lse=True)
@@ -287,18 +372,32 @@ def phase_k4():
         torch.cuda.synchronize()
         ref, ref_lse = K.decode_reference(q, kc, vc, pos, scale=0.125,
                                           window=window, k_s=ks, v_s=vs)
+        atol, rtol = K4_TOL[str(q.dtype).split(".")[-1]]
         e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
         ratio = tol_ratio(out, ref, atol, rtol)
         same = torch.equal(out, out_nolse)
-        say("k4_vs_plain", case=name, max_abs_err=e_out, tol_ratio=ratio,
-            atol=atol, rtol=rtol, lse_err=e_lse, lse_tol=LSE_TOL,
-            lse_off_identical=same)
+        # Rows that attend nothing: exactly o = 0 and lse = NEG_INF.
+        valid = pos.long() + 1
+        lo = valid - window if window else torch.zeros_like(valid)
+        empty = lo >= torch.clamp(valid, max=T)
+        n_empty = int(empty.sum())
+        empty_ok = bool((out[empty] == 0).all()
+                        and (lse[empty] == NEG_INF).all())
+        say("k4_vs_plain", case=name, dtype=str(q.dtype), cache=cache,
+            nsplit_chunk=K._decode_splits(B * Hkv, T), max_abs_err=e_out,
+            tol_ratio=ratio, atol=atol, rtol=rtol, lse_err=e_lse,
+            lse_tol=LSE_TOL, lse_off_identical=same,
+            rows_attending_nothing=n_empty, those_rows_exact=empty_ok)
         check(torch.isfinite(out.float()).all().item(), f"K4 {name}: "
               f"non-finite output")
-        check(ratio <= 1 and e_lse <= LSE_TOL and same,
+        check(ratio <= 1 and e_lse <= LSE_TOL and same and empty_ok,
               f"K4 {name}: error {e_out} (ratio {ratio}) / lse {e_lse} "
-              f"over tolerance")
-        worst = max(worst, e_out)
+              f"over tolerance, or a row that attends nothing is not "
+              f"o = 0, lse = NEG_INF")
+        check((n_empty > 0) == (kind == "past"),
+              f"K4 {name}: {n_empty} rows attend nothing")
+        if q.dtype == torch.bfloat16:
+            worst = max(worst, e_out)
     return worst
 
 
@@ -782,7 +881,6 @@ def time_k1(q, k, v, iters=30):
 
 def phase_timing():
     import torch
-    from nbdistributed_tpu_torch.ops import decode as K
 
     rows = {}
     # Each kernel is timed through the launcher its wrapper calls, so
@@ -792,11 +890,28 @@ def phase_timing():
                                     seed=1))
 
     # K4 at the serving shape: B=8 slots, T=max_len=1024, positions as
-    # the 16..232-token streams give them; one cache per layer so each
-    # launch finds its cache cold in L2, as a decode step does.
-    B, Hkv, group, D, T = 8, 3, 3, 64, 1024
-    pos = serving_pos(B)
-    q, _, _, _, _, _ = k4_inputs(B, Hkv, group, D, 16, False, seed=2)
+    # the 16..232-token streams give them; and at the serving path's
+    # full context: T=2048 (SmolLM2's max_seq_len), every slot at 2047.
+    rows["K4"] = time_k4(serving_pos(8), 1024)
+    rows["K4_full_context"] = time_k4(
+        torch.full((8,), 2047, dtype=torch.int32, device="cuda"), 2048)
+    rows.update(time_train_shape())
+    for name, row in rows.items():
+        say("timing", kernel=name, **row)
+    return rows
+
+
+def time_k4(pos, T, B=8, Hkv=3, group=3, D=64):
+    """K4 (bf16, no window) through the launcher its wrapper calls,
+    beside its plain version and a masked ``scaled_dot_product_attention``,
+    with one cache per layer so each launch finds its cache cold in L2,
+    as a decode step does.  Each is timed on the device by CUDA-graph
+    replay: a K4 call takes less device time than the host takes to
+    issue it, so back-to-back launches time the host (``ms_eager``)."""
+    import torch
+    from nbdistributed_tpu_torch.ops import decode as K
+
+    q, _, _, _, _, _ = k4_inputs(B, Hkv, group, D, 16, "bf16", seed=2)
     caches = [torch.randn(2, B, Hkv, T, D, device="cuda").to(torch.bfloat16)
               for _ in range(N_LAYERS_SMOL)]
     it = iter(range(10 ** 9))
@@ -810,8 +925,11 @@ def phase_timing():
     # output against the plain version too.
     ref, _ = K.decode_reference(q, caches[0][0], caches[0][1], pos,
                                 scale=0.125)
-    ratio = tol_ratio(kern(), ref, *K4_TOL)
-    check(ratio <= 1, f"K4 at the timing shape: tolerance ratio {ratio}")
+    got = kern()
+    err = max_err(got, ref)
+    ratio = tol_ratio(got, ref, *K4_TOL["bfloat16"])
+    check(ratio <= 1, f"K4 at the timing shape T={T}: tolerance ratio "
+          f"{ratio}")
 
     def plain_fn():
         c = caches[next(it) % N_LAYERS_SMOL]
@@ -825,21 +943,19 @@ def phase_timing():
         c = caches[next(it) % N_LAYERS_SMOL]
         sdpa(q4, c[0], c[1], attn_mask=mask, scale=0.125)
 
-    ms, plain, lib = cuda_ms(kern, 90), cuda_ms(plain_fn, 90), \
-        cuda_ms(lib_fn, 90)
+    ms, plain, lib = graph_ms(kern), graph_ms(plain_fn), graph_ms(lib_fn)
+    ms_eager = cuda_ms(kern, 90)
     n_valid = int(torch.clamp(pos.long() + 1, max=T).sum())
     nbytes = 2 * (2 * n_valid * Hkv * D + 2 * B * Hkv * group * D) + 4 * B
     flops = 4 * n_valid * Hkv * group * D
     t_f, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    rows["K4"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                      bound_ms=1e3 * max(t_f, t_b),
-                      bound_by="operations" if t_f >= t_b else "bytes",
-                      flops=flops, bytes=nbytes, valid_tokens=n_valid,
-                      shape=dict(B=B, Hkv=Hkv, group=group, D=D, T=T))
-    rows.update(time_train_shape())
-    for name, row in rows.items():
-        say("timing", kernel=name, **row)
-    return rows
+    return dict(ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=1e3 * max(t_f, t_b),
+                bound_by="operations" if t_f >= t_b else "bytes",
+                ms_eager=ms_eager, max_abs_err=err, flops=flops, bytes=nbytes,
+                valid_tokens=n_valid,
+                nsplit_chunk=K._decode_splits(B * Hkv, T),
+                shape=dict(B=B, Hkv=Hkv, group=group, D=D, T=T))
 
 
 def time_train_shape():
@@ -911,8 +1027,9 @@ def time_train_shape():
 
 # The kernel functions of each source, as ptxas names them.
 KERNEL_FUNCTIONS = ("flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                    "flash_bwd_dq_kernel", "flash_bwd_dkv_wgmma_kernel",
-                    "flash_bwd_dkv_kernel", "decode_kernel")
+                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel",
+                    "decode_split_kernel", "decode_combine_kernel")
 
 
 def ptxas_report(log):
@@ -920,7 +1037,8 @@ def ptxas_report(log):
     of ``KERNEL_FUNCTIONS``, from nvcc's ``-Xptxas -v`` output, keyed by
     the kernel's name and its mangled template arguments, as
     ``flash_fwd_wgmma_kernel<Li64E>`` (D = 64) or
-    ``decode_kernel<13__nv_bfloat16aLi64E>`` (bf16 query, int8 cache)."""
+    ``decode_split_kernel<13__nv_bfloat16aLi64E>`` (bf16 query, int8
+    cache)."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
@@ -1006,9 +1124,11 @@ def main() -> int:
                            if f.split("<")[0] in functions}, **extra)
 
     # K1 runs on both paths: its launches are the two runs' sum, its
-    # times the serving shape's, with the train shape's beside them.
-    # Each error is the worst bf16 one of every check of the kernel.
+    # times the serving shape's, with the train shape's beside them; K4's
+    # are the serving shape's, with full context's beside them.  Each
+    # error is the worst bf16 one of every check of the kernel.
     tensor_cores = "wgmma bf16 / scalar fp32"
+    split = "bf16 hi + lo operand"
     kernels = [
         kernel("flash_attention_fwd", "flash_attention.cu",
                "nbdistributed_tpu/ops/attention.py:405",
@@ -1022,15 +1142,22 @@ def main() -> int:
         kernel("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:688", train["k2"],
                max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2",
-               "scalar fp32 FMA, both dtypes", ("flash_bwd_dq_kernel",)),
+               f"{tensor_cores} (dS as a {split})",
+               ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")),
         kernel("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:747", train["k3"],
                max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3",
-               tensor_cores,
+               f"{tensor_cores} (P and dS each as a {split})",
                ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")),
         kernel("flash_decode", "flash_decode.cu",
-               "nbdistributed_tpu/ops/decode.py:214", counts["k4"], k4_err,
-               "K4", "scalar fp32 FMA", ("decode_kernel",)),
+               "nbdistributed_tpu/ops/decode.py:214", counts["k4"],
+               max(k4_err, timing["K4"]["max_abs_err"],
+                   timing["K4_full_context"]["max_abs_err"]),
+               "K4", "split-T flash-decoding: (B*Hkv, nsplit) blocks, "
+               "cp.async ring, warp-level dot products, lse combine kernel",
+               ("decode_split_kernel", "decode_combine_kernel"),
+               full_context={k: timing["K4_full_context"][k]
+                             for k in timed}),
     ]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

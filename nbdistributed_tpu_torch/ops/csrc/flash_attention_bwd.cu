@@ -32,11 +32,10 @@
 // a loop inside the block takes the sequential axis' place.
 //   * K2: one block per (batch * kv head, tile of 64 "folded" rows),
 //     row r = qi * group + g, exactly K1's layout: the whole GQA group
-//     of a query position shares each K/V tile.  The block's Q, dO,
-//     lse and delta stay in shared memory while it walks the key tiles
-//     its causal / window range can see (key_range in sm90.cuh:
-//     _causal_k_iters / _window_first_k_block).  Scalar fp32 FMAs from
-//     shared memory in both dtypes; its tensor-core redesign is next.
+//     of a query position shares each K/V tile.  The block walks the
+//     key tiles its causal / window range can see (key_range in
+//     sm90.cuh: _causal_k_iters / _window_first_k_block), the same walk
+//     as K1's.
 //   * K3: one block per (batch * kv head, tile of 64 keys).  K and V
 //     stay in shared memory while the block walks the folded rows --
 //     the group's heads and the query tiles together -- that its
@@ -47,6 +46,27 @@
 // Padded query rows and keys beyond Sk carry p = 0 (the TPU kernel's
 // seq_q_valid), so they add nothing.  Rows with no key at all are
 // undefined, as on the TPU.
+//
+// K2 in bf16 runs on the tensor cores (flash_bwd_dq_wgmma_kernel), laid
+// out as K1's forward: one warpgroup of 128 threads per block, the 64
+// folded rows as the wgmma M.  Q and dO row tiles are loaded once as
+// swizzled bf16; each thread keeps its two rows' lse (log2 domain) and
+// delta in registers.  64-key K/V tiles and their key segments come
+// through a two-stage cp.async ring.  Per key tile: S = Q K^T and
+// dP = dO V^T (wgmma from shared memory, both operands K-major), then in
+// registers P = exp2(S scale log2 e - lse log2 e), masked only where
+// tile_needs_mask says so, and dS = P (dP - delta); then dQ += dS K with
+// dS as the register A operand and K as the MN-major B -- the role V
+// plays in K1's O += P V, so no transpose goes through shared memory.
+// dS goes in as two bf16 operands, hi = bf16(dS) and lo = bf16(dS - hi):
+// dS is signed and its terms cancel, and one bf16 rounding takes dQ to
+// 0.89 of the bf16 limit in the CPU emulation against 0.40 with hi + lo
+// (PERF.md), at 4 products per tile instead of 3.  At D = 128 dQ is two
+// 64-column accumulators.  dQ is scaled once at the end and stored as
+// bf16 pairs in q's layout.  Row tiles are launched heaviest-first, as
+// K1's are.  What bounds it at the train shape is the tensor cores'
+// rate; one warpgroup with no overlap of the exp2 math and the products
+// keeps it well above that bound.
 //
 // K3 in bf16 runs on the tensor cores (flash_bwd_dkv_wgmma_kernel): the
 // keys are the wgmma M.  One warpgroup per 64-column block of dK/dV (one
@@ -72,12 +92,14 @@
 // own exp2 and mask, and uses them only for its 64 columns of dK/dV:
 // those products and that math are done twice (D = 64 is the train
 // path's width; splitting them through shared memory is queued in
-// ROADMAP).  tests/test_torch_attention_tiles.py
-// mirrors the tile loop, its masks and this rounding on the CPU.
+// ROADMAP).  tests/test_torch_attention_tiles.py mirrors the tile loops,
+// their masks and both kernels' rounding on the CPU.
 //
-// In fp32 both kernels stay scalar by design: the tensor cores take fp32
-// only as TF32, whose ~3 decimal digits cannot meet the fp32 checks
-// (1e-4), and fp32 is the port's checking dtype; training runs in bf16.
+// In fp32 both kernels stay scalar by design (flash_bwd_dq_kernel,
+// flash_bwd_dkv_kernel: fp32 FMAs from padded shared memory): the tensor
+// cores take fp32 only as TF32, whose ~3 decimal digits cannot meet the
+// fp32 checks (1e-4), and fp32 is the port's checking dtype; training
+// runs in bf16.
 
 #include "sm90.cuh"
 
@@ -96,14 +118,6 @@ constexpr int kBN = 64;      // keys per tile
 constexpr int kThreads = 256;
 constexpr int kPP = kBN + 1;  // padded stride of the 64x64 p / dS tiles
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 struct Args {
   const void* q;
   const void* k;
@@ -121,9 +135,12 @@ struct Args {
   int causal, window, q_off, k_off;
 };
 
-// Shared memory of both kernels: Q, dO, K, V tiles (fp32, rows padded to
-// D + 1 floats so column reads miss no bank), the p and dS tiles, and
-// per-row / per-key scalars.
+// ----------------------------------------------------------------------
+// fp32: scalar FMAs
+
+// Shared memory of both scalar kernels: Q, dO, K, V tiles (fp32, rows
+// padded to D + 1 floats so column reads miss no bank), the p and dS
+// tiles, and per-row / per-key scalars.
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBM * (D + 1) + 2 * kBN * (D + 1) + 2 * kBM * kPP + 2 * kBM) +
@@ -152,11 +169,11 @@ struct Smem {
 
 // Stage folded rows [row0, row0 + kBM) of (b, kv head hk): Q pre-scaled,
 // dO, lse, delta, the query index (-1 for a padded row) and segment.
-template <typename T, int D>
+template <int D>
 __device__ void load_rows(const Args& a, const Smem<D>& sm, int b, int hk, int row0) {
   constexpr int DP = D + 1;
-  const T* q = static_cast<const T*>(a.q);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
   const int nrows = a.Sq * a.group;
   for (int i = threadIdx.x; i < kBM * D; i += kThreads) {
     const int r = i / D, d = i % D, R = row0 + r;
@@ -164,8 +181,8 @@ __device__ void load_rows(const Args& a, const Smem<D>& sm, int b, int hk, int r
     if (R < nrows) {
       const int qi = R / a.group, g = R % a.group;
       const size_t off = ((static_cast<size_t>(b) * a.Sq + qi) * a.H + hk * a.group + g) * D + d;
-      x = to_f(q[off]) * a.scale;
-      y = to_f(dout[off]);
+      x = q[off] * a.scale;
+      y = dout[off];
     }
     sm.q[r * DP + d] = x;
     sm.dout[r * DP + d] = y;
@@ -183,18 +200,18 @@ __device__ void load_rows(const Args& a, const Smem<D>& sm, int b, int hk, int r
 }
 
 // Stage keys [kb0, kb0 + kBN) of (b, hk): K, V (zero past Sk), segments.
-template <typename T, int D>
+template <int D>
 __device__ void load_keys(const Args& a, const Smem<D>& sm, int b, int hk, int kb0) {
   constexpr int DP = D + 1;
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   for (int i = threadIdx.x; i < kBN * D; i += kThreads) {
     const int c = i / D, d = i % D, ki = kb0 + c;
     float kx = 0.f, vx = 0.f;
     if (ki < a.Sk) {
       const size_t off = ((static_cast<size_t>(b) * a.Sk + ki) * a.Hkv + hk) * D + d;
-      kx = to_f(k[off]);
-      vx = to_f(v[off]);
+      kx = k[off];
+      vx = v[off];
     }
     sm.k[c * DP + d] = kx;
     sm.v[c * DP + d] = vx;
@@ -256,7 +273,7 @@ __device__ void p_and_ds(const Args& a, const Smem<D>& sm, int kb0) {
 }
 
 // K2: dQ for one (b * Hkv + hk, tile of 64 folded rows).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   static_assert(kBM == 64 && kBN == 64 && kThreads == 256, "tiling assumes 16x16 threads");
   constexpr int DP = D + 1;
@@ -268,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   const int nrows = a.Sq * a.group;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_rows<T, D>(a, sm, b, hk, row0);
+  load_rows<D>(a, sm, b, hk, row0);
 
   int kbeg, kend;
   nbd::key_range(row0, nrows, a.group, a.Sk, a.causal, a.window, a.q_off, a.k_off, &kbeg,
@@ -282,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
 
   for (int kb0 = kbeg; kb0 < kend; kb0 += kBN) {
     __syncthreads();  // the previous tile's readers are done
-    load_keys<T, D>(a, sm, b, hk, kb0);
+    load_keys<D>(a, sm, b, hk, kb0);
     __syncthreads();
     p_and_ds<D>(a, sm, kb0);
     __syncthreads();
@@ -301,21 +318,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int R = row0 + ty + 16 * i;
     if (R >= nrows) continue;
     const int qi = R / a.group, g = R % a.group;
-    T* dst = dq + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + hk * a.group + g) * D;
+    float* dst = dq + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + hk * a.group + g) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = from_f<T>(acc[i][j] * a.scale);
+    for (int j = 0; j < DJ; ++j) dst[tx + 16 * j] = acc[i][j] * a.scale;
   }
 }
 
 // K3: dK and dV for one (b * Hkv + hk, tile of 64 keys), summed over
 // every folded row (all heads of the group) that can see the tile.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   static_assert(kBM == 64 && kBN == 64 && kThreads == 256, "tiling assumes 16x16 threads");
   constexpr int DP = D + 1;
@@ -326,7 +343,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
   const int kb0 = blockIdx.x * kBN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_keys<T, D>(a, sm, b, hk, kb0);
+  load_keys<D>(a, sm, b, hk, kb0);
 
   int rbeg, rend;
   nbd::row_range(kb0, a.Sq, a.group, a.causal, a.window, a.q_off, a.k_off, &rbeg, &rend);
@@ -339,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
 
   for (int row0 = rbeg; row0 < rend; row0 += kBM) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(a, sm, b, hk, row0);
+    load_rows<D>(a, sm, b, hk, row0);
     __syncthreads();
     p_and_ds<D>(a, sm, kb0);
     __syncthreads();
@@ -368,8 +385,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     }
   }
 
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
+  float* dkp = static_cast<float*>(a.dk);
+  float* dvp = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int ki = kb0 + ty + 16 * i;
@@ -377,9 +394,209 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Args a) {
     const size_t off = ((static_cast<size_t>(b) * a.Sk + ki) * a.Hkv + hk) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dkp[off + tx + 16 * j] = from_f<T>(dk[i][j]);
-      dvp[off + tx + 16 * j] = from_f<T>(dv[i][j]);
+      dkp[off + tx + 16 * j] = dk[i][j];
+      dvp[off + tx + 16 * j] = dv[i][j];
     }
+  }
+}
+
+// ----------------------------------------------------------------------
+// K2 in bf16: tensor cores
+
+// Shared memory of flash_bwd_dq_wgmma_kernel, byte offsets from a
+// 1024-byte-aligned base: Q and dO (kNcb tiles each), two stages of K
+// and of V, two stages of the key tile's segments.
+template <int D>
+struct DqSmem {
+  static constexpr int kNcb = padded_dim(D) / 64;  // 64-column blocks
+  static constexpr int kQ = 0;
+  static constexpr int kO = kNcb * kTileBytes;
+  static constexpr int kK = 2 * kNcb * kTileBytes;
+  static constexpr int kV = kK + 2 * kNcb * kTileBytes;
+  static constexpr int kSeg = kV + 2 * kNcb * kTileBytes;
+  static constexpr size_t kBytes = kSeg + 2 * kBN * sizeof(int) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWarpgroup) flash_bwd_dq_wgmma_kernel(Args a) {
+  using L = DqSmem<D>;
+  constexpr int kNcb = L::kNcb, kSteps = padded_dim(D) / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = nbd::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  int* seg_s = reinterpret_cast<int*>(smem_raw + (base - raw) + L::kSeg);
+
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const int b = blockIdx.x / a.Hkv, hk = blockIdx.x % a.Hkv;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest causal tiles first
+  const int nrows = a.Sq * a.group;
+  const int tid = threadIdx.x, w = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const bool has_seg = a.kseg != nullptr;
+
+  // This thread's two rows, 16 w + g + 8 h: query index (-1 if padded),
+  // segment, lse (log2 domain) and delta; and whether one segment covers
+  // every row of the block.
+  const int seg0 = has_seg ? a.qseg[static_cast<size_t>(b) * a.Sq + row0 / a.group] : 0;
+  int qi_t[2], seg_t[2];
+  float lse_t[2], dl_t[2];
+  bool rows_vote = true;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = row0 + 16 * w + g + 8 * h;
+    const bool ok = R < nrows;
+    const int qi = ok ? R / a.group : 0;
+    const size_t li =
+        (static_cast<size_t>(b) * a.H + hk * a.group + (ok ? R % a.group : 0)) * a.Sq + qi;
+    qi_t[h] = ok ? qi : -1;
+    seg_t[h] = (has_seg && ok) ? a.qseg[static_cast<size_t>(b) * a.Sq + qi] : 0;
+    lse_t[h] = ok ? a.lse[li] * kLog2e : 0.f;
+    dl_t[h] = ok ? a.delta[li] : 0.f;
+    rows_vote = rows_vote && (!ok || seg_t[h] == seg0);
+  }
+  const bool rows_uniform = __syncthreads_and(rows_vote) != 0;
+
+  auto kv_row = [&](const bf16* x, int ki) -> const bf16* {
+    return ki < a.Sk ? x + ((static_cast<size_t>(b) * a.Sk + ki) * a.Hkv + hk) * D : nullptr;
+  };
+  // Start the copy of key tile kb0 (K, V and the keys' segments) into
+  // stage st.
+  auto issue = [&](int kb0, int st) {
+    nbd::load_tile<D, kWarpgroup>(base + L::kK + st * kNcb * kTileBytes, tid, k,
+                                  [&](int r) { return kv_row(k, kb0 + r); });
+    nbd::load_tile<D, kWarpgroup>(base + L::kV + st * kNcb * kTileBytes, tid, v,
+                                  [&](int r) { return kv_row(v, kb0 + r); });
+    if (has_seg && tid < kBN) {
+      const int ki = kb0 + tid;
+      nbd::cp_async4(seg_s + st * kBN + tid,
+                     a.kseg + static_cast<size_t>(b) * a.Sk + min(ki, a.Sk - 1), ki < a.Sk);
+    }
+    nbd::cp_async_commit();
+  };
+
+  auto row_ptr = [&](const bf16* x) {
+    return [=](int r) -> const bf16* {
+      const int R = row0 + r;
+      if (R >= nrows) return nullptr;
+      return x + ((static_cast<size_t>(b) * a.Sq + R / a.group) * a.H + hk * a.group +
+                  R % a.group) * D;
+    };
+  };
+  nbd::load_tile<D, kWarpgroup>(base + L::kQ, tid, q, row_ptr(q));
+  nbd::load_tile<D, kWarpgroup>(base + L::kO, tid, dout, row_ptr(dout));
+  int kbeg, kend;
+  nbd::key_range(row0, nrows, a.group, a.Sk, a.causal, a.window, a.q_off, a.k_off, &kbeg,
+                 &kend);
+  if (kbeg < kend)
+    issue(kbeg, 0);
+  else
+    nbd::cp_async_commit();
+
+  float acc[kNcb][32];
+#pragma unroll
+  for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  int st = 0;
+  for (int kb0 = kbeg; kb0 < kend; kb0 += kBN, st ^= 1) {
+    if (kb0 + kBN < kend) {
+      issue(kb0 + kBN, st ^ 1);
+      nbd::cp_async_wait<1>();
+    } else {
+      nbd::cp_async_wait<0>();
+    }
+    nbd::fence_proxy_async();
+    // Tile kb0 (and Q, dO) in shared memory; one segment over its keys and
+    // rows?  The vote is also the barrier that makes every thread's copies
+    // visible to the whole warpgroup, so it runs on every tile.
+    const bool vote =
+        !has_seg || tid >= kBN || kb0 + tid >= a.Sk || seg_s[st * kBN + tid] == seg0;
+    const bool tile_vote = __syncthreads_and(vote) != 0;
+    const bool seg_uniform = rows_uniform && tile_vote;
+    const uint32_t kt = base + L::kK + st * kNcb * kTileBytes;
+    const uint32_t vt = base + L::kV + st * kNcb * kTileBytes;
+
+    // S = Q K^T and dP = dO V^T; element 4 j + 2 h + e is row
+    // 16 w + g + 8 h, key kb0 + 8 j + 2 t + e.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
+      nbd::wgmma_ss(s, nbd::desc_kmajor(base + L::kQ + off), nbd::desc_kmajor(kt + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
+      nbd::wgmma_ss(dp, nbd::desc_kmajor(base + L::kO + off), nbd::desc_kmajor(vt + off), kk > 0);
+    }
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+    nbd::fence_regs(s);
+    nbd::fence_regs(dp);
+
+    const bool masked = nbd::tile_needs_mask(row0, kb0, nrows, a.group, a.Sk, a.causal, a.window,
+                                             a.q_off, a.k_off, has_seg, seg_uniform);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * h + e, c = 8 * j + 2 * t + e;
+          float p = exp2f(fmaf(s[i], sl2, -lse_t[h]));
+          if (masked && !(nbd::pair_kept(qi_t[h], kb0 + c, a.Sk, a.causal, a.window, a.q_off,
+                                         a.k_off) &&
+                          (!has_seg || seg_t[h] == seg_s[st * kBN + c])))
+            p = 0.f;
+          dp[i] = p * (dp[i] - dl_t[h]);
+        }
+
+    // dQ += dS K: dS as a bf16 hi + lo register A operand (one rounding
+    // of the signed, cancelling dS alone comes too close to the bf16
+    // limit), K MN-major.
+    uint32_t ds_hi[4][4], ds_lo[4][4];
+    nbd::acc_to_a_split(dp, ds_hi, ds_lo);
+    nbd::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bk = nbd::desc_mnmajor(kt + c * kTileBytes + kk * 16 * 128);
+        nbd::wgmma_rs(acc[c], ds_hi[kk], bk);
+        nbd::wgmma_rs(acc[c], ds_lo[kk], bk);
+      }
+    nbd::wgmma_commit();
+    nbd::wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c) nbd::fence_regs(acc[c]);
+    __syncthreads();  // every thread is done with stage st before it is refilled
+  }
+  nbd::cp_async_wait<0>();
+
+  bf16* dq = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qi_t[h] < 0) continue;
+    const int R = row0 + 16 * w + g + 8 * h;
+    bf16* dst =
+        dq + ((static_cast<size_t>(b) * a.Sq + qi_t[h]) * a.H + hk * a.group + R % a.group) * D;
+#pragma unroll
+    for (int c = 0; c < kNcb; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + 2 * t;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+              acc[c][4 * j + 2 * h] * a.scale, acc[c][4 * j + 2 * h + 1] * a.scale);
+      }
   }
 }
 
@@ -606,16 +823,20 @@ template <typename T, int D, bool kDkv>
 int launch(const Args& a, int B, cudaStream_t s) {
   static std::atomic<unsigned long long> attr_done{0};
   const int BH = B * a.Hkv;
-  if constexpr (kDkv && std::is_same_v<T, __nv_bfloat16>) {
-    return launch_kernel(flash_bwd_dkv_wgmma_kernel<D>, a, dim3(BH, (a.Sk + kBN - 1) / kBN),
-                         kWarpgroup * (padded_dim(D) / 64), DkvSmem<D>::kBytes, attr_done, s);
+  const int row_tiles = (a.Sq * a.group + kBM - 1) / kBM, key_tiles = (a.Sk + kBN - 1) / kBN;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (kDkv)
+      return launch_kernel(flash_bwd_dkv_wgmma_kernel<D>, a, dim3(BH, key_tiles),
+                           kWarpgroup * (padded_dim(D) / 64), DkvSmem<D>::kBytes, attr_done, s);
+    else
+      return launch_kernel(flash_bwd_dq_wgmma_kernel<D>, a, dim3(BH, row_tiles), kWarpgroup,
+                           DqSmem<D>::kBytes, attr_done, s);
   } else if constexpr (kDkv) {
-    return launch_kernel(flash_bwd_dkv_kernel<T, D>, a, dim3((a.Sk + kBN - 1) / kBN, BH),
-                         kThreads, smem_bytes<D>(), attr_done, s);
+    return launch_kernel(flash_bwd_dkv_kernel<D>, a, dim3(key_tiles, BH), kThreads,
+                         smem_bytes<D>(), attr_done, s);
   } else {
-    return launch_kernel(flash_bwd_dq_kernel<T, D>, a,
-                         dim3((a.Sq * a.group + kBM - 1) / kBM, BH), kThreads, smem_bytes<D>(),
-                         attr_done, s);
+    return launch_kernel(flash_bwd_dq_kernel<D>, a, dim3(row_tiles, BH), kThreads,
+                         smem_bytes<D>(), attr_done, s);
   }
 }
 
@@ -632,8 +853,9 @@ int dispatch(const Args& a, int B, int D, int dtype, cudaStream_t s) {
       default: break;
     }
   } else if (dtype == 1) {
-    if (kDkv && !(nbd::aligned16(a.q) && nbd::aligned16(a.k) && nbd::aligned16(a.v) &&
-                  nbd::aligned16(a.dout)))
+    // Both bf16 kernels copy q, k, v and dout with 16-byte cp.async.
+    if (!(nbd::aligned16(a.q) && nbd::aligned16(a.k) && nbd::aligned16(a.v) &&
+          nbd::aligned16(a.dout)))
       return static_cast<int>(cudaErrorMisalignedAddress);
     switch (D) {
       case 32: return launch<__nv_bfloat16, 32, kDkv>(a, B, s);

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// 16-byte cp.async into 128-byte-swizzled bf16 tiles, wgmma descriptors
-// and the two wgmma shapes the kernels issue, written as inline PTX; and
-// the tile ranges and mask tests every flash kernel shares.
+// Hopper (sm_90a) building blocks shared by the port's kernels: 16- and
+// 4-byte cp.async (the flash kernels and flash-decode), 128-byte-swizzled
+// bf16 tiles, wgmma descriptors and the two wgmma shapes the flash
+// kernels issue, written as inline PTX; and the tile ranges and mask
+// tests every flash kernel shares.
 //
 // Tile layout.  A tile is 64 rows of 64 bf16 (128 bytes a row), 8 KB,
 // at a 1024-byte-aligned shared address: 16-byte chunk c of row r sits at

@@ -1,6 +1,7 @@
 """Flash-decode: single-token attention against the heads-major KV
-cache — the hand-written Hopper kernel (``csrc/flash_decode.cu``) and
-its plain PyTorch version (counterpart of
+cache — the hand-written Hopper kernel (``csrc/flash_decode.cu``, the
+cache's length split across blocks and the pieces merged by their lse)
+and its plain PyTorch version (counterpart of
 ``nbdistributed_tpu/ops/decode.py``).
 
 The plain version is ``_cached_attention`` (``models/generate.py:131``)
@@ -20,9 +21,25 @@ import torch
 
 from . import _build
 from ._common import DTYPE_CODE, NEG_INF, check_contiguous, kernel_route
-from .attention import check_window
+from .attention import _ptr, check_window
 
 MAX_GROUP = 8  # query heads per kv head the kernel holds (csrc kMaxGroup)
+CHUNK_KEYS = 128  # a split's chunk of T is a multiple of this (csrc kChunkKeys)
+# Blocks the split aims for: four per SM of an H100 (132 SMs).
+TARGET_BLOCKS = 4 * 132
+
+
+def _decode_splits(bh: int, T: int) -> tuple[int, int]:
+    """(nsplit, chunk): the kernel's grid is (``bh`` = B * Hkv, nsplit)
+    and block i takes keys [i * chunk, (i + 1) * chunk) of the cache.
+    Chosen from ``bh`` and T alone: ``pos`` lives on the card, and
+    reading it here would stall the host-bound decode loop on a sync.
+    chunk is a multiple of CHUNK_KEYS, and no chunk is empty:
+    (nsplit - 1) * chunk < T <= nsplit * chunk."""
+    tiles = -(-T // CHUNK_KEYS)
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // bh)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * CHUNK_KEYS
 
 
 def decode_reference(q, kc, vc, pos, *, scale: float, window=None,
@@ -56,9 +73,9 @@ def decode_reference(q, kc, vc, pos, *, scale: float, window=None,
 
 
 # The C signature of nbd_flash_decode (csrc/flash_decode.cu): q, kc,
-# vc, ks, vs, pos, out, lse; B, H, Hkv, T, D, q_dtype, cache_dtype;
-# scale; window; stream.
-ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+# vc, ks, vs, pos, out, lse, part; B, H, Hkv, T, D, q_dtype,
+# cache_dtype, nsplit, chunk; scale; window; stream.
+ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -86,14 +103,17 @@ def _decode_cuda(q, kc, vc, pos, *, scale, window, k_s, v_s, return_lse):
     out = torch.empty_like(q)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    # The partials of a split cache in one fp32 scratch: every chunk's
+    # unnormalized o, then every chunk's (m, l); the kernel allocates
+    # nothing.
+    nsplit, chunk = _decode_splits(B * Hkv, T)
+    part = (torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     code = _build.bind("flash_decode", "nbd_flash_decode", ARGTYPES)(
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        k_s.data_ptr() if k_s is not None else None,
-        v_s.data_ptr() if v_s is not None else None,
-        pos.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), _ptr(k_s), _ptr(v_s),
+        pos.data_ptr(), out.data_ptr(), _ptr(lse), _ptr(part),
         B, H, Hkv, T, D, DTYPE_CODE[q.dtype], DTYPE_CODE[kc.dtype],
-        float(scale), int(window or 0),
+        nsplit, chunk, float(scale), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "nbd_flash_decode")
     flash_decode_attention.launches += 1
@@ -112,7 +132,8 @@ def flash_decode_attention(q, kc, vc, pos, *, scale: float | None = None,
     make the cache int8.  Returns (B, H, D), plus the (B, H) fp32 lse
     with ``return_lse``.  CUDA tensors launch the kernel, CPU tensors
     take :func:`decode_reference`; ``flash_decode_attention.launches``
-    counts kernel launches."""
+    counts the kernel's launches (one per call: the C entry point
+    launches the split kernel and, for a split cache, its combine)."""
     B, H, D = q.shape
     if kc.ndim != 4 or vc.shape != kc.shape or kc.shape[0] != B \
             or kc.shape[3] != D:

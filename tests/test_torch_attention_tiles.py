@@ -1,5 +1,5 @@
 """The tile logic and rounding of the tensor-core flash kernels (K1, the
-forward, and K3, dK/dV, in bf16), emulated on the CPU.
+forward, K2, dQ, and K3, dK/dV, in bf16), emulated on the CPU.
 
 The kernels run only on the card.  What decides which (64-row, 64-key)
 tiles they compute, and which of those they mask, is plain integer
@@ -11,12 +11,15 @@ and the segment votes of ``flash_fwd_wgmma_kernel``
 line in Python and holds every tile's class against ``_keep_mask``, the
 plain version's mask: a skipped tile holds no kept pair, a full tile
 (computed without a mask) no removed pair, and a masked tile's
-per-element test equals the mask.
+per-element test equals the mask.  ``flash_bwd_dq_wgmma_kernel`` (K2)
+walks exactly K1's tiles (the same row tiles, ``key_range``, votes and
+``tile_needs_mask``), so K1's cases cover it.
 
-The second half computes K1 and K3 in plain PyTorch with the kernels'
-rounding points -- P rounded to bf16 before P.V (K1), P and dS each as a
-bf16 hi + lo pair before dV and dK (K3), every sum fp32 -- and holds them
-to ``_flash_forward_plain`` / ``_flash_backward_plain`` under the bf16
+The second half computes K1, K2 and K3 in plain PyTorch with the
+kernels' rounding points -- P rounded to bf16 before P.V (K1), dS as a
+bf16 hi + lo pair before dS.K (K2), P and dS each as a hi + lo pair
+before dV and dK (K3), every sum fp32 -- and holds them to
+``_flash_forward_plain`` / ``_flash_backward_plain`` under the bf16
 limits the card's check uses.
 """
 
@@ -214,8 +217,8 @@ def test_tile_classes_match_the_plain_mask(case, kernel):
 
 
 def test_heaviest_tiles_first():
-    """K1 launches its row tiles last-first and K3 its key tiles
-    first-first: in both the first block launched has the most causal
+    """K1 and K2 launch their row tiles last-first and K3 its key tiles
+    first-first: in each the first block launched has the most causal
     tiles to walk."""
     Sq = Sk = 512
     group = 3
@@ -282,6 +285,43 @@ def _k1_kernel_rounding(q, k, v, scale, seg=None):
     return out, lse
 
 
+def _rounded(x, split):
+    """x as the kernels feed it to the tensor cores: one bf16 rounding,
+    or (``split``) the pair hi = bf16(x), lo = bf16(x - hi), summed."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi) if split else hi
+
+
+def _k2_kernel_rounding(q, k, v, g_out, out, lse, scale, split=True,
+                        seg=None):
+    """K2 as the kernel computes it, causal (and within the segments
+    ``seg`` (S,), if given): 64-key tiles, P = exp2 of the scores in the
+    log2 domain less the saved lse, dS = P (dP - delta) in fp32, rounded
+    as a bf16 hi + lo pair (``split``; once otherwise) for dQ += dS K,
+    the tiles' sum in fp32, dQ scaled at the end."""
+    B, S, H, D = q.shape
+    grp = H // k.shape[2]
+    qf = q.float().transpose(1, 2)                       # (B, H, S, D)
+    kf = k.float().repeat_interleave(grp, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(grp, 2).transpose(1, 2)
+    gf = g_out.float().transpose(1, 2)
+    delta = tattn._flash_bwd_prep(out, g_out)[..., None]
+    lse2 = lse[..., None] * 1.4426950408889634
+    qi = torch.arange(S)[:, None]
+    dq = torch.zeros(B, H, S, D)
+    for kb0 in range(0, S, TILE):
+        kt, vt = kf[:, :, kb0:kb0 + TILE], vf[:, :, kb0:kb0 + TILE]
+        s = qf @ kt.transpose(-1, -2)
+        p = torch.exp2(s * (scale * 1.4426950408889634) - lse2)
+        keep = torch.arange(kb0, kb0 + TILE)[None] <= qi
+        if seg is not None:
+            keep = keep & (seg[:, None] == seg[None, kb0:kb0 + TILE])
+        p = p.masked_fill(~keep, 0.0)
+        ds = p * (gf @ vt.transpose(-1, -2) - delta)
+        dq = dq + _rounded(ds, split) @ kt
+    return (dq * scale).transpose(1, 2).to(q.dtype)
+
+
 def _k3_kernel_rounding(q, k, v, g_out, out, lse, scale, split=True):
     """K3 as the kernel computes it, causal: P and dS in fp32, each as
     a bf16 hi + lo pair (``split``; one bf16 rounding otherwise) for
@@ -298,15 +338,9 @@ def _k3_kernel_rounding(q, k, v, g_out, out, lse, scale, split=True):
     dp = torch.einsum("bqhd,bkhd->bhqk", g_out.float(),
                       v.float().repeat_interleave(grp, 2))
     ds = p * (dp - tattn._flash_bwd_prep(out, g_out)[..., None])
-
-    def rounded(x):
-        if not split:
-            return _bf16(x)
-        hi = _bf16(x)
-        return hi + _bf16(x - hi)
-
-    dv = torch.einsum("bhqk,bqhd->bkhd", rounded(p), g_out.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", rounded(ds), q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, split), g_out.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds, split),
+                      q.float()) * scale
     fold = lambda x: x.reshape(B, S, Hkv, grp, D).sum(3).to(k.dtype)  # noqa
     return fold(dk), fold(dv)
 
@@ -359,3 +393,24 @@ def test_k3_rounding_within_the_chip_limits(bf16_case):
     single = max(_ratio(dk1, want_dk, K23_TOL_BF16),
                  _ratio(dv1, want_dv, K23_TOL_BF16))
     assert single > 1
+
+
+@pytest.mark.parametrize("segments", [False, True],
+                         ids=["causal", "causal_packed_segments"])
+def test_k2_rounding_within_the_chip_limits(bf16_case, segments):
+    """dQ with dS as a bf16 hi + lo pair stays within 0.8 of the limit
+    (0.40 here); one bf16 rounding of the signed, cancelling dS reaches
+    0.89, too close to it, which is why the kernel splits dS."""
+    q, k, v, g, scale = bf16_case
+    seg = _packed_segments(q.shape[1], seed=1) if segments else None
+    ids = None if seg is None else seg[None].to(torch.int32)
+    args = dict(causal=True, scale=scale, segment_ids=ids,
+                kv_segment_ids=ids)
+    out, lse = tattn._flash_forward_plain(q, k, v, **args)
+    want_dq = tattn._flash_backward_plain(q, k, v, out, lse, g, **args)[0]
+    split = _ratio(_k2_kernel_rounding(q, k, v, g, out, lse, scale,
+                                       seg=seg), want_dq, K23_TOL_BF16)
+    single = _ratio(_k2_kernel_rounding(q, k, v, g, out, lse, scale,
+                                        split=False, seg=seg),
+                    want_dq, K23_TOL_BF16)
+    assert split <= 0.8 < single

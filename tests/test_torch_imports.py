@@ -1,6 +1,6 @@
-"""Import hygiene of the PyTorch port: no module of the port, and not
-``chip_smoke.py``, imports JAX (or its ecosystem) or anything of the
-JAX package.
+"""Import hygiene of the PyTorch port: no module of the port, and
+neither ``chip_smoke.py`` nor ``chip_kernel_ab.py``, imports JAX (or its
+ecosystem) or anything of the JAX package.
 
 The scan reads the source (AST): in a process that already has JAX
 loaded, ``sys.modules`` cannot tell who imported it.
@@ -15,7 +15,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "nbdistributed_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "nbdistributed_tpu"}
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_kernel_ab.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
