@@ -20,8 +20,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
    version: per-row positions over [0, T-1], a window, int8 caches
    with scales, fp32, T=1000 (ragged against the 128-key chunk), rows
    whose window lies past every valid key (o = 0, lse = NEG_INF),
-   groups 1 and 8, D=32 and 128, one chunk (nsplit = 1), the lse, and
-   the serving path's own shape and positions and its full context;
+   groups 1 and 8, D=32 and 128, one chunk (nsplit = 1), the lse, the
+   serving path's own shape and positions and its full context, and a
+   paged step's dense view (large finite values past every position);
 4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
    wrapper the path calls, against the plain backward in bf16 (one
    tile, group 1, causal S=2048 with group 3 at D=64 and D=128,
@@ -34,10 +35,34 @@ Phases (each prints one or more lines; any failure exits non-zero):
    bf16 ``DecodeServer`` answering 12 staggered requests; K1 must have
    launched once per layer, K4 once per layer per decode step.  The
    kernel-path logits are then held against the plain path's, and the
-   same requests are served in fp32 and held against solo ``generate``;
+   same requests are served in fp32 and held against solo ``generate``
+   under the near-tie rule (``near_tie_check``: a stream may leave its
+   reference only where the reference's top-2 logit gap is below 1e-4;
+   every fp32 check below uses it);
 6. a profile of bf16 decode steps: device time per step against the
    host's wall time, and the kernels that take it;
-7. the training path, counts reset just before and read just after:
+7. paged KV (``serve_paged``): 16 blocks of 64 tokens (1/8 of the dense
+   pool) serving phase 5's requests, token for token the dense bf16
+   server's, with admissions that waited for blocks and every block
+   back at the end; on 8 of them int8 KV paged against int8 KV dense
+   and fp32 paged against solo ``generate``; the gather's and scatter's
+   device time; a profile of paged steps;
+8. speculative decoding (``serve_speculative``, gamma 4, draft = the
+   target's first 2 layers): fp32 against solo ``generate``; an fp32
+   self-draft accepting every proposal but at near-ties; bf16 tokens
+   per round, ms per round and tokens/s; K4 (gamma + 1) x 2 times a
+   round and none in the verify; a profile of rounds;
+9. prefix caching and chunked prefill (``serve_prefix_chunked``): a
+   384-token cached prefix against a server without it, with the
+   prefill positions each fed; interleaved prefill in chunks of 128 of
+   600-1500-token prompts against solo ``generate``; in bf16, the
+   slowest decode step while a long prompt streams in beside one
+   unchunked admission step;
+10. int8 and int4 weights (``serve_quantized``): weight bytes, decode
+   ms per step and the forward's relative L2 in bf16 (12 requests),
+   fp32 against solo ``generate`` on the same quantized tree (4
+   requests), and the lm_head product's time in each form;
+11. the training path, counts reset just before and read just after:
    8 bf16 AdamW steps with remat on one fixed batch of B=4 x S=2048
    packed documents, fed through ``batch_iterator`` and
    ``prefetch_to_device``; per step K1 must launch 60 times (forward
@@ -46,11 +71,16 @@ Phases (each prints one or more lines; any failure exits non-zero):
    fp32 loss and every gradient through the kernels against the plain
    path (B=1, S=2048), and three bf16 LoRA steps (base untouched, loss
    falls);
-8. timing of each kernel at the main paths' shapes (K1 at both the
+12. timing of each kernel at the main paths' shapes (K1 at both the
    serving and the training shape, K4 at the serving shape and at full
    context), beside its plain version, one PyTorch library call and the
    card's bound; K4 and its yardsticks on the device by CUDA-graph
    replay (a K4 call is shorter than the host's launch of it).
+
+Phases 7-10 run each server with the launch counts reset just before
+and K4's read just after, held to 30 per decode step (per round: the
+draft's launches), and their K4 launches join phase 5's in the kernels
+line (``launches_by_path``).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -318,8 +348,9 @@ def phase_k4():
     every valid key, groups 1 and 8, D=32 and 128 in each cache type
     (every key-tile geometry of the kernel), one chunk (B*Hkv=576:
     nsplit = 1, no combine), and the main path's own shape (B=8 slots,
-    T=max_len=1024, serving positions) and full context (T=2048, every
-    slot at 2047).  Returns the worst bf16 output error."""
+    T=max_len=1024, serving positions), its full context (T=2048, every
+    slot at 2047) and a paged step's gathered view (±3e4 past every
+    row's position).  Returns the worst bf16 output error."""
     import torch
     from nbdistributed_tpu_torch.ops import decode as K
     from nbdistributed_tpu_torch.ops._common import NEG_INF
@@ -353,17 +384,27 @@ def phase_k4():
               "past", None),
              ("serving_shape_T1024", 8, 3, 3, 64, 1024, None, "bf16",
               "serving", None),
+             ("paged_view_garbage_T1024", 8, 3, 3, 64, 1024, None, "bf16",
+              "garbage", None),
              ("full_context_T2048", 8, 3, 3, 64, 2048, None, "bf16", "full",
               None)]
     worst = 0.0
     for name, B, Hkv, group, D, T, window, cache, kind, qdt in cases:
         pos = {None: None, "past": past_valid_pos(B, T),
-               "serving": serving_pos(B),
+               "serving": serving_pos(B), "garbage": serving_pos(B),
                "full": torch.full((B,), T - 1, dtype=torch.int32,
                                   device="cuda")}[kind]
         q, kc, vc, ks, vs, pos = k4_inputs(B, Hkv, group, D, T, cache,
                                            seed=len(name), pos=pos,
                                            qdtype=qdt)
+        if kind == "garbage":
+            # A paged step's dense view: whatever the trash and unwritten
+            # blocks hold (finite) lies past each row's position and
+            # must reach no output.
+            past = (torch.arange(T, device="cuda")[None, :]
+                    > pos.long()[:, None])[:, None, :, None]
+            kc.masked_fill_(past, 3e4)
+            vc.masked_fill_(past, -3e4)
         out, lse = K.flash_decode_attention(q, kc, vc, pos, scale=0.125,
                                             window=window, k_s=ks, v_s=vs,
                                             return_lse=True)
@@ -496,32 +537,46 @@ def make_requests(cfg, n=12, seed=11):
             for L in lens]
 
 
-def serve(params, cfg, prompts, max_new=32):
-    """Serve ``prompts`` staggered; returns (outputs, decode steps,
-    wall seconds, per-step seconds)."""
+def serve(params, cfg, prompts, max_new=32, **server_kw):
+    """Serve ``prompts`` staggered (waves of 5, 4 and the rest, three
+    steps apart) on ``DecodeServer(max_batch=8, max_len=1024,
+    **server_kw)``; returns (outputs, decode steps, wall seconds,
+    per-step seconds, run): ``run`` holds the server and ``waited``, the
+    requests that were pending at a moment a slot was free (a paged
+    pool's admissions that waited for blocks)."""
     import torch
     from nbdistributed_tpu_torch.models import DecodeServer
 
-    srv = DecodeServer(params, cfg, max_batch=8, max_len=1024)
+    srv = DecodeServer(params, cfg, **{**dict(max_batch=8, max_len=1024),
+                                       **server_kw})
     waves = [prompts[:5], prompts[5:9], prompts[9:]]
-    rids, steps, step_s = [], 0, []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for wave in waves:
-        rids += [srv.submit(p, max_new) for p in wave]
-        for _ in range(3):
-            ts = time.perf_counter()
-            if srv.step():
-                steps += 1
-                step_s.append(time.perf_counter() - ts)
-    while not srv.done():
+    rids, steps, step_s, waited = [], 0, [], set()
+
+    def note_waiting():
+        if srv._free:
+            waited.update(r for r, _, _ in srv._pending)
+
+    def one_step():
+        nonlocal steps
         ts = time.perf_counter()
         if srv.step():
             steps += 1
             step_s.append(time.perf_counter() - ts)
+        note_waiting()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:
+        rids += [srv.submit(p, max_new) for p in wave]
+        note_waiting()
+        for _ in range(3):
+            one_step()
+    while not srv.done():
+        one_step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return [srv.outputs[r] for r in rids], steps, wall, step_s
+    return ([srv.outputs[r] for r in rids], steps, wall, step_s,
+            dict(server=srv, waited=len(waited)))
 
 
 def phase_main_path(seed=0):
@@ -540,7 +595,7 @@ def phase_main_path(seed=0):
 
     reset_launch_counts()
     logits = forward(params, tokens, cfg)
-    outputs, steps, wall, step_s = serve(params, cfg, prompts)
+    outputs, steps, wall, step_s, _ = serve(params, cfg, prompts)
     k1 = flash_attention.launches
     k4 = flash_decode_attention.launches
     say("main_path_counts", k1_launches=k1, k4_launches=k4,
@@ -572,7 +627,9 @@ def phase_main_path(seed=0):
     say("forward_bf16", rel_l2_err=rel, tol=5e-2, argmax_agree=agree,
         max_abs_err=max_err(logits, plain))
     check(rel <= 5e-2, f"forward bf16: relative error {rel}")
-    return {"k1": k1, "k4": k4, "steps": steps}, prompts, params
+    dense = dict(outputs=outputs, tokens_per_s=n_tok / wall,
+                 ms_per_step_median=1e3 * step_s[len(step_s) // 2])
+    return {"k1": k1, "k4": k4, "steps": steps}, prompts, params, dense
 
 
 def profile_steps(step, n_steps):
@@ -612,33 +669,78 @@ def profile_steps(step, n_steps):
                           calls_per_step=k[1]) for k in kernels[:8]])
 
 
-def phase_profile(params, n_steps=8):
+def phase_profile(params, n_steps=8, name="profile_decode_step",
+                  **server_kw):
     """Where a bf16 decode step's time goes: a profile of ``n_steps``
-    steps of a full 8-slot server (128-token prompts)."""
+    steps of a full 8-slot server (128-token prompts), built with
+    ``server_kw`` (a paged or a speculative server)."""
     import torch
     from nbdistributed_tpu_torch.models import (DecodeServer,
                                                 smol_135m_config)
 
     cfg = smol_135m_config()
-    srv = DecodeServer(params, cfg, max_batch=8, max_len=1024)
+    srv = DecodeServer(params, cfg, max_batch=8, max_len=1024, **server_kw)
     g = torch.Generator().manual_seed(13)
     for _ in range(8):
         srv.submit(torch.randint(0, cfg.vocab_size, (128,),
-                                 generator=g).tolist(), n_steps + 4)
+                                 generator=g).tolist(), 8 * n_steps + 16)
     srv.step()
     srv.step()
     row = profile_steps(srv.step, n_steps)
-    say("profile_decode_step", **row)
+    say(name, **row)
     return row
+
+
+# A served fp32 stream may leave its reference only where the
+# reference's top-2 logits are this close: the two runs sum in other
+# orders (batch shapes, the verify's S = gamma + 1, a chunk's or a
+# suffix's prefill), ~1e-6 apart at SmolLM2's width.
+NEAR_TIE = 1e-4
+
+
+def near_tie_check(name, params, cfg, prompts, got, want):
+    """Hold served fp32 streams ``got`` to their references ``want``
+    (solo ``generate`` or another server), token for token, except at a
+    near-tie: where stream i first differs at step j, the reference's
+    top-2 logit gap after ``prompts[i] + want[i][:j]`` (one fresh
+    prefill) must be below NEAR_TIE.  Prints and returns the gaps."""
+    import torch
+    from nbdistributed_tpu_torch.models import (forward_with_cache,
+                                                init_kv_cache)
+
+    gaps = []
+    for prompt, g, w in zip(prompts, got, want):
+        check(len(g) == len(w), f"{name}: {len(g)} tokens, reference "
+              f"{len(w)}")
+        j = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y), None)
+        if j is None:
+            continue
+        cache = init_kv_cache(cfg, 1, len(prompt) + j, device="cuda")
+        logits, _ = forward_with_cache(params, [prompt + w[:j]], cache, 0,
+                                       cfg, last_only=True)
+        top2 = torch.topk(logits[0, -1], 2).values
+        gap = float(top2[0] - top2[1])
+        gaps.append(gap)
+        check(gap < NEAR_TIE, f"{name}: diverged from its reference at "
+              f"step {j} where the reference's top-2 gap is {gap}")
+    say(name, requests=len(got), divergences_at_near_ties=len(gaps),
+        gaps=gaps, near_tie=NEAR_TIE)
+    return gaps
+
+
+def solo_outputs(params, cfg, prompts, max_new=32):
+    """Each prompt's ``max_new`` tokens from a solo ``generate``."""
+    from nbdistributed_tpu_torch.models import generate
+    return [generate(params, [p], cfg, max_new)[0, len(p):].tolist()
+            for p in prompts]
 
 
 def phase_fp32(prompts, seed=0):
     """fp32 forward kernel vs plain, and fp32 serving vs solo generate
-    (a divergence is tolerated only at a near-tie of the solo run)."""
+    under the near-tie rule.  Returns the fp32 parameters and the solo
+    outputs, which the later serving paths reuse as references."""
     import torch
-    from nbdistributed_tpu_torch.models import (forward, forward_with_cache,
-                                                generate, init_kv_cache,
-                                                init_params,
+    from nbdistributed_tpu_torch.models import (forward, init_params,
                                                 smol_135m_config)
 
     cfg = smol_135m_config(dtype=torch.float32)
@@ -652,29 +754,425 @@ def phase_fp32(prompts, seed=0):
     say("forward_fp32", rel_l2_err=rel, tol=1e-4, max_abs_err=max_err(a, b))
     check(rel <= 1e-4, f"forward fp32: relative error {rel}")
 
-    outputs, steps, _, _ = serve(params, cfg, prompts)
-    near_ties, gaps = 0, []
-    for prompt, got in zip(prompts, outputs):
-        want = generate(params, [prompt], cfg, 32)[0, len(prompt):].tolist()
-        j = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
-                 None)
-        if j is None:
-            continue
-        cache = init_kv_cache(cfg, 1, len(prompt) + j, device="cuda")
-        logits, _ = forward_with_cache(params, [prompt + want[:j]], cache, 0,
-                                       cfg, last_only=True)
-        top2 = torch.topk(logits[0, -1], 2).values
-        gap = float(top2[0] - top2[1])
-        gaps.append(gap)
-        check(gap < 1e-4, f"fp32 serving diverged from solo generate at "
-              f"step {j} where the solo top-2 gap is {gap}")
-        near_ties += 1
-    say("serve_fp32_vs_solo", requests=len(prompts), decode_steps=steps,
-        divergences_at_near_ties=near_ties, gaps=gaps)
+    outputs, steps, _, _, _ = serve(params, cfg, prompts)
+    solo = solo_outputs(params, cfg, prompts)
+    near_tie_check("serve_fp32_vs_solo", params, cfg, prompts, outputs, solo)
+    say("serve_fp32", requests=len(prompts), decode_steps=steps)
+    return params, solo
 
 
 # ----------------------------------------------------------------------
-# phase 7: the training path
+# phases 7-10: serving beyond the dense pool.  Every server run below
+# has its counts reset just before and K4's read just after, held to
+# what the run must launch; a path's launches are its own servers'
+# runs, not those of the dense or unprefixed servers it is held to.
+
+PAGED = dict(kv_block_tokens=64, kv_blocks=16)   # 1/8 of the dense pool
+GAMMA = 4
+
+
+def k4_launches():
+    from nbdistributed_tpu_torch.ops import flash_decode_attention
+    return flash_decode_attention.launches
+
+
+def counted_serve(path, want_per_step, params, cfg, prompts, **kw):
+    """``serve`` as one run of ``path``: counts reset just before, K4's
+    read just after, which must be ``want_per_step`` per decode step
+    (per round on a speculative server).  Returns serve's result and
+    the run's K4 launches."""
+    reset_launch_counts()
+    out = serve(params, cfg, prompts, **kw)
+    k4, steps = k4_launches(), out[1]
+    check(steps > 0 and k4 == want_per_step * steps,
+          f"{path}: K4 launched {k4} times over {steps} steps, want "
+          f"{want_per_step} per step")
+    return out, k4
+
+
+def gather_costs(cfg):
+    """Device time (CUDA-graph replay: each is a handful of launches
+    that take the host longer to launch than the card to run) of the paged
+    step's gather (every slot's 16 blocks into the dense (L, 8, Hkv,
+    1024, D) view, K and V) and of its one-block-per-slot scatter, bf16,
+    at the serving shape."""
+    import torch
+    from nbdistributed_tpu_torch.models import paged_kv
+
+    pool = paged_kv.make_paged_pool(cfg, 8 * 16, 64, device="cuda")
+    table = torch.arange(8 * 16, dtype=torch.int32,
+                         device="cuda").reshape(8, 16)
+    dense = paged_kv.gather_dense(pool, table)
+    pos = serving_pos(8)
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+    gather = graph_ms(lambda: paged_kv.gather_dense(pool, table), 10, 5)
+    scatter = graph_ms(lambda: paged_kv.scatter_step(
+        pool, dense, table, pos, active, 8 * 16, 64), 10, 5)
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in dense.values())
+    return dict(gather_ms=gather, scatter_ms=scatter, gather_bytes=nbytes,
+                gather_bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+
+
+def phase_serve_paged(params, prompts, dense, params32, solo32):
+    """The paged server (bf16, 16 blocks of 64 tokens: 1/8 of the dense
+    pool's 128) on phase 5's requests: token for token the dense bf16
+    server's, with admissions that waited for blocks while a slot was
+    free and every block back at the end; then, on 8 of them, int8 KV
+    paged against int8 KV dense and fp32 paged against solo generate
+    (near-tie rule)."""
+    from nbdistributed_tpu_torch.models import smol_135m_config
+
+    cfg = smol_135m_config()
+    L = N_LAYERS_SMOL
+    (outs, steps, wall, step_s, run), k4 = counted_serve(
+        "serve_paged", L, params, cfg, prompts, **PAGED)
+    snap = run["server"].kv_snapshot()
+    step_s = sorted(step_s)
+    n_tok = sum(len(o) for o in outs)
+    say("serve_paged_bf16", requests=len(outs), decode_steps=steps,
+        k4_launches=k4, want_k4=L * steps, waited_for_blocks=run["waited"],
+        kv_snapshot_end=snap, equal_to_dense=outs == dense["outputs"],
+        tokens_per_s=n_tok / wall, dense_tokens_per_s=dense["tokens_per_s"],
+        ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+        dense_ms_per_step_median=dense["ms_per_step_median"])
+    check(outs == dense["outputs"], "paged bf16 serving differs from the "
+          "dense bf16 server")
+    check(run["waited"] > 0, "no admission waited for blocks")
+    check(snap["used"] == 0 and snap["owners"] == {},
+          f"blocks still held at the end: {snap}")
+    total = k4
+
+    (int8_dense, *_), _ = counted_serve("serve_paged", L, params, cfg,
+                                        prompts[:8], kv_quantized=True)
+    (int8_paged, *_), k4 = counted_serve("serve_paged", L, params, cfg,
+                                         prompts[:8], kv_quantized=True,
+                                         **PAGED)
+    total += k4
+    say("serve_paged_int8_kv", equal_to_dense_int8_kv=int8_paged ==
+        int8_dense)
+    check(int8_paged == int8_dense, "paged int8-KV serving differs from "
+          "the dense int8-KV server")
+
+    cfg32 = smol_135m_config(dtype=params32["embed"].dtype)
+    (outs32, *_), k4 = counted_serve("serve_paged", L, params32, cfg32,
+                                     prompts[:8], **PAGED)
+    total += k4
+    near_tie_check("serve_paged_fp32_vs_solo", params32, cfg32, prompts[:8],
+                   outs32, solo32[:8])
+    costs = gather_costs(cfg)
+    say("paged_gather_cost", **costs)
+    profile = phase_profile(params, 4, name="profile_paged_step",
+                            kv_block_tokens=64)
+    return dict(k4=total, steps=steps, costs=costs, profile=profile,
+                waited=run["waited"], tokens_per_s=n_tok / wall)
+
+
+def truncated_draft(params, n_layers=2):
+    """The target's first ``n_layers`` layers with its embed, final norm
+    and lm_head (views, no copy)."""
+    return dict(params, layers={k: v[:n_layers]
+                                for k, v in params["layers"].items()})
+
+
+def self_draft_rounds(params, cfg, prompts, max_new=32):
+    """fp32 self-draft (draft = target): serve ``prompts``, and for each
+    round in which a stream accepted fewer than GAMMA proposals though
+    its budget allowed more, the target's top-2 gap at the first
+    rejection (a fresh prefill of the stream up to the position the
+    target corrected).  Returns (rounds, those gaps, outputs, K4)."""
+    import torch
+    from nbdistributed_tpu_torch.models import (DecodeServer,
+                                                forward_with_cache,
+                                                init_kv_cache)
+
+    srv = DecodeServer(params, cfg, max_batch=8, max_len=1024,
+                       draft_params=params, draft_cfg=cfg, gamma=GAMMA)
+    reset_launch_counts()
+    rids = [srv.submit(p, max_new) for p in prompts]
+    rounds, short = 0, []
+    while not srv.done():
+        before = {r: len(srv.outputs[r]) for r in rids}
+        emitted = srv.step()
+        rounds += bool(emitted)
+        for rid, toks in emitted.items():
+            if len(toks) < min(GAMMA + 1, max_new - before[rid]):
+                short.append((rid, before[rid] + len(toks) - 1))
+    k4 = k4_launches()
+    gaps = []
+    for rid, j in short:
+        ctx = srv.prompts[rid] + srv.outputs[rid][:j]
+        cache = init_kv_cache(cfg, 1, len(ctx), device="cuda")
+        logits, _ = forward_with_cache(params, [ctx], cache, 0, cfg,
+                                       last_only=True)
+        top2 = torch.topk(logits[0, -1], 2).values
+        gaps.append(float(top2[0] - top2[1]))
+    return rounds, gaps, [srv.outputs[r] for r in rids], k4
+
+
+def phase_serve_speculative(params, prompts, dense, params32, solo32):
+    """Speculative serving, gamma 4, draft = the target's first 2
+    layers: fp32 on 8 requests against solo generate (near-tie rule);
+    fp32 self-draft, every round accepting all 4 but at near-ties; bf16
+    on the 12 requests: tokens per round, ms per round, tokens/s.  Each
+    round launches K4 (gamma + 1) x 2 times (the draft's 4 proposals and
+    its extra write); the target's verify (S = 5) launches none."""
+    from nbdistributed_tpu_torch.models import smol_135m_config
+
+    cfg32 = smol_135m_config(dtype=params32["embed"].dtype)
+    want_per_round = (GAMMA + 1) * 2
+    spec32 = dict(draft_params=truncated_draft(params32),
+                  draft_cfg=smol_135m_config(dtype=cfg32.dtype, n_layers=2),
+                  gamma=GAMMA)
+    (outs32, rounds32, *_), total = counted_serve(
+        "serve_speculative", want_per_round, params32, cfg32, prompts[:8],
+        **spec32)
+    near_tie_check("serve_speculative_fp32_vs_solo", params32, cfg32,
+                   prompts[:8], outs32, solo32[:8])
+
+    rounds, gaps, outs_self, k4 = self_draft_rounds(params32, cfg32,
+                                                    prompts[:8])
+    total += k4
+    say("serve_speculative_fp32_self_draft", rounds=rounds,
+        short_rounds=len(gaps), gaps_at_first_rejection=gaps,
+        near_tie=NEAR_TIE, k4_launches=k4,
+        want_k4=rounds * (GAMMA + 1) * N_LAYERS_SMOL)
+    check(k4 == rounds * (GAMMA + 1) * N_LAYERS_SMOL,
+          f"self-draft: K4 launched {k4} times over {rounds} rounds")
+    check(all(g < NEAR_TIE for g in gaps), f"self-draft rejected a "
+          f"proposal away from a near-tie: gaps {gaps}")
+    near_tie_check("serve_speculative_fp32_self_draft_vs_solo", params32,
+                   cfg32, prompts[:8], outs_self, solo32[:8])
+
+    cfg = smol_135m_config()
+    spec = dict(draft_params=truncated_draft(params),
+                draft_cfg=smol_135m_config(n_layers=2), gamma=GAMMA)
+    (outs, rounds, wall, step_s, _), k4 = counted_serve(
+        "serve_speculative", want_per_round, params, cfg, prompts, **spec)
+    total += k4
+    step_s = sorted(step_s)
+    n_tok = sum(len(o) for o in outs)
+    row = dict(requests=len(outs), rounds=rounds, k4_launches=k4,
+               want_k4=rounds * want_per_round,
+               tokens_per_round_all_slots=(n_tok - len(outs)) / rounds,
+               ms_per_round_median=1e3 * step_s[len(step_s) // 2],
+               tokens_per_s=n_tok / wall,
+               dense_tokens_per_s=dense["tokens_per_s"])
+    say("serve_speculative_bf16", **row)
+    check(all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outs), "speculative bf16: a stream fell short or "
+          "left the vocabulary")
+    profile = phase_profile(params, 4, name="profile_speculative_round",
+                            **spec)
+    return dict(k4=total, bf16=row, profile=profile,
+                self_draft_short_rounds=len(gaps))
+
+
+def random_prompts(cfg, lens, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
+def phase_serve_prefix_chunked(params, params32):
+    """Prefix caching (fp32): a 384-token prefix through
+    ``cache_prefix``, 8 requests of prefix + a 16-64-token suffix, equal
+    to a server without the prefix (near-tie rule), with the prefill
+    positions each fed.  Chunked, interleaved prefill (``prefill_chunk
+    =128``, ``max_len=2048``): 4 prompts of 600-1500 tokens and 4 short
+    ones, fp32 equal to solo generate (near-tie rule); bf16, the
+    slowest decode step while a long prompt streams in beside one
+    unchunked admission step."""
+    import torch
+    from nbdistributed_tpu_torch.models import DecodeServer, smol_135m_config
+
+    L = N_LAYERS_SMOL
+    cfg32 = smol_135m_config(dtype=params32["embed"].dtype)
+    g = torch.Generator().manual_seed(17)
+    prefix = random_prompts(cfg32, [384], 17)[0]
+    suffixes = random_prompts(
+        cfg32, torch.randint(16, 65, (8,), generator=g).tolist(), 18)
+    prompts = [prefix + s for s in suffixes]
+    fed, runs, total = {}, {}, 0
+    for key in ("with", "without"):
+        srv = DecodeServer(params32, cfg32, max_batch=8, max_len=1024)
+        if key == "with":
+            srv.cache_prefix(prefix)
+        fed[key] = 0
+
+        # Count the positions each admission feeds through the prefill
+        # forward (the prefix's own prefill above is not counted).
+        def counting(p, cache, prompt, slot, start, length,
+                     orig=srv._prefill_fn, key=key):
+            fed[key] += prompt.shape[1]
+            return orig(p, cache, prompt, slot, start, length)
+
+        srv._prefill_fn = counting
+        reset_launch_counts()
+        rids = [srv.submit(p, 32) for p in prompts]
+        steps = 0
+        while not srv.done():
+            steps += bool(srv.step())
+        k4 = k4_launches()
+        check(k4 == L * steps, f"prefix run: K4 launched {k4} times over "
+              f"{steps} steps")
+        total += k4 if key == "with" else 0
+        runs[key] = [srv.outputs[r] for r in rids]
+    near_tie_check("serve_prefix_fp32_vs_no_prefix", params32, cfg32,
+                   prompts, runs["with"], runs["without"])
+    say("serve_prefix_positions", prefix_tokens=len(prefix),
+        suffix_tokens=[len(s) for s in suffixes],
+        prefill_positions_with_prefix=fed["with"],
+        prefill_positions_without=fed["without"])
+    check(fed["with"] < fed["without"], "the prefix saved no prefill")
+
+    lens = torch.randint(600, 1501, (4,), generator=g).tolist()
+    short = torch.randint(16, 129, (4,), generator=g).tolist()  # one chunk
+    chunked_prompts = random_prompts(cfg32, short + lens, 19)
+    chunk = dict(prefill_chunk=128, interleave_prefill=True, max_len=2048)
+    (outs32, *_), k4 = counted_serve("serve_prefix_chunked", L, params32,
+                                     cfg32, chunked_prompts, **chunk)
+    total += k4
+    near_tie_check("serve_chunked_fp32_vs_solo", params32, cfg32,
+                   chunked_prompts, outs32,
+                   solo_outputs(params32, cfg32, chunked_prompts))
+
+    # bf16: 4 short streams decode while one long prompt streams in,
+    # chunk by chunk; against one unchunked admission of it.
+    cfg = smol_135m_config()
+
+    def stream_in(**kw):
+        reset_launch_counts()
+        srv = DecodeServer(params, cfg, **{**dict(max_batch=8,
+                                                  max_len=2048), **kw})
+        for p in chunked_prompts[:4]:
+            srv.submit(p, 64)
+        steps = sum(bool(srv.step()) for _ in range(3))
+        times = []
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        srv.submit(chunked_prompts[-1], 8)
+        while srv.prefill_progress() or not times:
+            steps += bool(srv.step())
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - ts))
+            ts = time.perf_counter()
+        k4 = k4_launches()
+        check(k4 == L * steps, f"stream-in run: K4 launched {k4} times "
+              f"over {steps} steps")
+        return times, k4
+
+    chunked_ms, k4 = stream_in(**chunk)
+    total += k4
+    mono_ms, _ = stream_in()
+    row = dict(long_prompt=len(chunked_prompts[-1]), prefill_chunk=128,
+               chunked_step_ms=chunked_ms, slowest_chunked_step_ms=max(
+                   chunked_ms), unchunked_admission_step_ms=mono_ms[0])
+    say("serve_chunked_bf16_stream_in", **row)
+    return dict(k4=total, prefill_positions=dict(fed), stream_in=row)
+
+
+def weight_bytes(tree):
+    """Bytes of every tensor of a (possibly quantized) parameter tree."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    return sum(weight_bytes(v) for v in tree.values())
+
+
+def dequant_costs(params):
+    """Device time (CUDA-graph replay) of the lm_head product at the
+    decode shape (8 rows): bf16 against int8 and int4 leaves, each of
+    which casts its weight to bf16 (int4: unpacks it through int32) on
+    every call."""
+    import torch
+    from nbdistributed_tpu_torch.models import (qlinear, quantize_weight,
+                                                quantize_weight4)
+
+    w = params["lm_head"]
+    x = torch.randn(8, 1, w.shape[0], device="cuda").to(w.dtype)
+    leaves = {"bf16": w, "int8": quantize_weight(w),
+              "int4": quantize_weight4(w, group=64)}
+    return {k: dict(ms=graph_ms(lambda v=v: qlinear(x, v), 10, 5),
+                    weight_bytes=weight_bytes({"w": v}))
+            for k, v in leaves.items()}
+
+
+def phase_serve_quantized(params, prompts, params32):
+    """int8 (``quantize_params``) and int4 (``quantize_params4``, group
+    64) weights of the bf16 model serving the 12 requests: weight bytes,
+    decode ms per step, the forward's relative L2 against the
+    unquantized forward; in fp32, 4 requests on each quantized tree
+    against solo generate on the same tree (near-tie rule; the int4
+    tree's solo runs are the slowest of the script)."""
+    import torch
+    from nbdistributed_tpu_torch.models import (forward, quantize_params,
+                                                quantize_params4,
+                                                smol_135m_config)
+
+    L = N_LAYERS_SMOL
+    cfg = smol_135m_config()
+    cfg32 = smol_135m_config(dtype=params32["embed"].dtype)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g)
+    ref = forward(params, tokens, cfg)
+    kinds = {"int8": quantize_params, "int4": quantize_params4}
+    rows, total = {"bf16": dict(weight_bytes=weight_bytes(params))}, 0
+    for name, quantize in kinds.items():
+        qp = quantize(params)
+        logits = forward(qp, tokens, cfg)
+        rel = float((logits - ref).norm() / ref.norm())
+        (outs, steps, wall, step_s, _), k4 = counted_serve(
+            "serve_quantized", L, qp, cfg, prompts)
+        total += k4
+        check(torch.isfinite(logits).all().item() and all(
+            len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)
+            for o in outs), f"{name}: bad logits or streams")
+        step_s = sorted(step_s)
+        rows[name] = dict(weight_bytes=weight_bytes(qp), decode_steps=steps,
+                          ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+                          tokens_per_s=sum(map(len, outs)) / wall,
+                          forward_rel_l2_vs_bf16=rel)
+        say("serve_quantized_bf16", kind=name, **rows[name])
+        del qp
+        qp32 = quantize(params32)
+        (outs32, *_), k4 = counted_serve("serve_quantized", L, qp32, cfg32,
+                                         prompts[:4])
+        total += k4
+        near_tie_check(f"serve_quantized_{name}_fp32_vs_solo", qp32, cfg32,
+                       prompts[:4], outs32,
+                       solo_outputs(qp32, cfg32, prompts[:4]))
+    rows["lm_head_product"] = dequant_costs(params)
+    say("quantized_product_cost", **rows["lm_head_product"])
+    return dict(k4=total, rows=rows)
+
+
+def serving_beyond_dense(params, prompts, dense, params32, solo32):
+    """Phases 7-10 in order, from phase 5's bf16 parameters, requests
+    and dense outputs and the fp32 parameters and solo outputs of
+    ``phase_fp32``; returns ({path: result}, {path: seconds})."""
+    import torch
+
+    beyond, seconds = {}, {}
+    for name, phase, args in (
+            ("serve_paged", phase_serve_paged,
+             (params, prompts, dense, params32, solo32)),
+            ("serve_speculative", phase_serve_speculative,
+             (params, prompts, dense, params32, solo32)),
+            ("serve_prefix_chunked", phase_serve_prefix_chunked,
+             (params, params32)),
+            ("serve_quantized", phase_serve_quantized,
+             (params, prompts, params32))):
+        ts = time.perf_counter()
+        beyond[name] = phase(*args)
+        seconds[name] = time.perf_counter() - ts
+        torch.cuda.empty_cache()
+    say("serving_beyond_dense_seconds", **seconds)
+    return beyond, seconds
+
+
+# ----------------------------------------------------------------------
+# phase 11: the training path
 
 TRAIN_B, TRAIN_STEPS, TRAIN_BATCH_SEED = 4, 8, 7
 
@@ -842,7 +1340,7 @@ def phase_lora(seed=0, steps=3):
 
 
 # ----------------------------------------------------------------------
-# phase 8: timing
+# phase 12: timing
 
 def sdpa(q, k, v, **kw):
     import torch.nn.functional as F
@@ -1098,10 +1596,12 @@ def main() -> int:
     k1_err = phase_k1()
     k4_err = phase_k4()
     k23_err = phase_k23()
-    counts, prompts, params = phase_main_path()
+    counts, prompts, params, dense = phase_main_path()
     profile_row = phase_profile(params)
-    del params
-    phase_fp32(prompts)
+    params32, solo32 = phase_fp32(prompts)
+    beyond, seconds = serving_beyond_dense(params, prompts, dense, params32,
+                                           solo32)
+    del params, params32
     torch.cuda.empty_cache()
     train, train_profile = phase_train()
     torch.cuda.empty_cache()
@@ -1124,9 +1624,12 @@ def main() -> int:
                            if f.split("<")[0] in functions}, **extra)
 
     # K1 runs on both paths: its launches are the two runs' sum, its
-    # times the serving shape's, with the train shape's beside them; K4's
-    # are the serving shape's, with full context's beside them.  Each
-    # error is the worst bf16 one of every check of the kernel.
+    # times the serving shape's, with the train shape's beside them.
+    # K4's launches are every serving path's sum, its times the serving
+    # shape's, with full context's beside them.  Each error is the worst
+    # bf16 one of every check of the kernel.
+    k4_paths = {"serve": counts["k4"],
+                **{name: row["k4"] for name, row in beyond.items()}}
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -1150,12 +1653,13 @@ def main() -> int:
                f"{tensor_cores} (P and dS each as a {split})",
                ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")),
         kernel("flash_decode", "flash_decode.cu",
-               "nbdistributed_tpu/ops/decode.py:214", counts["k4"],
+               "nbdistributed_tpu/ops/decode.py:214", sum(k4_paths.values()),
                max(k4_err, timing["K4"]["max_abs_err"],
                    timing["K4_full_context"]["max_abs_err"]),
                "K4", "split-T flash-decoding: (B*Hkv, nsplit) blocks, "
                "cp.async ring, warp-level dot products, lse combine kernel",
                ("decode_split_kernel", "decode_combine_kernel"),
+               launches_by_path=k4_paths,
                full_context={k: timing["K4_full_context"][k]
                              for k in timed}),
     ]
@@ -1164,7 +1668,9 @@ def main() -> int:
         {"card": card, "kernels": kernels, "timing": timing,
          "counts": counts, "profile": profile_row, "train": train,
          "train_profile": train_profile, "train_fp32_vs_plain": train_fp32,
-         "lora_losses": lora_losses, "ptxas": ptxas},
+         "lora_losses": lora_losses, "ptxas": ptxas,
+         "serving_beyond_dense": beyond,
+         "serving_beyond_dense_seconds": seconds},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

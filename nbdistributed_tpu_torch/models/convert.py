@@ -5,7 +5,10 @@ Both sides use the same layer-stacked layout
 (``nbdistributed_tpu/models/transformer.py:157-179``), so conversion is
 leaf by leaf.  bf16 leaves (numpy arrays of the ``bfloat16`` extension
 type that JAX hands out) cross through float32, which holds every
-bf16 value exactly; the port never imports the extension type.
+bf16 value exactly; the port never imports the extension type.  A
+quantized weight (``{"q8" int8, "s" fp32}`` or ``{"q4" uint8, "s"
+fp32}``, :mod:`.quant`) crosses member by member, its integers copied
+bit for bit.
 """
 
 from __future__ import annotations
@@ -14,41 +17,77 @@ import numpy as np
 import torch
 
 from ..ops._common import resolve_device
-from .transformer import LAYER_WEIGHTS, TransformerConfig
+from .transformer import (LAYER_WEIGHTS, TransformerConfig, is_quantized,
+                          is_quantized4)
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                "float16": torch.float16}
+                "float16": torch.float16, "int8": torch.int8,
+                "uint8": torch.uint8}
+_INTEGER = ("int8", "uint8")
 
 
 def _leaf_to_torch(arr, device) -> torch.Tensor:
     name = str(arr.dtype)
     if name not in _TORCH_DTYPE:
         raise TypeError(f"unsupported parameter dtype {name}")
+    if name in _INTEGER:          # bit for bit, never through a float
+        return torch.from_numpy(np.array(arr, order="C")).to(device)
     f32 = np.array(arr, dtype=np.float32, order="C")  # own, writable
     return torch.from_numpy(f32).to(device=device,
                                     dtype=_TORCH_DTYPE[name])
 
 
 def _leaf_to_numpy(t) -> np.ndarray:
+    if t.dtype in (torch.int8, torch.uint8):
+        return t.detach().cpu().numpy()
     return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def _tree_map(fn, leaf):
+    """``fn`` over a plain leaf or each member of a quantized leaf."""
+    return ({k: fn(v) for k, v in leaf.items()} if isinstance(leaf, dict)
+            else fn(leaf))
+
+
+def _check_leaf(name: str, leaf, shape: tuple) -> None:
+    """A plain leaf must have the config's ``shape``; a quantized one
+    the shapes its quantizer gives a weight of that shape."""
+    lead, (d_in, d_out) = shape[:-2], shape[-2:]
+    if is_quantized(leaf):
+        want = {"q8": shape, "s": lead + (1, d_out)}
+    elif is_quantized4(leaf):
+        G = leaf["s"].shape[-3] if len(leaf["s"].shape) >= 3 else 0
+        if G < 1 or d_in % G or (d_in // G) % 2:
+            raise ValueError(f"{name}: int4 scales of shape "
+                             f"{tuple(leaf['s'].shape)} do not divide "
+                             f"d_in {d_in} in even groups")
+        want = {"q4": lead + (d_in // 2, d_out), "s": lead + (G, 1, d_out)}
+    else:
+        want = {"": shape}
+        leaf = {"": leaf}
+    for key, wshape in want.items():
+        if tuple(leaf[key].shape) != wshape:
+            raise ValueError(f"{name}{'/' + key if key else ''} has shape "
+                             f"{tuple(leaf[key].shape)}, config wants "
+                             f"{wshape}")
 
 
 def _check_shapes(tree: dict, cfg: TransformerConfig) -> None:
     from .transformer import layer_weight_dims
 
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    want = {("embed",): (V, D), ("final_norm",): (D,),
-            ("lm_head",): (D, V),
-            ("layers", "attn_norm"): (L, D), ("layers", "mlp_norm"): (L, D)}
+    for path, shape in (("embed", (V, D)), ("final_norm", (D,))):
+        if tuple(tree[path].shape) != shape:
+            raise ValueError(f"{path} has shape {tuple(tree[path].shape)}, "
+                             f"config wants {shape}")
+    _check_leaf("lm_head", tree["lm_head"], (D, V))
+    for name in ("attn_norm", "mlp_norm"):
+        leaf = tree["layers"][name]
+        if tuple(leaf.shape) != (L, D):
+            raise ValueError(f"layers/{name} has shape {tuple(leaf.shape)}, "
+                             f"config wants {(L, D)}")
     for name, dims in layer_weight_dims(cfg).items():
-        want[("layers", name)] = (L,) + dims
-    for path, shape in want.items():
-        leaf = tree
-        for key in path:
-            leaf = leaf[key]
-        if tuple(leaf.shape) != shape:
-            raise ValueError(f"{'/'.join(path)} has shape "
-                             f"{tuple(leaf.shape)}, config wants {shape}")
+        _check_leaf(f"layers/{name}", tree["layers"][name], (L,) + dims)
 
 
 def params_from_jax(np_tree: dict, cfg: TransformerConfig,
@@ -56,27 +95,35 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig,
     """The JAX pytree ``{"embed", "layers": {...}, "final_norm",
     "lm_head"}`` of numpy arrays -> the port's parameters on ``device``
     (None = the GPU).  Each leaf keeps its own dtype (weights in the
-    model dtype, norm gains fp32)."""
+    model dtype, norm gains fp32, quantized members int8 / uint8 /
+    fp32)."""
     dev = resolve_device(device)
     _check_shapes(np_tree, cfg)
     layer_names = LAYER_WEIGHTS + ("attn_norm", "mlp_norm")
+
+    def conv(leaf):
+        return _tree_map(lambda a: _leaf_to_torch(a, dev), leaf)
+
     return {
-        "embed": _leaf_to_torch(np_tree["embed"], dev),
-        "layers": {name: _leaf_to_torch(np_tree["layers"][name], dev)
+        "embed": conv(np_tree["embed"]),
+        "layers": {name: conv(np_tree["layers"][name])
                    for name in layer_names},
-        "final_norm": _leaf_to_torch(np_tree["final_norm"], dev),
-        "lm_head": _leaf_to_torch(np_tree["lm_head"], dev),
+        "final_norm": conv(np_tree["final_norm"]),
+        "lm_head": conv(np_tree["lm_head"]),
     }
 
 
 def params_to_numpy(params: dict) -> dict:
-    """The inverse, for tests: every leaf as a float32 numpy array
-    (bf16 widened exactly)."""
-    return {"embed": _leaf_to_numpy(params["embed"]),
-            "layers": {k: _leaf_to_numpy(v)
-                       for k, v in params["layers"].items()},
-            "final_norm": _leaf_to_numpy(params["final_norm"]),
-            "lm_head": _leaf_to_numpy(params["lm_head"])}
+    """The inverse, for tests: every float leaf as a float32 numpy array
+    (bf16 widened exactly), quantized members in their own dtype."""
+
+    def conv(leaf):
+        return _tree_map(_leaf_to_numpy, leaf)
+
+    return {"embed": conv(params["embed"]),
+            "layers": {k: conv(v) for k, v in params["layers"].items()},
+            "final_norm": conv(params["final_norm"]),
+            "lm_head": conv(params["lm_head"])}
 
 
 def lora_from_jax(np_tree: dict, device=None) -> dict:

@@ -251,3 +251,43 @@ def generate(params: dict, prompt, cfg: TransformerConfig,
         toks.append(_sample(logits[:, -1], temperature, generator, top_k,
                             top_p))
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def make_generate_fn(cfg: TransformerConfig, max_new_tokens: int, *,
+                     temperature: float = 0.0, top_k: int | None = None,
+                     top_p: float | None = None,
+                     max_len: int | None = None,
+                     kv_quantized: bool = False):
+    """A ``(params, prompt, generator=None) -> tokens`` closure over
+    :func:`generate` (``generate.py:498``; the port has no jit, so it
+    only binds the arguments)."""
+
+    def fn(params, prompt, generator=None):
+        return generate(params, prompt, cfg, max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        generator=generator, max_len=max_len,
+                        kv_quantized=kv_quantized)
+
+    return fn
+
+
+@torch.no_grad()
+def prefill_chunked(params: dict, tokens, cache: dict,
+                    cfg: TransformerConfig, *, chunk: int):
+    """Prefill ``tokens`` (B, S), S divisible by ``chunk``, into
+    ``cache`` one chunk at a time (``generate.py:516``): activation
+    memory O(chunk) instead of O(S), and the cache fills as one
+    whole-prompt prefill would (causal attention makes the two the same
+    computation).  Returns (last_logits (B, 1, V), cache)."""
+    tokens = _as_tokens(tokens, params["embed"].device)
+    B, S = tokens.shape
+    if S == 0:
+        raise ValueError("cannot prefill an empty prompt (S == 0)")
+    if S % chunk:
+        raise ValueError(f"prompt length {S} not divisible by chunk "
+                         f"{chunk}")
+    for i in range(S // chunk):
+        logits, cache = forward_with_cache(
+            params, tokens[:, i * chunk:(i + 1) * chunk], cache, i * chunk,
+            cfg, last_only=True)
+    return logits, cache

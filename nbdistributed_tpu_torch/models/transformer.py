@@ -8,8 +8,9 @@ wk, wv (L, D, Hkv*Dh), wo (L, H*Dh, D), w_gate, w_up (L, D, F),
 w_down (L, F, D), attn_norm, mlp_norm (L, D) fp32}, "final_norm" (D,)
 fp32, "lm_head" (D, V)}``.  The forward is a Python loop over layers;
 attention goes through the flash kernel (``cfg.use_flash``) or the
-plain reference.  Remat, sequence parallelism, shardings, the loss and
-int8/int4 weights belong to later slices (ROADMAP).
+plain reference.  Every product goes through :func:`qlinear`, so a
+tree with int8/int4 weight leaves (:mod:`.quant`) runs the same
+forward.
 """
 
 from __future__ import annotations
@@ -142,16 +143,84 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked per-layer tensors (views)."""
-    return {name: t[i] for name, t in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked per-layer tensors (views); a
+    quantized leaf (``{"q8", "s"}`` or ``{"q4", "s"}``) is sliced member
+    by member."""
+    return {name: ({k: v[i] for k, v in t.items()} if isinstance(t, dict)
+                   else t[i])
+            for name, t in params["layers"].items()}
 
 
 # ----------------------------------------------------------------------
 # forward
 
+def is_quantized(leaf) -> bool:
+    """True for an int8 weight-only quantized leaf ``{"q8", "s"}``
+    (:mod:`.quant`; ``transformer.py:243``)."""
+    return isinstance(leaf, dict) and "q8" in leaf and "s" in leaf
+
+
+def is_quantized4(leaf) -> bool:
+    """True for a nibble-packed int4 leaf ``{"q4", "s"}``."""
+    return isinstance(leaf, dict) and "q4" in leaf and "s" in leaf
+
+
+def _pack_nibbles(q):
+    """(..., d_in, d_out) int values in [-7, 7] -> (..., d_in/2, d_out)
+    uint8; row 2k rides the low nibble, row 2k+1 the high
+    (``transformer.py:260``)."""
+    q = q.to(torch.int32)
+    lo = q[..., 0::2, :] & 0xF
+    hi = q[..., 1::2, :] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def _unpack_nibbles(packed, dtype):
+    """Inverse of :func:`_pack_nibbles`, sign-extended in int32 (the
+    uint8 array has no negative values to extend)."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    q = torch.stack([lo, hi], dim=-2)         # (..., d_in/2, 2, d_out)
+    return q.reshape(*packed.shape[:-2], packed.shape[-2] * 2,
+                     packed.shape[-1]).to(dtype)
+
+
+def _qlinear4(x, w):
+    """``x @ W`` for a nibble-packed int4 leaf with grouped scales
+    (``transformer.py:278``): the grouped scales do not commute with the
+    whole product, so it runs as G batched (group x d_out) products in
+    ``x.dtype`` whose partials are scaled and summed in fp32."""
+    q4, s = w["q4"], w["s"]
+    if q4.ndim != 2:
+        raise ValueError(
+            f"qlinear on a stacked int4 leaf (q4 shape "
+            f"{tuple(q4.shape)}): expected a 2D (d_in/2, d_out) "
+            f"weight — index the leading {q4.ndim - 2} dim(s) and apply "
+            f"qlinear per slice")
+    d_in, d_out = q4.shape[-2] * 2, q4.shape[-1]
+    G = s.shape[-3]
+    group = d_in // G
+    qg = _unpack_nibbles(q4, x.dtype).reshape(G, group, d_out)
+    xg = x.reshape(*x.shape[:-1], G, group)
+    y = torch.einsum("...gk,gko->...go", xg, qg).float()
+    y = torch.einsum("...go,go->...o", y, s.reshape(G, d_out).float())
+    return y.to(x.dtype)
+
+
 def qlinear(x, w):
-    """``x @ w`` for a dense weight (``transformer.py:312``); the
-    int8/int4 weight leaves come with a later slice."""
+    """``x @ w`` where ``w`` is a plain weight, an int8 leaf ``{"q8",
+    "s"}`` or an int4 leaf ``{"q4", "s"}`` (``transformer.py:312``).
+    int8: per-output-channel scales commute with the product, so it
+    runs ``x @ q8.to(x.dtype)`` (int8 magnitudes are exact in bf16) and
+    rescales the columns in fp32.  The cast materializes the weight in
+    ``x.dtype`` on every call: PyTorch does not fuse it into the
+    product's operand read as XLA does."""
+    if is_quantized(w):
+        y = x @ w["q8"].to(x.dtype)
+        return (y.float() * w["s"]).to(x.dtype)
+    if is_quantized4(w):
+        return _qlinear4(x, w)
     return x @ w
 
 

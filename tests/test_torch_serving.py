@@ -2,9 +2,11 @@
 ``generate`` runs, on the CPU at ``tiny_config`` float32.
 
 Mirrors ``tests/unit/test_serving.py`` (staggered admission, slot
-recycling, EOS, int8 cache, step_many).  Greedy tokens are compared
-exactly: per request, the port's server, the port's solo generate, the
-JAX server and JAX's solo generate must all agree.
+recycling, EOS, int8 cache, step_many, chunked and interleaved prefill,
+prefix caching, speculative serving and spec_step_many).  Greedy tokens
+are compared exactly: per request, the port's server, the port's solo
+generate, the JAX server with the same arguments and JAX's solo
+generate must all agree.  Paged serving is in ``test_torch_paged.py``.
 """
 
 import jax
@@ -159,13 +161,290 @@ def test_cancel_sampling_and_validation(setup):
     assert all(0 <= t < cfg.vocab_size for t in srv.outputs[r0])
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"draft_params": {}}, {"prefill_chunk": 4},
-    {"kv_block_tokens": 8}, {"interleave_prefill": True}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"moe": True}])
 def test_later_slice_arguments_raise(setup, kwargs):
+    """A mesh (ROADMAP A5, then A2) and MoE configs (A4) are later
+    slices; the MoE case hands the port the JAX package's MoE config."""
+    from nbdistributed_tpu.models import tiny_moe_config
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kwargs = dict(kwargs)
+    if kwargs.pop("moe", False):
+        cfg = tiny_moe_config(dtype=jnp.float32, use_flash=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A[245]"):
         DecodeServer(params, cfg, max_batch=1, max_len=16, **kwargs)
-    srv = DecodeServer(params, cfg, max_batch=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.cache_prefix([1, 2])
+
+
+# ----------------------------------------------------------------------
+# against the JAX server with the same arguments
+
+
+def both(setup, drive, draft=None, **kw):
+    """Run ``drive(server)`` on the port's server and on the JAX
+    package's, built with the same arguments (and the same draft, by
+    seed); returns the port's result after checking they agree."""
+    jcfg, jparams, cfg, params = setup
+    if draft is not None:
+        jd = jtf.init_params(jax.random.PRNGKey(draft), jcfg)
+        kw_t = dict(kw, draft_params=params_from_jax(
+            jax.tree.map(np.asarray, jd), cfg, device="cpu"), draft_cfg=cfg)
+        kw_j = dict(kw, draft_params=jd, draft_cfg=jcfg)
+    else:
+        kw_t = kw_j = kw
+    got = drive(DecodeServer(params, cfg, **kw_t))
+    want = drive(JaxServer(jparams, jcfg, **kw_j))
+    assert got == want
+    return got
+
+
+def submit_all(reqs):
+    def drive(srv):
+        rids = [srv.submit(*r) for r in reqs]
+        srv.run_until_done(max_steps=200)
+        return [srv.outputs[r] for r in rids]
+    return drive
+
+
+@pytest.mark.parametrize("L", [7, 12, 13])
+def test_chunked_prefill_matches_jax_and_solo(setup, L):
+    """Chunk 4: a prompt of whole chunks, one with a tail, one of a
+    single full chunk plus a tail."""
+    _, _, cfg, params = setup
+    prompt = np.random.default_rng(40 + L).integers(1, 512, L).tolist()
+    got = both(setup, submit_all([(prompt, 5), ([3, 1], 4)]), max_batch=2,
+               max_len=64, pad_to=4, prefill_chunk=4)
+    assert got == [solo(params, cfg, prompt, 5), solo(params, cfg, [3, 1], 4)]
+
+
+def test_interleaved_prefill_matches_jax_and_solo(setup):
+    """A long prompt streams in one chunk per step beside a decoding
+    request, on the dense pool: the inactive row's frozen-position
+    writes land at its written frontier."""
+    _, _, cfg, params = setup
+    long = np.random.default_rng(3).integers(1, 512, 18).tolist()
+
+    def drive(srv):
+        r0 = srv.submit([5, 9, 2], 9)
+        srv.step()
+        r1 = srv.submit(long, 6)
+        seen = []
+        while not srv.done():
+            seen.append(srv.prefill_progress().get(r1))
+            srv.step()
+        return [srv.outputs[r0], srv.outputs[r1], seen[:6]]
+
+    got = both(setup, drive, max_batch=2, max_len=64, pad_to=4,
+               prefill_chunk=4, interleave_prefill=True)
+    assert got[0] == solo(params, cfg, [5, 9, 2], 9)
+    assert got[1] == solo(params, cfg, long, 6)
+    assert got[2] == [(0, 18), (4, 18), (8, 18), (12, 18), (16, 18), None]
+
+
+PREFIX = [3, 1, 4, 1, 5, 9, 2, 6]
+
+
+def _with_prefix(reqs, prefixes=(PREFIX,)):
+    def drive(srv):
+        pids = [srv.cache_prefix(p) for p in prefixes]
+        return [pids] + submit_all(reqs)(srv)
+    return drive
+
+
+@pytest.mark.parametrize("chunk,kv_quantized", [(None, False), (4, False),
+                                                (None, True)])
+def test_prefix_cache_matches_jax_and_solo(setup, chunk, kv_quantized):
+    """Suffixes of several lengths and a prompt equal to the prefix
+    (admitted with no prefill at all); chunked, and int8 KV."""
+    _, _, cfg, params = setup
+    reqs = [(PREFIX + s, 5) for s in ([5, 3], [8, 8, 8, 1, 7], [1], [])]
+    got = both(setup, _with_prefix(reqs), max_batch=2, max_len=64, pad_to=4,
+               prefill_chunk=chunk, kv_quantized=kv_quantized)
+    assert got[0] == [0]
+    for out, (prompt, n) in zip(got[1:], reqs):
+        assert out == solo(params, cfg, prompt, n, kv_quantized=kv_quantized)
+
+
+def test_prefix_cache_longest_match_miss_and_drop(setup):
+    _, _, cfg, params = setup
+    srv = DecodeServer(params, cfg, max_batch=2, max_len=64, pad_to=4)
+    p_short = srv.cache_prefix([4, 2])
+    p_long = srv.cache_prefix([4, 2, 6, 1])
+    assert srv._match_prefix([4, 2, 6, 1, 9]) == p_long
+    assert srv._match_prefix([4, 2, 9]) == p_short
+    assert srv._match_prefix([9, 9]) is None
+    reqs = [([4, 2, 6, 1, 9], 5), ([9, 9, 3], 5), ([4, 2, 7], 4)]
+    got = both(setup, _with_prefix(reqs, ([4, 2], [4, 2, 6, 1])),
+               max_batch=2, max_len=64, pad_to=4)
+    assert got[1:] == [solo(params, cfg, p, n) for p, n in reqs]
+    srv.drop_prefix(p_long)
+    assert srv._match_prefix([4, 2, 6, 1, 9]) == p_short
+    with pytest.raises(KeyError):
+        srv.drop_prefix(p_long)
+    with pytest.raises(ValueError, match="empty"):
+        srv.cache_prefix([])
+    with pytest.raises(ValueError, match="max_len"):
+        srv.cache_prefix(list(range(64)))
+
+
+def test_prefix_cache_saves_prefill_positions(setup):
+    """With a cached 16-token prefix each admission feeds only its
+    suffix's bucket through the prefill forward; a whole-prompt hit
+    feeds none (counted as the JAX package's test counts them)."""
+    _, _, cfg, params = setup
+    prefix, suffix = list(range(1, 17)), [7, 3]
+    fed = {"with": 0, "without": 0}
+
+    def counting(srv, key):
+        orig = srv._prefill_fn
+
+        def wrapper(p, cache, prompt, slot, start, length):
+            fed[key] += prompt.shape[1]
+            return orig(p, cache, prompt, slot, start, length)
+
+        srv._prefill_fn = wrapper
+
+    a = DecodeServer(params, cfg, max_batch=1, max_len=64, pad_to=4)
+    a.cache_prefix(prefix)
+    counting(a, "with")
+    b = DecodeServer(params, cfg, max_batch=1, max_len=64, pad_to=4)
+    counting(b, "without")
+    for srv in (a, b):
+        for _ in range(3):
+            srv.submit(prefix + suffix, 3)
+        srv.submit(prefix, 3)
+        srv.run_until_done(max_steps=100)
+    assert fed == {"with": 3 * 4, "without": 3 * 20 + 16}
+    assert list(a.outputs.values()) == list(b.outputs.values())
+
+
+@pytest.fixture(scope="module")
+def spec(setup):
+    """The JAX package's speculative-serving draft: the target's config
+    at another seed (a worse model)."""
+    jcfg, _, cfg, _ = setup
+    return params_from_jax(jax.tree.map(np.asarray, jtf.init_params(
+        jax.random.PRNGKey(42), jcfg)), cfg, device="cpu")
+
+
+def test_spec_serving_staggered_matches_jax_and_solo(setup):
+    _, _, cfg, params = setup
+    reqs, got = both(setup, _staggered_spec, draft=42, max_batch=2,
+                     max_len=64, pad_to=4, gamma=3)
+    for out, (prompt, n) in zip(got, reqs):
+        assert out == solo(params, cfg, prompt, n) and len(out) == n
+
+
+def _staggered_spec(srv):
+    reqs = [([5, 9, 2], 9), ([7, 1, 3, 11], 6), ([2, 2], 7)]
+    r0 = srv.submit(*reqs[0])
+    srv.step()
+    r1 = srv.submit(*reqs[1])
+    srv.step()
+    r2 = srv.submit(*reqs[2])
+    srv.run_until_done(max_steps=100)
+    return reqs, [srv.outputs[r] for r in (r0, r1, r2)]
+
+
+def test_spec_serving_self_draft_emits_gamma_plus_one(setup):
+    _, _, cfg, params = setup
+    srv = DecodeServer(params, cfg, max_batch=1, max_len=64, pad_to=4,
+                       draft_params=params, draft_cfg=cfg, gamma=3)
+    rid = srv.submit([5, 9, 2], 13)
+    assert len(srv.step()[rid]) == 4
+    srv.run_until_done(max_steps=20)
+    assert srv.outputs[rid] == solo(params, cfg, [5, 9, 2], 13)
+
+
+def test_spec_serving_eos_and_top_k1(setup, spec):
+    _, _, cfg, params = setup
+    prompt, n = [5, 9, 2], 10
+    toks = solo(params, cfg, prompt, n)
+    srv = DecodeServer(params, cfg, max_batch=1, max_len=64, pad_to=4,
+                       eos_id=toks[4], draft_params=spec, draft_cfg=cfg,
+                       gamma=3)
+    rid = srv.submit(prompt, n)
+    srv.run_until_done(max_steps=50)
+    assert srv.outputs[rid] == toks[:5]
+    srv = DecodeServer(params, cfg, max_batch=2, max_len=64, pad_to=4,
+                       temperature=0.8, top_k=1, draft_params=spec,
+                       draft_cfg=cfg, gamma=3, seed=11)
+    reqs = [([5, 9, 2], 8), ([7, 1, 3, 11], 6)]
+    rids = [srv.submit(*r) for r in reqs]
+    srv.run_until_done(max_steps=100)
+    assert [srv.outputs[r] for r in rids] == [solo(params, cfg, *r)
+                                              for r in reqs]
+
+
+def test_spec_step_many_matches_steps_and_jax(setup):
+    _, _, cfg, params = setup
+    reqs = [([5, 9, 2], 9), ([7, 1, 3, 11], 7)]
+
+    def drive(srv):
+        rids = [srv.submit(*r) for r in reqs]
+        first = srv.spec_step_many(2)
+        while not srv.done():
+            srv.spec_step_many(2)
+        return [first, [srv.outputs[r] for r in rids]]
+
+    got = both(setup, drive, draft=42, max_batch=2, max_len=64, pad_to=4,
+               gamma=3)
+    assert got[1] == [solo(params, cfg, *r) for r in reqs]
+    single = both(setup, submit_all(reqs), draft=42, max_batch=2,
+                  max_len=64, pad_to=4, gamma=3)
+    assert single == got[1]
+
+
+def test_spec_step_many_freezes_at_max_len(setup, spec):
+    """The tightest legal max_len (prompt + budget + gamma + 1):
+    surplus rounds stop on the device instead of overflowing."""
+    _, _, cfg, params = setup
+    prompt, n, gamma = [5, 9, 2], 6, 3
+    srv = DecodeServer(params, cfg, max_batch=1,
+                       max_len=len(prompt) + n + gamma + 1, pad_to=4,
+                       draft_params=spec, draft_cfg=cfg, gamma=gamma)
+    rid = srv.submit(prompt, n)
+    while not srv.done():
+        srv.spec_step_many(4)
+    assert srv.outputs[rid] == solo(params, cfg, prompt, n)
+
+
+@pytest.mark.parametrize("chunk,interleave", [(4, False), (4, True)])
+def test_spec_serving_chunked_and_prefix(setup, spec, chunk, interleave):
+    """Both caches prefill chunk by chunk (interleaved too: the draft's
+    cache streams in beside the target's) and absorb a cached prefix;
+    greedy streams equal the target's solo decode."""
+    _, _, cfg, params = setup
+    prefix = [5, 1, 5, 1, 5, 1]
+    reqs = [(prefix + [2, 6], 6), ([5, 9, 2, 7, 1, 3, 11, 4, 6], 6),
+            (prefix + [9], 6)]
+    srv = DecodeServer(params, cfg, max_batch=2, max_len=64, pad_to=4,
+                       draft_params=spec, draft_cfg=cfg, gamma=2,
+                       prefill_chunk=chunk, interleave_prefill=interleave)
+    srv.cache_prefix(prefix)
+    rids = [srv.submit(*r) for r in reqs]
+    srv.run_until_done(max_steps=100)
+    assert [srv.outputs[r] for r in rids] == [solo(params, cfg, *r)
+                                              for r in reqs]
+
+
+def test_multi_step_refusals_and_spec_validation(setup, spec):
+    _, _, cfg, params = setup
+    plain = DecodeServer(params, cfg, max_batch=1, max_len=32, pad_to=4)
+    with pytest.raises(ValueError, match="speculative server"):
+        plain.spec_step_many(2)
+    with pytest.raises(ValueError, match=">= 1"):
+        plain.step_many(0)
+    sp = DecodeServer(params, cfg, max_batch=1, max_len=16, pad_to=4,
+                      draft_params=spec, draft_cfg=cfg, gamma=3)
+    with pytest.raises(ValueError, match="plain serving"):
+        sp.step_many(2)
+    with pytest.raises(ValueError, match=">= 1"):
+        sp.spec_step_many(0)
+    with pytest.raises(ValueError, match="speculative headroom"):
+        sp.submit([1, 2, 3, 4], 9)          # 4 + 9 + 4 > 16
+    for kw, match in ((dict(draft_params=spec), "both draft_params"),
+                      (dict(draft_params=spec, draft_cfg=cfg, gamma=0),
+                       "gamma"),
+                      (dict(prefill_chunk=0), "prefill_chunk"),
+                      (dict(top_p=0.0), "top_p")):
+        with pytest.raises(ValueError, match=match):
+            DecodeServer(params, cfg, max_batch=1, max_len=32, **kw)
