@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (``nbdistributed_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written CUDA kernels from the checkout,
 holds each against its plain PyTorch version, drives the serving and
-training slices at the full width of SmolLM2-135M, and times each
-kernel.
+training slices at the full width of SmolLM2-135M and of Mixtral-8x7B
+(2 of its 32 layers), and times each kernel.
 
     python3 chip_smoke.py
 
@@ -12,24 +12,26 @@ Phases (each prints one or more lines; any failure exits non-zero):
 1. build the kernels (one ``nvcc`` per source, in parallel); the card's
    name and power limit;
 2. K1, the flash-attention forward, called through its wrappers,
-   against its plain version in bf16 (and one fp32 case): one 64 x 64
-   tile, group 1, the serving shapes and the training path's (B=4,
+   against its plain version in bf16 (and fp32 cases): one 64 x 64
+   tile, group 1, the serving shapes, the training path's (B=4,
    S=2048, without and with the training batch's packed-document
-   segments);
+   segments) and Mixtral's attention (S=2048, H=32, Hkv=8, D=128);
 3. K4, flash-decode, called through its wrapper, against its plain
    version: per-row positions over [0, T-1], a window, int8 caches
    with scales, fp32, T=1000 (ragged against the 128-key chunk), rows
    whose window lies past every valid key (o = 0, lse = NEG_INF),
    groups 1 and 8, D=32 and 128, one chunk (nsplit = 1), the lse, the
-   serving path's own shape and positions and its full context, and a
-   paged step's dense view (large finite values past every position);
+   serving path's own shape and positions and its full context, a
+   paged step's dense view (large finite values past every position),
+   and the Mixtral server's shape (Hkv=8, group 4, D=128, T=1024) in
+   bf16, int8 and fp32;
 4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
    wrapper the path calls, against the plain backward in bf16 (one
    tile, group 1, causal S=2048 with group 3 at D=64 and D=128,
-   non-causal Sq != Sk, a window, segments, offsets, D=32, and the
-   training path's shape with its batch's segments) and one fp32 case;
-   the K1 forward that feeds each case is held to the plain forward
-   first;
+   non-causal Sq != Sk, a window, segments, offsets, D=32, the
+   training path's shape with its batch's segments, Mixtral's
+   attention) and fp32 cases; the K1 forward that feeds each case is
+   held to the plain forward first;
 5. the serving path, with every launch count set to 0 just before and
    read just after: full-width ``forward`` (bf16, B=1, S=512) and a
    bf16 ``DecodeServer`` answering 12 staggered requests; K1 must have
@@ -71,16 +73,38 @@ Phases (each prints one or more lines; any failure exits non-zero):
    fp32 loss and every gradient through the kernels against the plain
    path (B=1, S=2048), and three bf16 LoRA steps (base untouched, loss
    falls);
-12. timing of each kernel at the main paths' shapes (K1 at both the
-   serving and the training shape, K4 at the serving shape and at full
-   context), beside its plain version, one PyTorch library call and the
-   card's bound; K4 and its yardsticks on the device by CUDA-graph
-   replay (a K4 call is shorter than the host's launch of it).
+12. the Mixtral MoE family (``mixtral_8x7b_config(n_layers=2)``, full
+   width, seed 0), each path's run with the counts reset just before
+   and read just after: ``moe_forward`` (fp32, B=1, S=512, capacity
+   factor 4: lossless) in the dense, sparse and dropless modes, logits
+   within 1e-5 relative L2, aux within 1e-6, K1 once per layer per
+   forward, dropless's host reads one per layer;
+13. fp32 MoE serving on 8 of 12 requests made as phase 5's are (in
+   Mixtral's vocabulary) against solo ``generate``, an fp32 self-draft (gamma 4) accepting every proposal
+   but at near-ties with K4 (gamma + 1) x 2 per round, and an int8
+   (``quantize_moe_params``) tree against solo ``generate`` on it;
+14. bf16 MoE serving (capacity factor 1.25, dense dispatch) of the 12
+   requests: tokens/s, ms per step, weight bytes, K4 once per layer per
+   step, a profile of decode steps with the MoE block's device share,
+   the paged server (blocks of 64) token for token the dense one, and
+   the int8 tree's weight bytes and ms per step;
+15. bf16 MoE training: ``moe_loss_fn`` and AdamW, 4 steps on B=1 x
+   S=2048 packed documents, per step K1, K2 and K3 once per layer,
+   losses finite and falling, peak memory, a profiled step; three LoRA
+   steps on the attention projections;
+16. timing of each kernel at the main paths' shapes (K1 at the serving,
+   training and Mixtral shapes, K4 at the serving shape, at full
+   context and at the Mixtral server's shape), beside its plain
+   version, one PyTorch library call and the card's bound; K4 and its
+   yardsticks on the device by CUDA-graph replay (a K4 call is shorter
+   than the host's launch of it).
 
-Phases 7-10 run each server with the launch counts reset just before
-and K4's read just after, held to 30 per decode step (per round: the
-draft's launches), and their K4 launches join phase 5's in the kernels
-line (``launches_by_path``).
+Phases 7-10 and 13-14 run each server with the launch counts reset
+just before and K4's read just after, held to one per layer per decode
+step (per round: the draft's launches), and their K4 launches join
+phase 5's in the kernels line (``launches_by_path``), as the MoE
+forward's and MoE training's K1/K2/K3 launches join the SmolLM2
+paths'.
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -250,37 +274,43 @@ def phase_k1():
     """K1 through the wrappers the path calls — ``flash_attention`` for
     the output, ``_flash_forward`` (the JAX counterpart's entry, which
     returns the lse) — against ``_flash_forward_plain``: one 64 x 64
-    tile (the tensor-core layout alone), group 1, the serving shapes and
+    tile (the tensor-core layout alone), group 1, the serving shapes,
     the training path's (B=4, S=2048, without and with its batch's
-    segments)."""
+    segments) and Mixtral's attention (H=32, Hkv=8, D=128) in bf16 and
+    fp32."""
     import torch
     from nbdistributed_tpu_torch.ops import attention as A
 
-    bf16 = torch.bfloat16
-    # name, B, S, H, Hkv, dtype, window, segments
-    cases = [("one_tile_S64", 1, 64, 1, 1, bf16, None, None),
-             ("group1_S1024", 2, 1024, 4, 4, bf16, None, None),
-             ("causal_S1024", 2, 1024, 9, 3, bf16, None, None),
-             ("causal_ragged_S1000", 2, 1000, 9, 3, bf16, None, None),
-             ("window256_S1024", 2, 1024, 9, 3, bf16, 256, None),
-             ("segments_S1024", 2, 1024, 9, 3, bf16, None, "cuts"),
-             ("forward_shape_S512", 1, 512, 9, 3, bf16, None, None),
-             ("train_shape_S2048", TRAIN_B, 2048, 9, 3, bf16, None, None),
-             ("train_shape_S2048_segments", TRAIN_B, 2048, 9, 3, bf16, None,
-              "train"),
-             ("fp32_ragged_S1000", 2, 1000, 9, 3, torch.float32, None,
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # name, B, S, H, Hkv, D, dtype, window, segments
+    cases = [("one_tile_S64", 1, 64, 1, 1, 64, bf16, None, None),
+             ("group1_S1024", 2, 1024, 4, 4, 64, bf16, None, None),
+             ("causal_S1024", 2, 1024, 9, 3, 64, bf16, None, None),
+             ("causal_ragged_S1000", 2, 1000, 9, 3, 64, bf16, None, None),
+             ("window256_S1024", 2, 1024, 9, 3, 64, bf16, 256, None),
+             ("segments_S1024", 2, 1024, 9, 3, 64, bf16, None, "cuts"),
+             ("forward_shape_S512", 1, 512, 9, 3, 64, bf16, None, None),
+             ("train_shape_S2048", TRAIN_B, 2048, 9, 3, 64, bf16, None,
+              None),
+             ("train_shape_S2048_segments", TRAIN_B, 2048, 9, 3, 64, bf16,
+              None, "train"),
+             ("fp32_ragged_S1000", 2, 1000, 9, 3, 64, fp32, None, None),
+             ("mixtral_S2048_g4_D128", 1, 2048, 32, 8, 128, bf16, None,
+              None),
+             ("fp32_mixtral_S2048_g4_D128", 1, 2048, 32, 8, 128, fp32, None,
               None)]
     worst = 0.0
-    for name, B, S, H, Hkv, dtype, window, segs in cases:
-        q, k, v = k1_inputs(B, S, H, Hkv, 64, dtype, seed=len(name))
+    for name, B, S, H, Hkv, D, dtype, window, segs in cases:
+        q, k, v = k1_inputs(B, S, H, Hkv, D, dtype, seed=len(name))
         seg = case_segments(segs, B, S)
-        out = A.flash_attention(q, k, v, causal=True, scale=0.125,
+        scale = 1.0 / D ** 0.5
+        out = A.flash_attention(q, k, v, causal=True, scale=scale,
                                 window=window, segment_ids=seg)
-        out2, lse = A._flash_forward(q, k, v, causal=True, scale=0.125,
+        out2, lse = A._flash_forward(q, k, v, causal=True, scale=scale,
                                      window=window, segment_ids=seg)
         torch.cuda.synchronize()
         ref, ref_lse = A._flash_forward_plain(
-            q, k, v, causal=True, scale=0.125, window=window,
+            q, k, v, causal=True, scale=scale, window=window,
             segment_ids=seg, kv_segment_ids=seg)
         e_out = check_k1(name, out, lse, ref, ref_lse, dtype)
         check(torch.equal(out, out2), f"K1 {name}: flash_attention and "
@@ -349,8 +379,10 @@ def phase_k4():
     (every key-tile geometry of the kernel), one chunk (B*Hkv=576:
     nsplit = 1, no combine), and the main path's own shape (B=8 slots,
     T=max_len=1024, serving positions), its full context (T=2048, every
-    slot at 2047) and a paged step's gathered view (±3e4 past every
-    row's position).  Returns the worst bf16 output error."""
+    slot at 2047), a paged step's gathered view (±3e4 past every row's
+    position) and the Mixtral serving shape (Hkv=8, group 4, D=128,
+    T=1024) in bf16, int8 and fp32.  Returns the worst bf16 output
+    error."""
     import torch
     from nbdistributed_tpu_torch.ops import decode as K
     from nbdistributed_tpu_torch.ops._common import NEG_INF
@@ -387,7 +419,13 @@ def phase_k4():
              ("paged_view_garbage_T1024", 8, 3, 3, 64, 1024, None, "bf16",
               "garbage", None),
              ("full_context_T2048", 8, 3, 3, 64, 2048, None, "bf16", "full",
-              None)]
+              None),
+             ("mixtral_g4_D128_T1024", 8, 8, 4, 128, 1024, None, "bf16",
+              "serving", None),
+             ("int8_mixtral_g4_D128_T1024", 8, 8, 4, 128, 1024, None,
+              "int8", "serving", None),
+             ("fp32_mixtral_g4_D128_T1024", 8, 8, 4, 128, 1024, None,
+              "fp32", "serving", None)]
     worst = 0.0
     for name, B, Hkv, group, D, T, window, cache, kind, qdt in cases:
         pos = {None: None, "past": past_valid_pos(B, T),
@@ -469,8 +507,10 @@ def phase_k23():
     """K2/K3 through ``_flash_backward`` — the wrapper the autograd
     backward calls, which launches K2 then K3 — against
     ``_flash_backward_plain`` on the same inputs, with the forward's
-    (out, lse) from K1, held first to the plain forward's.  Returns the
-    worst bf16 errors of K2, K3 and those K1 forwards."""
+    (out, lse) from K1, held first to the plain forward's; Mixtral's
+    attention (S=2048, H=32, Hkv=8, D=128) in bf16 and fp32 among the
+    cases.  Returns the worst bf16 errors of K2, K3 and those K1
+    forwards."""
     import torch
     from nbdistributed_tpu_torch.ops import attention as A
 
@@ -499,6 +539,10 @@ def phase_k23():
          True, None, "train", (0, 0)),
         ("fp32_causal_ragged_S1000", 2, 1000, 1000, 9, 3, 64, fp32, True,
          None, None, (0, 0)),
+        ("mixtral_S2048_g4_D128", 1, 2048, 2048, 32, 8, 128, bf16, True,
+         None, None, (0, 0)),
+        ("fp32_mixtral_S2048_g4_D128", 1, 2048, 2048, 32, 8, 128, fp32,
+         True, None, None, (0, 0)),
     ]
     worst = {"dq": 0.0, "dkv": 0.0, "k1": 0.0}
     for (name, B, Sq, Sk, H, Hkv, D, dtype, causal, window, segs,
@@ -669,16 +713,17 @@ def profile_steps(step, n_steps):
                           calls_per_step=k[1]) for k in kernels[:8]])
 
 
-def phase_profile(params, n_steps=8, name="profile_decode_step",
+def phase_profile(params, n_steps=8, name="profile_decode_step", cfg=None,
                   **server_kw):
     """Where a bf16 decode step's time goes: a profile of ``n_steps``
-    steps of a full 8-slot server (128-token prompts), built with
-    ``server_kw`` (a paged or a speculative server)."""
+    steps of a full 8-slot server (128-token prompts) of ``cfg``
+    (SmolLM2-135M by default), built with ``server_kw`` (a paged or a
+    speculative server)."""
     import torch
     from nbdistributed_tpu_torch.models import (DecodeServer,
                                                 smol_135m_config)
 
-    cfg = smol_135m_config()
+    cfg = cfg or smol_135m_config()
     srv = DecodeServer(params, cfg, max_batch=8, max_len=1024, **server_kw)
     g = torch.Generator().manual_seed(13)
     for _ in range(8):
@@ -1340,7 +1385,295 @@ def phase_lora(seed=0, steps=3):
 
 
 # ----------------------------------------------------------------------
-# phase 12: timing
+# phases 12-15: the Mixtral MoE family.  mixtral_8x7b_config at full
+# width with n_layers 32 -> 2 (93 GB of bf16 weights > the card's 80 GB;
+# chip time), random weights from seed 0.  Every path's run has its
+# counts reset just before and read just after.
+
+N_LAYERS_MOE = 2
+# capacity_factor >= n_experts / top_k: no expert can overflow at any
+# token count, so the three dispatch modes, the server and solo
+# generate route every token alike.
+MOE_LOSSLESS = 4.0
+MOE_TRAIN_STEPS = 4
+
+
+def mixtral_cfg(**kw):
+    from nbdistributed_tpu_torch.models import mixtral_8x7b_config
+    return mixtral_8x7b_config(n_layers=N_LAYERS_MOE, **kw)
+
+
+def moe_host_reads():
+    from nbdistributed_tpu_torch.parallel import expert
+    return expert._dropless_ffn.host_reads
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_moe_modes(seed=0):
+    """fp32, lossless capacity: ``moe_forward`` on B=1, S=512 in the
+    dense, sparse and dropless modes.  Logits within 1e-5 relative L2 of
+    the dense mode's, aux within 1e-6; K1 once per layer per forward;
+    dropless reads its expert group sizes on the host once per layer.
+    Returns (params, cfg, row)."""
+    import torch
+    from nbdistributed_tpu_torch.models import init_moe_model, moe_forward
+
+    cfg = mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS)
+    params = init_moe_model(cfg, seed)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g)
+    modes = {m: dataclasses.replace(cfg, moe_dispatch=m)
+             for m in ("dense", "sparse", "dropless")}
+    L = cfg.n_layers
+
+    reset_launch_counts()
+    reads = moe_host_reads()
+    out = {m: moe_forward(params, tokens, c) for m, c in modes.items()}
+    torch.cuda.synchronize()
+    k1, reads = launch_counts()["k1"], moe_host_reads() - reads
+
+    ref, ref_aux = out["dense"]
+    rel = {m: rel_l2(out[m][0], ref) for m in ("sparse", "dropless")}
+    aux = {m: float(a) for m, (_, a) in out.items()}
+    ms = {m: cuda_ms(lambda c=c: moe_forward(params, tokens, c), 3, 1)
+          for m, c in modes.items()}
+    row = dict(k1_launches=k1, want_k1=len(modes) * L,
+               dropless_host_reads=reads, want_host_reads=L,
+               logits_rel_l2_vs_dense=rel, tol=1e-5, aux=aux, aux_tol=1e-6,
+               ms_per_forward=ms, capacity_factor=MOE_LOSSLESS)
+    say("moe_modes_fp32", **row)
+    check(torch.isfinite(ref).all().item()
+          and ref.shape == (1, 512, cfg.vocab_size), "moe_forward: bad logits")
+    check(k1 == len(modes) * L, f"moe_forward: K1 launched {k1} times")
+    check(reads == L, f"dropless: {reads} host reads over {L} layers")
+    check(all(r <= 1e-5 for r in rel.values()), f"modes disagree: {rel}")
+    check(all(abs(a - aux["dense"]) <= 1e-6 for a in aux.values()),
+          f"aux losses disagree: {aux}")
+    return params, cfg, row
+
+
+def phase_moe_fp32(params, cfg, prompts):
+    """fp32 at lossless capacity on 8 of the requests: the server against
+    solo ``generate``; a self-draft speculative server (gamma 4)
+    accepting every proposal but at near-ties, K4 (gamma + 1) x layers
+    a round; a ``quantize_moe_params`` tree's server against solo
+    ``generate`` on the same tree (4 requests).  Near-tie rule
+    throughout."""
+    from nbdistributed_tpu_torch.models import quantize_moe_params
+
+    L = cfg.n_layers
+    (outs, steps, *_), k4 = counted_serve("serve_moe", L, params, cfg,
+                                          prompts[:8])
+    solo = solo_outputs(params, cfg, prompts[:8])
+    near_tie_check("serve_moe_fp32_vs_solo", params, cfg, prompts[:8], outs,
+                   solo)
+    rounds, gaps, outs_self, k4_spec = self_draft_rounds(params, cfg,
+                                                         prompts[:8])
+    say("serve_moe_fp32_self_draft", rounds=rounds, short_rounds=len(gaps),
+        gaps_at_first_rejection=gaps, near_tie=NEAR_TIE,
+        k4_launches=k4_spec, want_k4=rounds * (GAMMA + 1) * L)
+    check(k4_spec == rounds * (GAMMA + 1) * L,
+          f"MoE self-draft: K4 launched {k4_spec} times over {rounds} rounds")
+    check(all(g < NEAR_TIE for g in gaps), f"MoE self-draft rejected a "
+          f"proposal away from a near-tie: gaps {gaps}")
+    near_tie_check("serve_moe_fp32_self_draft_vs_solo", params, cfg,
+                   prompts[:8], outs_self, solo)
+    qp = quantize_moe_params(params)
+    (outs_q, *_), k4_int8 = counted_serve("serve_moe_int8", L, qp, cfg,
+                                          prompts[:4])
+    near_tie_check("serve_moe_int8_fp32_vs_solo", qp, cfg, prompts[:4],
+                   outs_q, solo_outputs(qp, cfg, prompts[:4]))
+    return dict(k4_serve=k4, steps=steps, k4_speculative=k4_spec,
+                self_draft_rounds=rounds, self_draft_short_rounds=len(gaps),
+                k4_int8=k4_int8)
+
+
+def moe_layer_ms(params, cfg):
+    """Device time (CUDA-graph replay) of one MoE block at the decode
+    step's shape: 8 rows, all live."""
+    import torch
+    from nbdistributed_tpu_torch.models.moe import _moe_mlp_block
+    from nbdistributed_tpu_torch.models.transformer import layer_params
+
+    layer = layer_params(params, 0)
+    x = torch.randn(8, 1, cfg.d_model, device="cuda").to(cfg.dtype)
+    mask = torch.ones(8, 1, dtype=torch.bool, device="cuda")
+    return graph_ms(lambda: _moe_mlp_block(x, layer, cfg, token_mask=mask),
+                    10, 5)
+
+
+def served_row(outs, steps, wall, step_s, cfg):
+    check(all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)
+              for o in outs), "a stream fell short or left the vocabulary")
+    step_s = sorted(step_s)
+    n_tok = sum(len(o) for o in outs)
+    return dict(requests=len(outs), tokens=n_tok, decode_steps=steps,
+                wall_s=wall, tokens_per_s=n_tok / wall,
+                ms_per_step_median=1e3 * step_s[len(step_s) // 2])
+
+
+def phase_serve_moe(prompts, seed=0):
+    """bf16, capacity factor 1.25, dense dispatch: the 12 requests on
+    ``DecodeServer(max_batch=8, max_len=1024)``, K4 once per layer per
+    step; a profile of decode steps with the MoE block's device time
+    (graph replay) beside it; the paged server (blocks of 64 tokens)
+    token for token the dense one; a ``quantize_moe_params`` tree
+    serving the same requests.  Returns (params, cfg, row)."""
+    import torch
+    from nbdistributed_tpu_torch.models import (init_moe_model, moe_forward,
+                                                quantize_moe_params)
+
+    cfg = mixtral_cfg()
+    params = init_moe_model(cfg, seed)
+    L = cfg.n_layers
+    (outs, steps, wall, step_s, _), k4 = counted_serve("serve_moe", L,
+                                                       params, cfg, prompts)
+    # What a decode step must read: every weight but the embedding,
+    # whose 8 gathered rows are noise (the dense mode runs all 8
+    # experts).
+    step_bytes = weight_bytes(params) - weight_bytes({"e": params["embed"]})
+    row = dict(served_row(outs, steps, wall, step_s, cfg), k4_launches=k4,
+               want_k4=L * steps, weight_bytes=weight_bytes(params),
+               step_weight_bytes=step_bytes,
+               step_weight_bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S)
+    say("serve_moe_bf16", **row)
+    profile = phase_profile(params, 4, name="profile_moe_decode_step",
+                            cfg=cfg)
+    layer_ms = moe_layer_ms(params, cfg)
+    device = profile["device_ms_per_step"]
+    row["profile"] = dict(profile, moe_block_ms=layer_ms,
+                          moe_share_of_device=L * layer_ms / device
+                          if isinstance(device, float) else "not measured")
+    say("profile_moe_decode_step_moe_share", moe_block_ms=layer_ms,
+        moe_blocks_per_step=L,
+        moe_share_of_device=row["profile"]["moe_share_of_device"])
+
+    (outs_p, steps_p, *_), k4_paged = counted_serve(
+        "serve_moe_paged", L, params, cfg, prompts, kv_block_tokens=64)
+    say("serve_moe_paged_bf16", equal_to_dense=outs_p == outs,
+        decode_steps=steps_p, k4_launches=k4_paged)
+    check(outs_p == outs, "paged bf16 MoE serving differs from the dense "
+          "bf16 MoE server")
+
+    qp = quantize_moe_params(params)
+    (outs_q, steps_q, wall_q, step_s_q, _), k4_int8 = counted_serve(
+        "serve_moe_int8", L, qp, cfg, prompts)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 128), generator=g)
+    ref = moe_forward(params, tokens, cfg)[0]
+    int8 = dict(served_row(outs_q, steps_q, wall_q, step_s_q, cfg),
+                weight_bytes=weight_bytes(qp),
+                forward_rel_l2_vs_bf16=rel_l2(moe_forward(qp, tokens, cfg)[0],
+                                              ref))
+    say("serve_moe_int8_bf16", **int8)
+    del qp
+    row.update(k4_paged=k4_paged, k4_int8=k4_int8, int8=int8)
+    return params, cfg, row
+
+
+def phase_train_moe(params, cfg):
+    """bf16 training at full width: ``moe_loss_fn`` and the port's AdamW,
+    ``MOE_TRAIN_STEPS`` steps on one B=1 x S=2048 batch of packed
+    documents, counts reset just before and read just after (per step
+    K1, K2 and K3 once per layer: no remat); losses finite and falling;
+    then one profiled step, and three LoRA steps (rank 8, attention
+    targets) leaving the base untouched with finite losses."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, lora_init,
+                                                make_lora_train_step,
+                                                moe_loss_fn,
+                                                num_tokens_per_step,
+                                                param_leaves)
+
+    L = cfg.n_layers
+    batch = packed_batch(cfg, 1, 2048, TRAIN_BATCH_SEED)
+    leaves = [p.requires_grad_() for p in param_leaves(params)]
+    opt = AdamW(leaves, lr=1e-3)
+
+    def step():
+        for p in leaves:
+            p.grad = None
+        loss = moe_loss_fn(params, batch, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    want = {"k1": L, "k2": L, "k3": L}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs, per_step = [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = num_tokens_per_step(batch["tokens"].shape)
+    ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+    row = dict(steps=MOE_TRAIN_STEPS, losses=losses, launches=counts,
+               launches_per_step=per_step, want_per_step=want,
+               tokens_per_step=n_tok, ms_per_step=[1e3 * t for t in secs],
+               ms_per_step_median_after_first=ms,
+               tokens_per_s=n_tok / (ms / 1e3), peak_mem_gb=peak)
+    say("train_moe_bf16", **row)
+    for i, c in enumerate(per_step):
+        check(c == want, f"MoE train step {i + 1} launched {c}, want {want}")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"), losses)),
+          f"non-finite MoE train loss: {losses}")
+    check(losses[-1] < losses[0], f"MoE train loss did not fall: {losses}")
+    profile = profile_steps(step, 1)
+    if isinstance(profile["device_ms_per_step"], float):
+        profile["idle_share_estimate_unprofiled"] = \
+            1 - profile["device_ms_per_step"] / ms
+    say("profile_train_moe_step", **profile)
+
+    opt.state.clear()
+    del opt
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+    base = [t.clone() for t in leaves]
+    lora = lora_init(1, cfg, rank=8)
+    lstep = make_lora_train_step(cfg, AdamW(param_leaves(lora), lr=5e-3))
+    lora_losses = [float(lstep(params, lora, batch)) for _ in range(3)]
+    same = all(torch.equal(a, b) for a, b in zip(base, leaves))
+    say("lora_moe_bf16", steps=3, losses=lora_losses, base_identical=same)
+    check(same, "MoE LoRA steps changed the base parameters")
+    check(all(map(lambda x: x == x and abs(x) != float("inf"),
+                  lora_losses)), f"non-finite MoE LoRA loss: {lora_losses}")
+    return dict(row, k1=counts["k1"], k2=counts["k2"], k3=counts["k3"],
+                profile=profile, lora_losses=lora_losses)
+
+
+def phase_moe(seed=0):
+    """Phases 12-15 in order; each model is freed before the next is
+    built.  Returns {phase: result}."""
+    import torch
+
+    ts = time.perf_counter()
+    params32, cfg32, modes = phase_moe_modes(seed)
+    prompts = make_requests(cfg32)
+    fp32 = phase_moe_fp32(params32, cfg32, prompts)
+    del params32
+    torch.cuda.empty_cache()
+    params, cfg, serve_row = phase_serve_moe(prompts, seed)
+    train = phase_train_moe(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    say("moe_seconds", seconds=time.perf_counter() - ts)
+    return dict(modes=modes, fp32=fp32, serve=serve_row, train=train)
+
+
+# ----------------------------------------------------------------------
+# phase 16: timing
 
 def sdpa(q, k, v, **kw):
     import torch.nn.functional as F
@@ -1353,18 +1686,19 @@ def sdpa(q, k, v, **kw):
 
 
 def time_k1(q, k, v, iters=30):
-    """K1 (causal, scale 1/8) through the launcher its wrapper calls,
-    beside its plain version and ``scaled_dot_product_attention``."""
+    """K1 (causal, scale 1/sqrt(D)) through the launcher its wrapper
+    calls, beside its plain version and ``scaled_dot_product_attention``."""
     from nbdistributed_tpu_torch.ops import attention as A
 
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    args = dict(causal=True, scale=0.125, offsets=(0, 0), window=None,
+    scale = 1.0 / D ** 0.5
+    args = dict(causal=True, scale=scale, offsets=(0, 0), window=None,
                 segment_ids=None, kv_segment_ids=None)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     ms = cuda_ms(lambda: A._flash_forward_cuda(q, k, v, **args), iters)
     plain = cuda_ms(lambda: A._flash_forward_plain(q, k, v, **args), iters)
-    lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=0.125),
+    lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale),
                   iters)
     pairs = B * H * S * (S + 1) // 2               # causal (q, k) pairs
     flops = 4 * pairs * D
@@ -1393,6 +1727,12 @@ def phase_timing():
     rows["K4"] = time_k4(serving_pos(8), 1024)
     rows["K4_full_context"] = time_k4(
         torch.full((8,), 2047, dtype=torch.int32, device="cuda"), 2048)
+    # Mixtral's attention: K1 at S=2048 (the MoE train batch's length),
+    # K4 at the MoE server's shape (8 slots, T=1024, Hkv=8, group 4).
+    rows["K1_mixtral"] = time_k1(*k1_inputs(1, 2048, 32, 8, 128,
+                                            torch.bfloat16, seed=4))
+    rows["K4_mixtral"] = time_k4(serving_pos(8), 1024, Hkv=8, group=4,
+                                 D=128)
     rows.update(time_train_shape())
     for name, row in rows.items():
         say("timing", kernel=name, **row)
@@ -1609,6 +1949,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_losses = phase_lora()
     torch.cuda.empty_cache()
+    moe = phase_moe()
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1623,45 +1964,63 @@ def main() -> int:
                     ptxas={f: r for f, r in ptxas[lib].items()
                            if f.split("<")[0] in functions}, **extra)
 
-    # K1 runs on both paths: its launches are the two runs' sum, its
-    # times the serving shape's, with the train shape's beside them.
+    # K1 runs on the serving, training and MoE paths: its launches are
+    # the runs' sum, its times the serving shape's, with the train
+    # shape's and Mixtral's beside them.
     # K4's launches are every serving path's sum, its times the serving
     # shape's, with full context's beside them.  Each error is the worst
     # bf16 one of every check of the kernel.
     k4_paths = {"serve": counts["k4"],
-                **{name: row["k4"] for name, row in beyond.items()}}
+                **{name: row["k4"] for name, row in beyond.items()},
+                "serve_moe": moe["serve"]["k4_launches"]
+                + moe["fp32"]["k4_serve"],
+                "serve_moe_paged": moe["serve"]["k4_paged"],
+                "serve_moe_speculative": moe["fp32"]["k4_speculative"],
+                "serve_moe_int8": moe["serve"]["k4_int8"]
+                + moe["fp32"]["k4_int8"]}
+    k1_paths = {"serve": counts["k1"], "train": train["k1"],
+                "moe_forward": moe["modes"]["k1_launches"],
+                "train_moe": moe["train"]["k1"]}
+    k2_paths = {"train": train["k2"], "train_moe": moe["train"]["k2"]}
+    k3_paths = {"train": train["k3"], "train_moe": moe["train"]["k3"]}
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
         kernel("flash_attention_fwd", "flash_attention.cu",
                "nbdistributed_tpu/ops/attention.py:405",
-               counts["k1"] + train["k1"],
+               sum(k1_paths.values()),
                max(k1_err, k23_err["k1"], timing["K1_train"]["max_abs_err"]),
                "K1", tensor_cores,
                ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
-               launches_by_path={"serve": counts["k1"],
-                                 "train": train["k1"]},
-               train_shape={k: timing["K1_train"][k] for k in timed}),
+               launches_by_path=k1_paths,
+               train_shape={k: timing["K1_train"][k] for k in timed},
+               mixtral_shape={k: timing["K1_mixtral"][k] for k in timed}),
         kernel("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-               "nbdistributed_tpu/ops/attention.py:688", train["k2"],
+               "nbdistributed_tpu/ops/attention.py:688",
+               sum(k2_paths.values()),
                max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2",
                f"{tensor_cores} (dS as a {split})",
-               ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel")),
+               ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel"),
+               launches_by_path=k2_paths),
         kernel("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-               "nbdistributed_tpu/ops/attention.py:747", train["k3"],
+               "nbdistributed_tpu/ops/attention.py:747",
+               sum(k3_paths.values()),
                max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3",
                f"{tensor_cores} (P and dS each as a {split})",
-               ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel")),
+               ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel"),
+               launches_by_path=k3_paths),
         kernel("flash_decode", "flash_decode.cu",
                "nbdistributed_tpu/ops/decode.py:214", sum(k4_paths.values()),
                max(k4_err, timing["K4"]["max_abs_err"],
-                   timing["K4_full_context"]["max_abs_err"]),
+                   timing["K4_full_context"]["max_abs_err"],
+                   timing["K4_mixtral"]["max_abs_err"]),
                "K4", "split-T flash-decoding: (B*Hkv, nsplit) blocks, "
                "cp.async ring, warp-level dot products, lse combine kernel",
                ("decode_split_kernel", "decode_combine_kernel"),
                launches_by_path=k4_paths,
                full_context={k: timing["K4_full_context"][k]
-                             for k in timed}),
+                             for k in timed},
+               mixtral_shape={k: timing["K4_mixtral"][k] for k in timed}),
     ]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -1670,7 +2029,7 @@ def main() -> int:
          "train_profile": train_profile, "train_fp32_vs_plain": train_fp32,
          "lora_losses": lora_losses, "ptxas": ptxas,
          "serving_beyond_dense": beyond,
-         "serving_beyond_dense_seconds": seconds},
+         "serving_beyond_dense_seconds": seconds, "moe": moe},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

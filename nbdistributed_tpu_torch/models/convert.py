@@ -17,8 +17,9 @@ import numpy as np
 import torch
 
 from ..ops._common import resolve_device
+from .moe import MoEConfig
 from .transformer import (LAYER_WEIGHTS, TransformerConfig, is_quantized,
-                          is_quantized4)
+                          is_quantized4, layer_weight_dims)
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16, "int8": torch.int8,
@@ -44,9 +45,10 @@ def _leaf_to_numpy(t) -> np.ndarray:
 
 
 def _tree_map(fn, leaf):
-    """``fn`` over a plain leaf or each member of a quantized leaf."""
-    return ({k: fn(v) for k, v in leaf.items()} if isinstance(leaf, dict)
-            else fn(leaf))
+    """``fn`` over a plain leaf or every leaf of a nested one (a
+    quantized leaf, the MoE ``moe`` group)."""
+    return ({k: _tree_map(fn, v) for k, v in leaf.items()}
+            if isinstance(leaf, dict) else fn(leaf))
 
 
 def _check_leaf(name: str, leaf, shape: tuple) -> None:
@@ -72,22 +74,39 @@ def _check_leaf(name: str, leaf, shape: tuple) -> None:
                              f"{wshape}")
 
 
-def _check_shapes(tree: dict, cfg: TransformerConfig) -> None:
-    from .transformer import layer_weight_dims
+def _check_plain(name: str, leaf, shape: tuple) -> None:
+    if tuple(leaf.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(leaf.shape)}, config "
+                         f"wants {shape}")
 
+
+def _check_shapes(tree: dict, cfg: TransformerConfig) -> None:
     L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    for path, shape in (("embed", (V, D)), ("final_norm", (D,))):
-        if tuple(tree[path].shape) != shape:
-            raise ValueError(f"{path} has shape {tuple(tree[path].shape)}, "
-                             f"config wants {shape}")
+    _check_plain("embed", tree["embed"], (V, D))
+    _check_plain("final_norm", tree["final_norm"], (D,))
     _check_leaf("lm_head", tree["lm_head"], (D, V))
+    layers = tree["layers"]
     for name in ("attn_norm", "mlp_norm"):
-        leaf = tree["layers"][name]
-        if tuple(leaf.shape) != (L, D):
-            raise ValueError(f"layers/{name} has shape {tuple(leaf.shape)}, "
-                             f"config wants {(L, D)}")
-    for name, dims in layer_weight_dims(cfg).items():
-        _check_leaf(f"layers/{name}", tree["layers"][name], (L,) + dims)
+        _check_plain(f"layers/{name}", layers[name], (L, D))
+    dims = layer_weight_dims(cfg)
+    if isinstance(cfg, MoEConfig):
+        # Attention as in the dense family; the experts (moe.py:69-96)
+        # in place of the dense MLP weights.
+        E, Fd, moe = cfg.n_experts, cfg.d_ff, layers["moe"]
+        _check_plain("layers/moe/router", moe["router"], (L, D, E))
+        for name, shape in (("w_gate", (L, E, D, Fd)),
+                            ("w_up", (L, E, D, Fd)),
+                            ("w_down", (L, E, Fd, D))):
+            _check_leaf(f"layers/moe/{name}", moe[name], shape)
+        dims = {k: dims[k] for k in ("wq", "wk", "wv", "wo")}
+    for name, wdims in dims.items():
+        _check_leaf(f"layers/{name}", layers[name], (L,) + wdims)
+
+
+def _layer_names(cfg) -> tuple:
+    if isinstance(cfg, MoEConfig):
+        return ("wq", "wk", "wv", "wo", "moe", "attn_norm", "mlp_norm")
+    return LAYER_WEIGHTS + ("attn_norm", "mlp_norm")
 
 
 def params_from_jax(np_tree: dict, cfg: TransformerConfig,
@@ -95,11 +114,12 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig,
     """The JAX pytree ``{"embed", "layers": {...}, "final_norm",
     "lm_head"}`` of numpy arrays -> the port's parameters on ``device``
     (None = the GPU).  Each leaf keeps its own dtype (weights in the
-    model dtype, norm gains fp32, quantized members int8 / uint8 /
-    fp32)."""
+    model dtype, norm gains and the MoE router fp32, quantized members
+    int8 / uint8 / fp32); a :class:`.moe.MoEConfig` carries the
+    ``layers["moe"]`` subtree across."""
     dev = resolve_device(device)
     _check_shapes(np_tree, cfg)
-    layer_names = LAYER_WEIGHTS + ("attn_norm", "mlp_norm")
+    layer_names = _layer_names(cfg)
 
     def conv(leaf):
         return _tree_map(lambda a: _leaf_to_torch(a, dev), leaf)

@@ -1,5 +1,5 @@
 """Autoregressive generation with a KV cache (counterpart of
-``nbdistributed_tpu/models/generate.py``, dense family).
+``nbdistributed_tpu/models/generate.py``; the dense and MoE families).
 
 The cache is a dict of heads-major buffers ``(L, B, Hkv, T, Dh)``
 (int8 plus ``(L, B, Hkv, T, 1)`` fp32 scales when quantized).  Where
@@ -23,6 +23,7 @@ import torch
 
 from ..ops import flash_decode_attention
 from ..ops._common import NEG_INF, resolve_device
+from .moe import MoEConfig, _moe_mlp_block
 from .quant import dequantize_weight, quantize_weight
 from .transformer import (TransformerConfig, _as_tokens, _mlp_block,
                           _rms_norm, _rope, layer_params, qlinear)
@@ -98,6 +99,16 @@ def _cached_attention(q, kc, vc, positions, scale, window=None):
     return o.reshape(B, S, H * Dh).to(q.dtype)
 
 
+def _make_mlp_fn(cfg: TransformerConfig, token_mask=None):
+    """The per-layer feed-forward branch (``generate.py:231``): the
+    dense SwiGLU, or the MoE block for a :class:`.moe.MoEConfig`, with
+    ``token_mask`` reaching its expert dispatch."""
+    if isinstance(cfg, MoEConfig):
+        return lambda x, layer: _moe_mlp_block(x, layer, cfg,
+                                               token_mask=token_mask)[0]
+    return lambda x, layer: _mlp_block(x, layer, cfg)
+
+
 @torch.no_grad()
 def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
                        cfg: TransformerConfig, *, last_only: bool = False,
@@ -109,9 +120,14 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     Returns (logits fp32, cache): (B, S, V), or (B, 1, V) with
     ``last_only`` or ``last_index`` (B,) (the last real token of
     right-padded rows, gathered before the final norm and lm_head).
-    ``row_mask``/``token_mask`` keep pads out of MoE expert dispatch in
-    the JAX package; the dense SwiGLU is per-token, so here they are
-    accepted and change nothing."""
+
+    The feed-forward branch dispatches on the config: the dense SwiGLU,
+    or the MoE layer for a :class:`.moe.MoEConfig`.  ``token_mask``
+    (B, S) bool marks the real positions: pads must not enter expert
+    dispatch, where they would take capacity slots and could evict
+    real tokens.  ``row_mask`` (B,) masks whole rows (inactive server
+    slots, finished speculative streams); passing both ANDs them.  The
+    dense SwiGLU is per-token, so the masks reach only the MoE layer."""
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
@@ -125,6 +141,13 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     positions = offs + torch.arange(S, device=device).expand(B, S)
     x = params["embed"][tokens].to(cfg.dtype)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    if token_mask is not None:
+        token_mask = torch.as_tensor(token_mask, dtype=torch.bool,
+                                     device=device)
+    if row_mask is not None:
+        rows = row_mask.to(device)[:, None].expand(B, S)
+        token_mask = rows if token_mask is None else token_mask & rows
+    mlp = _make_mlp_fn(cfg, token_mask)
     quantized = "k_s" in cache
     window = cfg.sliding_window
     decode = S == 1 and cfg.use_flash
@@ -163,7 +186,7 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
             o = _cached_attention(q, kc, vc, positions, scale,
                                   window=window)
         x = x + qlinear(o, layer["wo"])
-        x = _mlp_block(x, layer, cfg)
+        x = mlp(x, layer)
     if last_index is not None:
         idx = torch.as_tensor(last_index, dtype=torch.long, device=device)
         x = x.gather(1, idx.reshape(B, 1, 1).expand(B, 1, x.shape[-1]))

@@ -10,9 +10,11 @@ reaches the adapters through the merge and every config knob (flash
 kernels, remat, window, ``ce_chunk``) applies unchanged.  Optimizer
 state exists only for the adapter leaves.
 
-MoE configs wait for the MoE slice (ROADMAP A4); the adapters' tensor-
-parallel shardings (``lora_shardings``) wait for tensor parallelism
-(ROADMAP A5).
+A :class:`.moe.MoEConfig` takes adapters on the attention projections
+(its expert weights carry a leading n_experts axis, and per-expert
+adapters are another object), and its step trains through
+:func:`.moe.moe_loss_fn`.  The adapters' tensor-parallel shardings
+(``lora_shardings``) wait for tensor parallelism (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..ops._common import resolve_device
 from ..utils import fan_in_normal
+from .moe import MoEConfig, moe_loss_fn
 from .transformer import (TransformerConfig, _optimizer_step,
                           layer_weight_dims, loss_fn, param_leaves)
 
@@ -28,12 +31,6 @@ from .transformer import (TransformerConfig, _optimizer_step,
 # SwiGLU MLP weights (QLoRA-style).
 ATTN_TARGETS = ("wq", "wk", "wv", "wo")
 ALL_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-
-
-def _check_config(cfg) -> None:
-    if hasattr(cfg, "n_experts"):
-        raise NotImplementedError(
-            "LoRA on MoE configs comes with the MoE slice: ROADMAP A4")
 
 
 def _check_targets(targets) -> None:
@@ -53,7 +50,13 @@ def lora_init(seed: int, cfg: TransformerConfig, rank: int,
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
     _check_targets(targets)
-    _check_config(cfg)
+    if isinstance(cfg, MoEConfig):
+        bad = [t for t in targets if t not in ATTN_TARGETS]
+        if bad:
+            raise ValueError(
+                f"LoRA targets {bad} are expert weights on a MoE "
+                f"config (leading n_experts axis); target the "
+                f"attention projections {ATTN_TARGETS} instead")
     dev = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     gen = torch.Generator(device=dev)
@@ -94,8 +97,9 @@ def make_lora_train_step(cfg: TransformerConfig, optimizer, *,
     adapters are differentiated and updated (in place), by
     ``optimizer``, which holds the adapter leaves (e.g.
     ``AdamW(param_leaves(lora), lr)``).  The base parameters are left
-    untouched (``lora.py:138``)."""
-    _check_config(cfg)
+    untouched (``lora.py:138``).  A :class:`.moe.MoEConfig` trains
+    through :func:`.moe.moe_loss_fn`, load balance included."""
+    base_loss = moe_loss_fn if isinstance(cfg, MoEConfig) else loss_fn
     return _optimizer_step(
-        optimizer, lambda base_params, lora, batch: loss_fn(
+        optimizer, lambda base_params, lora, batch: base_loss(
             lora_merge(base_params, lora, alpha=alpha), batch, cfg))

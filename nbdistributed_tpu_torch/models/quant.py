@@ -11,21 +11,24 @@
   with ``G = d_in // group``.
 
 The model's products dispatch on the leaf kind in
-:func:`.transformer.qlinear`, so one forward serves plain and
-quantized trees.  The mesh shardings of these trees wait for the
-process group (ROADMAP A5), the MoE variants for A4.
+:func:`.transformer.qlinear` (the MoE experts' in
+``parallel/expert.py``), so one forward serves plain and quantized
+trees.  The mesh shardings of these trees wait for the process group
+(ROADMAP A5, then A2).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .lora import ATTN_TARGETS
 from .transformer import (_pack_nibbles, _unpack_nibbles, is_quantized,
                           is_quantized4)
 
 # Weights worth quantizing: all the big products.  Norm gains stay
 # fp32; the embedding is a gather and stays in the model dtype.
 DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+EXPERT_TARGETS = ("w_gate", "w_up", "w_down")
 
 
 def quantize_weight(w, *, axis: int = -2) -> dict:
@@ -101,10 +104,22 @@ def quantize_params4(params: dict, targets=DEFAULT_TARGETS,
                         targets, quantize_lm_head)
 
 
+def quantize_moe_params(params: dict, quantize_lm_head: bool = True) -> dict:
+    """MoE variant (``quant.py:184``): the attention projections and the
+    expert SwiGLU weights go int8, the router stays fp32."""
+    out = quantize_params(params, targets=ATTN_TARGETS,
+                          quantize_lm_head=quantize_lm_head)
+    moe = dict(out["layers"]["moe"])
+    for name in EXPERT_TARGETS:
+        moe[name] = quantize_weight(moe[name])
+    out["layers"]["moe"] = moe
+    return out
+
+
 def quantization_error(params: dict, qparams: dict) -> dict:
     """Relative Frobenius error of each quantized weight
-    (``quant.py:214``), keyed by its name (``"lm_head"`` for the
-    head)."""
+    (``quant.py:214``), keyed by its name: a nested group's weights as
+    ``"moe.w_gate"``, the head as ``"lm_head"``."""
 
     def rel(w, qw):
         deq = (dequantize_weight4(qw) if is_quantized4(qw)
@@ -112,9 +127,16 @@ def quantization_error(params: dict, qparams: dict) -> dict:
         wf = w.float()
         return float(torch.linalg.norm(deq - wf) / torch.linalg.norm(wf))
 
-    report = {name: rel(params["layers"][name], leaf)
-              for name, leaf in qparams["layers"].items()
-              if is_quantized(leaf) or is_quantized4(leaf)}
+    report = {}
+
+    def walk(prefix, ref, tree):
+        for name, leaf in tree.items():
+            if is_quantized(leaf) or is_quantized4(leaf):
+                report[prefix + name] = rel(ref[name], leaf)
+            elif isinstance(leaf, dict):
+                walk(prefix + name + ".", ref[name], leaf)
+
+    walk("", params["layers"], qparams["layers"])
     head = qparams.get("lm_head")
     if is_quantized(head) or is_quantized4(head):
         report["lm_head"] = rel(params["lm_head"], head)

@@ -31,8 +31,14 @@ returns new caches):
   fixed-size segments; with ``interleave_prefill`` one segment per
   :meth:`DecodeServer.step`, between decode steps.
 
-Meshes wait for the process group (ROADMAP A5, then A2) and MoE
-configs for A4: both raise ``NotImplementedError``.
+MoE configs (:mod:`.moe`) serve on every mode but chunked prefill
+and prefix caching, as in the JAX package: expert capacity is
+shape-derived, so admission runs at the exact prompt length
+(``pad_to`` is forced to 1), pads and inactive rows are masked out of
+expert dispatch, and a request served alone matches solo ``generate``;
+live MoE requests pool expert capacity across rows.  Meshes wait for
+the process group (ROADMAP A5, then A2) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,10 +48,16 @@ import torch
 from ..serving_fast.paging import BlocksExhausted
 from .generate import _check_sampling, _sample, forward_with_cache, \
     init_kv_cache
+from .moe import MoEConfig
 from .paged_kv import (PagedKVCache, gather_dense, gather_row,
                        make_paged_pool, scatter_row, scatter_step)
 from .speculative import spec_round
 from .transformer import TransformerConfig
+
+
+def _real(prompt, length: int):
+    """(1, s_pad) mask of a right-padded segment's real positions."""
+    return torch.arange(prompt.shape[1], device=prompt.device)[None] < length
 
 
 class DecodeServer:
@@ -77,11 +89,6 @@ class DecodeServer:
             raise NotImplementedError(
                 "mesh: serving over a device mesh needs the port's "
                 "process group (ROADMAP A5, then A2)")
-        for c in (cfg, draft_cfg):
-            if c is not None and type(c) is not TransformerConfig:
-                raise NotImplementedError(
-                    f"{type(c).__name__}: MoE configs are a later slice "
-                    f"of the port (ROADMAP A4)")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if pad_to < 1:
@@ -113,6 +120,17 @@ class DecodeServer:
                                  "vocabulary")
             if gamma < 1:
                 raise ValueError(f"gamma must be >= 1, got {gamma}")
+        if isinstance(cfg, MoEConfig):
+            # Expert capacity follows the prefill's token count: a padded
+            # bucket (or a chunk) would give a capacity other than a solo
+            # run's, and capacity decides which tokens drop.
+            pad_to = 1
+            if prefill_chunk is not None:
+                raise ValueError(
+                    "prefill_chunk is a dense-family option: MoE "
+                    "expert capacity is shape-derived, so per-chunk "
+                    "capacity would differ from a solo run's and "
+                    "change which tokens drop")
         self._params = params
         self._cfg = cfg
         self._kv_quantized = kv_quantized
@@ -190,10 +208,11 @@ class DecodeServer:
             """prompt (1, s_pad), right-padded: writes the slot's cache
             rows (in place, through a view of the pool) at offset
             ``start`` and returns (cache, logits (V,) at the segment's
-            last real token)."""
+            last real token).  The pads stay out of expert dispatch."""
             row = {name: buf[:, slot:slot + 1] for name, buf in cache.items()}
             logits, _ = forward_with_cache(params, prompt, row, start, cfg,
-                                           last_index=[length - 1])
+                                           last_index=[length - 1],
+                                           token_mask=_real(prompt, length))
             return cache, logits[0, 0]
 
         return fn
@@ -208,7 +227,8 @@ class DecodeServer:
             ids = self._paged.device_row(slot)
             row = gather_row(pool, ids)
             logits, _ = forward_with_cache(params, prompt, row, start, cfg,
-                                           last_index=[length - 1])
+                                           last_index=[length - 1],
+                                           token_mask=_real(prompt, length))
             scatter_row(pool, row, ids)
             return pool, logits[0, 0]
 
@@ -313,7 +333,14 @@ class DecodeServer:
         these tokens copies the buffer's rows into its slot and prefills
         only the suffix.  The copied rows are the ones a full prefill
         writes: causal attention makes a position's K/V depend only on
-        the tokens up to it, and RoPE positions are absolute."""
+        the tokens up to it, and RoPE positions are absolute.  Dense
+        family only: a suffix's prefill gives MoE experts another
+        capacity than a solo run's."""
+        if isinstance(self._cfg, MoEConfig):
+            raise ValueError(
+                "prefix caching is a dense-family option: MoE expert "
+                "capacity is shape-derived, so suffix prefill would "
+                "differ from a solo run and change which tokens drop")
         if self._paged is not None:
             raise ValueError(
                 "prefix caching is not paged yet: the absorb copy "
@@ -398,7 +425,7 @@ class DecodeServer:
                 # next chunk writes (dense pool; the paged scatter sends
                 # inactive rows to the trash block anyway).
                 self._prefilling[slot] = [rid, prompt, budget, 0]
-                self._lens[slot] = 0
+                self._set_frontier(slot, 0)
                 continue
             self._admit_now(slot, rid, prompt, budget)
 
@@ -483,13 +510,18 @@ class DecodeServer:
         self.prefill_tokens_total += len(seg)
         if not last:
             st[3] = written + ck
-            # lens stays at the written frontier: the decode step's
-            # frozen-position write for this row lands where the next
-            # chunk overwrites it.
-            self._lens[slot] = st[3]
+            self._set_frontier(slot, st[3])
             return
         del self._prefilling[slot]
         self._activate(slot, rid, prompt, budget, logits)
+
+    def _set_frontier(self, slot: int, written: int) -> None:
+        """Point a mid-prefill slot's cache pointers (the draft's too) at
+        its written frontier: the frozen-position writes a step makes
+        for the inactive row land where the next chunk overwrites them."""
+        self._lens[slot] = written
+        if self._draft_cfg is not None:
+            self._lens_d[slot] = written
 
     def cancel(self, rid: int) -> bool:
         """Abort an in-flight request now: drop it from the pending

@@ -142,13 +142,17 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     }
 
 
+def _slice_layer(t, i: int):
+    return ({k: _slice_layer(v, i) for k, v in t.items()}
+            if isinstance(t, dict) else t[i])
+
+
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked per-layer tensors (views); a
-    quantized leaf (``{"q8", "s"}`` or ``{"q4", "s"}``) is sliced member
-    by member."""
-    return {name: ({k: v[i] for k, v in t.items()} if isinstance(t, dict)
-                   else t[i])
-            for name, t in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked per-layer tensors (views).  A
+    nested subtree (a quantized leaf ``{"q8", "s"}`` or ``{"q4", "s"}``,
+    the MoE ``moe`` group, quantized experts inside it) is sliced leaf
+    by leaf."""
+    return _slice_layer(params["layers"], i)
 
 
 # ----------------------------------------------------------------------

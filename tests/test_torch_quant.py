@@ -2,7 +2,8 @@
 on the CPU: nibble packing, the quantizers' leaves (integers bit for
 bit, scales to 1 ulp), ``qlinear``, ``forward`` and greedy ``generate``
 on quantized trees, ``quantization_error``, and the quantized tree's
-round trip through ``convert.py``.
+round trip through ``convert.py``; ``quantize_moe_params`` and the
+nested ``quantization_error`` of the MoE family.
 
 Both packages quantize the same parameters (JAX init at ``tiny_config``
 float32, converted with ``params_from_jax``).  Products of quantized
@@ -19,9 +20,11 @@ import torch
 from nbdistributed_tpu.models import quant as jquant
 from nbdistributed_tpu.models import transformer as jtf
 from nbdistributed_tpu.models.generate import generate as jgenerate
+from nbdistributed_tpu.models import moe as jmoe
 from nbdistributed_tpu_torch.models import (DecodeServer, forward, generate,
-                                            params_from_jax, params_to_numpy,
-                                            qlinear, quant, tiny_config)
+                                            moe_forward, params_from_jax,
+                                            params_to_numpy, qlinear, quant,
+                                            tiny_config, tiny_moe_config)
 from nbdistributed_tpu_torch.models.transformer import (_pack_nibbles,
                                                         _unpack_nibbles,
                                                         layer_params)
@@ -215,3 +218,62 @@ def test_layer_params_slices_quantized_leaves(setup):
     assert torch.equal(layer["attn_norm"], params["layers"]["attn_norm"][1])
     with pytest.raises(ValueError, match="unknown quantization target"):
         quant.quantize_params(params, targets=("wq", "w_nope"))
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    jcfg = jmoe.tiny_moe_config(dtype=jnp.float32, use_flash=False)
+    tree = jax.tree.map(np.asarray,
+                        jmoe.init_moe_model(jax.random.PRNGKey(0), jcfg))
+    cfg = tiny_moe_config(dtype=torch.float32)
+    return jcfg, jax.tree.map(jnp.asarray, tree), cfg, params_from_jax(
+        tree, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("quantize_lm_head", [True, False])
+def test_quantize_moe_params_matches_jax(moe_setup, quantize_lm_head):
+    """The attention projections and the experts int8, bit for bit
+    (scales to one ulp); the router, norms and embedding untouched and
+    passed through by reference."""
+    _, jparams, _, params = moe_setup
+    got_tree = quant.quantize_moe_params(params, quantize_lm_head)
+    got = _leaves(params_to_numpy(got_tree))
+    want = _leaves(jquant.quantize_moe_params(jparams, quantize_lm_head))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        if path.endswith("/s"):
+            _same_scales(a, b)
+        else:
+            assert np.array_equal(a, b), path
+    moe = got_tree["layers"]["moe"]
+    assert moe["router"] is params["layers"]["moe"]["router"]
+    assert moe["w_down"]["q8"].dtype == torch.int8
+    assert (got_tree["lm_head"] is params["lm_head"]) != quantize_lm_head
+    assert quant.EXPERT_TARGETS == jquant.EXPERT_TARGETS
+
+
+def test_moe_quantization_error_matches_jax(moe_setup):
+    """The nested walk: the same keys (``"moe.w_gate"``, ...) and
+    values."""
+    _, jparams, _, params = moe_setup
+    got = quant.quantization_error(params, quant.quantize_moe_params(params))
+    want = jquant.quantization_error(jparams,
+                                     jquant.quantize_moe_params(jparams))
+    assert sorted(got) == sorted(want)
+    assert {"moe.w_gate", "moe.w_up", "moe.w_down", "wq", "lm_head"} <= \
+        set(got)
+    for name in want:
+        assert got[name] == pytest.approx(want[name], rel=1e-5), name
+
+
+def test_moe_forward_on_quantized_params_matches_jax(moe_setup):
+    jcfg, jparams, cfg, params = moe_setup
+    tokens = np.random.default_rng(3).integers(0, 512, (2, 16),
+                                               dtype=np.int32)
+    got, aux = moe_forward(quant.quantize_moe_params(params),
+                           torch.from_numpy(tokens), cfg)
+    want, jaux = jmoe.moe_forward(jquant.quantize_moe_params(jparams),
+                                  jnp.asarray(tokens), jcfg)
+    _close(got.numpy(), want)
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-6)

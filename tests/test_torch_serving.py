@@ -3,10 +3,11 @@
 
 Mirrors ``tests/unit/test_serving.py`` (staggered admission, slot
 recycling, EOS, int8 cache, step_many, chunked and interleaved prefill,
-prefix caching, speculative serving and spec_step_many).  Greedy tokens
-are compared exactly: per request, the port's server, the port's solo
-generate, the JAX server with the same arguments and JAX's solo
-generate must all agree.  Paged serving is in ``test_torch_paged.py``.
+prefix caching, speculative serving and spec_step_many, MoE configs).
+Greedy tokens are compared exactly: per request, the port's server, the
+port's solo generate, the JAX server with the same arguments and JAX's
+solo generate must all agree.  Paged serving of the dense family is in
+``test_torch_paged.py``.
 """
 
 import jax
@@ -15,11 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from nbdistributed_tpu.models import moe as jmoe
+from nbdistributed_tpu.models import quant as jquant
 from nbdistributed_tpu.models import transformer as jtf
 from nbdistributed_tpu.models.generate import generate as jgenerate
 from nbdistributed_tpu.models.serving import DecodeServer as JaxServer
 from nbdistributed_tpu_torch.models import (DecodeServer, generate,
-                                            params_from_jax, tiny_config)
+                                            params_from_jax,
+                                            quantize_moe_params, tiny_config,
+                                            tiny_moe_config)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -161,16 +166,11 @@ def test_cancel_sampling_and_validation(setup):
     assert all(0 <= t < cfg.vocab_size for t in srv.outputs[r0])
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"moe": True}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
 def test_later_slice_arguments_raise(setup, kwargs):
-    """A mesh (ROADMAP A5, then A2) and MoE configs (A4) are later
-    slices; the MoE case hands the port the JAX package's MoE config."""
-    from nbdistributed_tpu.models import tiny_moe_config
+    """A mesh is a later slice (ROADMAP A5, then A2)."""
     _, _, cfg, params = setup
-    kwargs = dict(kwargs)
-    if kwargs.pop("moe", False):
-        cfg = tiny_moe_config(dtype=jnp.float32, use_flash=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[245]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A[25]"):
         DecodeServer(params, cfg, max_batch=1, max_len=16, **kwargs)
 
 
@@ -448,3 +448,123 @@ def test_multi_step_refusals_and_spec_validation(setup, spec):
                       (dict(top_p=0.0), "top_p")):
         with pytest.raises(ValueError, match=match):
             DecodeServer(params, cfg, max_batch=1, max_len=32, **kw)
+
+
+def test_spec_interleaved_prefill_keeps_the_draft_pointer(setup):
+    """ROADMAP C1: while a prompt streams in chunk by chunk beside a live
+    speculative stream, the draft's cache pointer follows the written
+    frontier as the target's does, so the rounds' frozen-position draft
+    writes land where the next chunk overwrites them.  A self-draft's
+    cache then equals the target's row for row at activation, and every
+    round before the budget cut accepts all gamma proposals."""
+    _, _, cfg, params = setup
+    gamma, budget = 4, 20
+    srv = DecodeServer(params, cfg, max_batch=2, max_len=128, pad_to=4,
+                       draft_params=params, draft_cfg=cfg, gamma=gamma,
+                       prefill_chunk=16, interleave_prefill=True)
+    srv.submit([5, 9, 2, 7], 40)
+    srv.step()
+    prompt = np.random.default_rng(60).integers(1, 512, 60).tolist()
+    rid = srv.submit(prompt, budget)
+    slot = next(s for s, st in srv._prefilling.items() if st[0] == rid)
+    while rid in srv.prefill_progress():
+        srv.step()
+    for name in ("k", "v"):
+        assert torch.equal(srv._cache_d[name][:, slot, :, :60],
+                           srv._cache[name][:, slot, :, :60]), name
+    per_round = [len(srv.outputs[rid]) - 1]
+    while rid not in srv.finished:
+        per_round.append(len(srv.step().get(rid, [])))
+    assert per_round[:-1] == [gamma + 1] * (len(per_round) - 1)
+    assert sum(per_round) == budget - 1
+    assert srv.outputs[rid] == solo(params, cfg, prompt, budget)
+
+
+# ----------------------------------------------------------------------
+# MoE configs, against the JAX server with the same arguments
+
+
+@pytest.fixture(scope="module")
+def moe():
+    """``tiny_moe_config`` float32: the target (seed 0) and a draft
+    (seed 42) in both packages."""
+    jcfg = jmoe.tiny_moe_config(dtype=jnp.float32, use_flash=False)
+    cfg = tiny_moe_config(dtype=torch.float32)
+    trees = [jax.tree.map(np.asarray, jmoe.init_moe_model(
+        jax.random.PRNGKey(seed), jcfg)) for seed in (0, 42)]
+    return dict(jcfg=jcfg, cfg=cfg,
+                jparams=[jax.tree.map(jnp.asarray, t) for t in trees],
+                params=[params_from_jax(t, cfg, device="cpu") for t in trees])
+
+
+MOE_MODES = {"dense": {}, "paged": {"kv_block_tokens": 8},
+             "speculative": {"draft": True, "gamma": 3},
+             "int8_weights": {"quantized": True},
+             "int8_kv": {"kv_quantized": True}}
+
+
+@pytest.mark.parametrize("mode", list(MOE_MODES))
+def test_moe_server_matches_jax_server(moe, mode):
+    """Staggered admission into a 2-slot pool (live requests pool expert
+    capacity): the port's greedy tokens equal the JAX server's with the
+    same arguments, on the dense pool, paged, with a MoE draft, on a
+    ``quantize_moe_params`` tree and with an int8 cache."""
+    kw = dict(MOE_MODES[mode])
+    draft, quantized = kw.pop("draft", False), kw.pop("quantized", False)
+    jp, tp = moe["jparams"][0], moe["params"][0]
+    if quantized:
+        jp, tp = jquant.quantize_moe_params(jp), quantize_moe_params(tp)
+    kw_t = kw_j = dict(kw, max_batch=2, max_len=64, pad_to=4)
+    if draft:
+        kw_t = dict(kw_t, draft_params=moe["params"][1], draft_cfg=moe["cfg"])
+        kw_j = dict(kw_j, draft_params=moe["jparams"][1],
+                    draft_cfg=moe["jcfg"])
+    srv = DecodeServer(tp, moe["cfg"], **kw_t)
+    assert srv._pad_to == 1
+    reqs, got = _staggered(srv)
+    _, want = _staggered(JaxServer(jp, moe["jcfg"], **kw_j))
+    assert got == want
+    assert [len(o) for o in got] == [n for _, n in reqs]
+
+
+def test_moe_lone_request_and_exact_length_admission(moe):
+    """A request served alone equals solo ``generate`` (JAX's too), and
+    a 20-token prompt is admitted at its exact length although pad_to=64
+    was asked for: at capacity factor 1 a 64-token bucket would give the
+    experts capacity 32 where the solo run has 16 (JAX
+    ``test_serving.py:181``)."""
+    jcfg, cfg = moe["jcfg"], moe["cfg"]
+    jparams, params = moe["jparams"][0], moe["params"][0]
+    srv = DecodeServer(params, cfg, max_batch=2, max_len=32, pad_to=4)
+    rid = srv.submit([5, 1, 3], 5)
+    srv.run_until_done(max_steps=50)
+    assert srv.outputs[rid] == solo(params, cfg, [5, 1, 3], 5) == \
+        jax_solo(jparams, jcfg, [5, 1, 3], 5)
+    cfg1 = tiny_moe_config(dtype=torch.float32, capacity_factor=1.0)
+    jcfg1 = jmoe.tiny_moe_config(dtype=jnp.float32, use_flash=False,
+                                 capacity_factor=1.0)
+    prompt = np.random.default_rng(101).integers(1, 512, 20).tolist()
+    srv = DecodeServer(params, cfg1, max_batch=1, max_len=80, pad_to=64)
+    rid = srv.submit(prompt, 4)
+    srv.run_until_done(max_steps=50)
+    assert srv.outputs[rid] == solo(params, cfg1, prompt, 4) == \
+        jax_solo(jparams, jcfg1, prompt, 4)
+
+
+def test_moe_server_refuses_chunked_prefill_and_prefix_caching(moe):
+    """JAX's refusals, word for word: both would prefill at a token count
+    other than a solo run's, and expert capacity follows it."""
+    jcfg, cfg = moe["jcfg"], moe["cfg"]
+    jparams, params = moe["jparams"][0], moe["params"][0]
+    with pytest.raises(ValueError) as want:
+        JaxServer(jparams, jcfg, max_batch=1, max_len=32, prefill_chunk=4)
+    with pytest.raises(ValueError) as got:
+        DecodeServer(params, cfg, max_batch=1, max_len=32, prefill_chunk=4)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError) as want:
+        JaxServer(jparams, jcfg, max_batch=1, max_len=32).cache_prefix([1, 2])
+    with pytest.raises(ValueError) as got:
+        DecodeServer(params, cfg, max_batch=1, max_len=32).cache_prefix([1, 2])
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        DecodeServer(params, cfg, max_batch=1, max_len=32, mesh=object())

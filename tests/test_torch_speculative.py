@@ -21,7 +21,8 @@ from nbdistributed_tpu.models import transformer as jtf
 from nbdistributed_tpu_torch.models import (DecodeServer, TransformerConfig,
                                             generate, init_params,
                                             params_from_jax, quantize_params4,
-                                            speculative_generate, tiny_config)
+                                            speculative_generate, tiny_config,
+                                            tiny_moe_config)
 from nbdistributed_tpu_torch.models import speculative as tspec
 
 DRAFT = dict(d_model=64, n_layers=1, n_heads=2, n_kv_heads=2, d_ff=128,
@@ -276,3 +277,30 @@ def test_speculative_step_reads_the_host_once(setup, monkeypatch):
     srv.spec_step_many(2)
     monkeypatch.undo()
     assert reads == ["tolist", "tolist"]
+
+
+@pytest.mark.parametrize("gamma,B", [(3, 1), (2, 3)])
+def test_moe_target_with_moe_draft_matches_jax(gamma, B):
+    """A ``tiny_moe_config`` target with a one-layer MoE draft: tokens
+    and acceptance equal JAX's; every round masks the finished rows out
+    of expert dispatch (``row_mask``).  At this size no expert overflows
+    its capacity, so the tokens are also the target's greedy decode."""
+    from nbdistributed_tpu.models import moe as jmoe
+    jcfg = jmoe.tiny_moe_config(dtype=jnp.float32, use_flash=False)
+    jdcfg = jmoe.tiny_moe_config(dtype=jnp.float32, use_flash=False,
+                                 n_layers=1)
+    cfg = tiny_moe_config(dtype=torch.float32)
+    dcfg = tiny_moe_config(dtype=torch.float32, n_layers=1)
+    trees = [jax.tree.map(np.asarray, jmoe.init_moe_model(
+        jax.random.PRNGKey(seed), c)) for seed, c in ((0, jcfg), (1, jdcfg))]
+    prompts = _prompts(7 + B, B, 6)
+    params, draft = (params_from_jax(t, c, device="cpu")
+                     for t, c in zip(trees, (cfg, dcfg)))
+    got, acc = speculative_generate(params, draft, prompts, cfg, dcfg, 10,
+                                    gamma=gamma)
+    want, jacc = jspec.speculative_generate(
+        *(jax.tree.map(jnp.asarray, t) for t in trees),
+        jnp.asarray(prompts, jnp.int32), jcfg, jdcfg, 10, gamma=gamma)
+    assert got.tolist() == np.asarray(want).tolist()
+    assert acc == pytest.approx(float(jacc), abs=1e-6)
+    assert got.tolist() == generate(params, prompts, cfg, 10).tolist()

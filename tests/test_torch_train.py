@@ -1,6 +1,6 @@
 """The port's training slice against the JAX package on the CPU: the
 loss and its gradients, remat, the chunked-vocab loss, AdamW against
-optax, the LoRA step, and the data utilities.
+optax, the LoRA step (on a MoE config too), and the data utilities.
 
 Both packages get the same parameters (JAX init, converted with
 ``params_from_jax`` / ``lora_from_jax``) and the same batches (numpy,
@@ -13,8 +13,6 @@ steps to 1e-6 against optax fed the same gradients, and losses to 1e-5
 against the JAX train step run on its own gradients.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +21,7 @@ import pytest
 import torch
 
 from nbdistributed_tpu.models import lora as jlora
+from nbdistributed_tpu.models import moe as jmoe
 from nbdistributed_tpu.models import transformer as jtf
 from nbdistributed_tpu.ops import xent as jxent
 from nbdistributed_tpu.utils import data as jdata
@@ -32,13 +31,13 @@ from nbdistributed_tpu_torch.models import (AdamW, apply_optimizer_updates,
                                             lora_to_numpy, loss_fn,
                                             make_layer_fn,
                                             make_lora_train_step,
-                                            make_train_step,
+                                            make_train_step, moe_loss_fn,
                                             named_param_leaves,
                                             num_tokens_per_step,
                                             packed_positions, param_leaves,
                                             params_from_jax,
                                             params_to_numpy, shifted_xent,
-                                            tiny_config)
+                                            tiny_config, tiny_moe_config)
 from nbdistributed_tpu_torch.ops import attention as tattn
 from nbdistributed_tpu_torch.ops import xent as txent
 from nbdistributed_tpu_torch.utils import data as tdata
@@ -237,8 +236,8 @@ def test_lora_step_matches_jax(tree):
 
 def test_lora_init_merge_and_count():
     """Zero-init ``b`` makes the merge the identity; the count and the
-    conversion round trip match the JAX tree; MoE configs and unknown
-    targets raise."""
+    conversion round trip match the JAX tree; expert targets on a MoE
+    config and unknown targets raise."""
     cfg = tiny_config(dtype=torch.float32)
     jcfg = jtf.tiny_config(dtype=jnp.float32)
     lora = lora_init(3, cfg, rank=4, device="cpu")
@@ -253,9 +252,9 @@ def test_lora_init_merge_and_count():
     merged = lora_merge(params, lora)
     for name in params["layers"]:
         assert torch.equal(merged["layers"][name], params["layers"][name])
-    with pytest.raises(NotImplementedError, match="A4"):
-        lora_init(0, dataclasses.make_dataclass(
-            "MoE", [("n_experts", int, 8)])(), rank=4, device="cpu")
+    with pytest.raises(ValueError, match="expert weights"):
+        lora_init(0, tiny_moe_config(), rank=4, targets=("wq", "w_up"),
+                  device="cpu")
     with pytest.raises(ValueError, match="unknown LoRA targets"):
         lora_init(0, cfg, rank=4, targets=("wz",), device="cpu")
 
@@ -430,3 +429,50 @@ def test_prefetch_to_device_yields_every_batch_in_order():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tdata.prefetch_to_device(batches)
+
+
+def test_lora_on_moe_matches_jax():
+    """Attention-target LoRA on a MoE config: the adapted
+    ``moe_loss_fn`` and every adapter gradient against JAX's (``b`` made
+    non-zero so both factors get gradients), the port's step trains
+    through ``moe_loss_fn`` (its loss equals JAX's own LoRA step's), and
+    expert targets raise JAX's ``ValueError``."""
+    jcfg = jmoe.tiny_moe_config(dtype=jnp.float32)
+    cfg = tiny_moe_config(dtype=torch.float32)
+    jtree = jax.tree.map(np.asarray,
+                         jmoe.init_moe_model(jax.random.PRNGKey(0), jcfg))
+    jl = jax.tree.map(np.asarray, jlora.lora_init(jax.random.PRNGKey(2),
+                                                  jcfg, rank=4))
+    rng = np.random.default_rng(7)
+    for ab in jl["layers"].values():
+        ab["b"] = (0.02 * rng.standard_normal(ab["b"].shape)).astype(
+            np.float32)
+    batch = _batch(seed=8)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jparams = jax.tree.map(jnp.asarray, jtree)
+    want_loss, want = jax.value_and_grad(lambda lo: jmoe.moe_loss_fn(
+        jlora.lora_merge(jparams, lo), jbatch, jcfg))(
+            jax.tree.map(jnp.asarray, jl))
+    base = _port(jtree, cfg, requires_grad=False)
+    lora = lora_from_jax(jl, device="cpu")
+    for p in param_leaves(lora):
+        p.requires_grad_()
+    loss = moe_loss_fn(lora_merge(base, lora), _t(batch), cfg)
+    got = torch.autograd.grad(loss, param_leaves(lora))
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-6)
+    for a, b in zip(got, param_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+    opt = optax.adamw(1e-3)
+    jlo = jax.tree.map(jnp.asarray, jl)
+    _, _, own_loss = jlora.make_lora_train_step(jcfg, opt)(
+        jparams, jlo, opt.init(jlo), jbatch)
+    step = make_lora_train_step(cfg, AdamW(param_leaves(lora), lr=1e-3))
+    np.testing.assert_allclose(float(step(base, lora, _t(batch))),
+                               float(own_loss), rtol=1e-5)
+    for targets in (("w_gate",), ("wq", "w_down")):
+        with pytest.raises(ValueError) as jerr:
+            jlora.lora_init(jax.random.PRNGKey(0), jcfg, 4, targets=targets)
+        with pytest.raises(ValueError) as terr:
+            lora_init(0, cfg, 4, targets=targets, device="cpu")
+        assert str(terr.value) == str(jerr.value)
