@@ -23,8 +23,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    groups 1 and 8, D=32 and 128, one chunk (nsplit = 1), the lse, the
    serving path's own shape and positions and its full context, a
    paged step's dense view (large finite values past every position),
-   and the Mixtral server's shape (Hkv=8, group 4, D=128, T=1024) in
-   bf16, int8 and fp32;
+   the Mixtral server's shape (Hkv=8, group 4, D=128, T=1024) in
+   bf16, int8 and fp32, and the mesh phase's shard shapes (B=4 of 8
+   slots, T=512 and the path's 128; Mixtral's Hkv=4 of 8 on tp) at
+   positions shifted by the slice's offset: negative, inside and past
+   the slice, and a window wholly past it;
 4. K2/K3, the flash-attention backward (dQ, dK/dV), called through the
    wrapper the path calls, against the plain backward in bf16 (one
    tile, group 1, causal S=2048 with group 3 at D=64 and D=128,
@@ -94,7 +97,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
    steps on the attention projections;
 16. timing of each kernel at the main paths' shapes (K1 at the serving,
    training and Mixtral shapes, K4 at the serving shape, at full
-   context and at the Mixtral server's shape), beside its plain
+   context, at the Mixtral server's shape and at the mesh's sp shard), beside its plain
    version, one PyTorch library call and the card's bound; K4 and its
    yardsticks on the device by CUDA-graph replay (a K4 call is shorter
    than the host's launch of it);
@@ -112,13 +115,33 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``transformers`` state dicts and converted back onto the GPU, bit
    for bit, and ``load_hf_pretrained`` where ``transformers`` imports.
 
+18. (run after phase 15) serving on a mesh: four ranks of one gloo
+   process group spawned by this script on the one card (each on
+   ``cuda:0``; NCCL refuses two ranks on one device), loading the
+   kernels this process built.  In fp32 they serve phase 5's 12 requests
+   with SmolLM2-135M (30 layers) on ``{"dp": 2, "sp": 2}`` and the 8 of
+   phase 13 with Mixtral (2 layers, full width, capacity factor 4) on
+   ``{"ep": 4}`` (dense and dropless dispatch) and on ``{"tp": 2,
+   "sp": 2}``, at ``max_len`` 256 (both sp slices hold keys); each rank
+   builds its shard of the model from seed 0, leaf by leaf.  Each run's
+   counts are reset just before and read just after on every rank: K4
+   once per layer per decode step, every rank's tokens equal, and the
+   tokens held to solo ``generate`` under the near-tie rule.  Rows: ms
+   per step, collectives per step and each rank's peak memory; the
+   ranks time-share the card and every collective crosses the host, so
+   no number is a link speed.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
 phase 5's in the kernels line (``launches_by_path``), as do the
 worker's K1 and K4 launches (``cluster_serve``), as the MoE
 forward's and MoE training's K1/K2/K3 launches join the SmolLM2
-paths'.
+paths', and the mesh runs' K4 launches on rank 0 (``mesh_*``).
+
+``python3 chip_smoke.py --mesh-nccl`` runs phase 18 alone on four
+cards, one NCCL rank per card (what one card cannot show: NCCL and the
+links between cards).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -384,6 +407,11 @@ def past_valid_pos(B, T):
     return pos.to("cuda")
 
 
+def shard_pos(values):
+    import torch
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
 def phase_k4():
     """K4 through ``flash_decode_attention``, the wrapper the path
     calls, against ``decode_reference``: per-row positions over [0, T-1]
@@ -395,8 +423,11 @@ def phase_k4():
     T=max_len=1024, serving positions), its full context (T=2048, every
     slot at 2047), a paged step's gathered view (±3e4 past every row's
     position) and the Mixtral serving shape (Hkv=8, group 4, D=128,
-    T=1024) in bf16, int8 and fp32.  Returns the worst bf16 output
-    error."""
+    T=1024) in bf16, int8 and fp32; and the mesh phase's shard shapes
+    (SmolLM2's dp x sp rank: B=4, Hkv=3, T=512 and the path's T=128;
+    Mixtral's tp x sp rank: Hkv=4, group 4, D=128) at shifted positions,
+    negative and past the slice, and with a window wholly past it.
+    Returns the worst bf16 output error."""
     import torch
     from nbdistributed_tpu_torch.ops import decode as K
     from nbdistributed_tpu_torch.ops._common import NEG_INF
@@ -439,13 +470,37 @@ def phase_k4():
              ("int8_mixtral_g4_D128_T1024", 8, 8, 4, 128, 1024, None,
               "int8", "serving", None),
              ("fp32_mixtral_g4_D128_T1024", 8, 8, 4, 128, 1024, None,
-              "fp32", "serving", None)]
+              "fp32", "serving", None),
+             # The mesh phase's shard shapes: a dp x sp rank's (B=4 of 8
+             # slots, T/2 of the cache) and Mixtral's tp x sp rank's
+             # (Hkv=4 of 8), at positions shifted by the slice's offset:
+             # negative (the slice holds none of the row's keys), inside,
+             # and past it (all of them); a window wholly past the slice.
+             ("shard_T512_shifted", 4, 3, 3, 64, 512, None, "bf16",
+              "shard", None),
+             ("fp32_shard_T512_shifted", 4, 3, 3, 64, 512, None, "fp32",
+              "shard", None),
+             ("shard_T512_window_past_slice", 4, 3, 3, 64, 512, 256,
+              "bf16", "shard_window", None),
+             ("fp32_shard_T512_window_past_slice", 4, 3, 3, 64, 512, 256,
+              "fp32", "shard_window", None),
+             ("shard_mixtral_g4_D128_T512", 8, 4, 4, 128, 512, None, "bf16",
+              "shard_shifted", None),
+             ("fp32_shard_mixtral_g4_D128_T512", 8, 4, 4, 128, 512, None,
+              "fp32", "shard_shifted", None),
+             ("fp32_shard_path_T128", 4, 3, 3, 64, MESH_MAX_LEN // 2, None,
+              "fp32", "shard_shifted", None),
+             ("fp32_shard_mixtral_path_g4_D128_T128", 8, 4, 4, 128,
+              MESH_MAX_LEN // 2, None, "fp32", "shard_shifted", None)]
     worst = 0.0
     for name, B, Hkv, group, D, T, window, cache, kind, qdt in cases:
         pos = {None: None, "past": past_valid_pos(B, T),
                "serving": serving_pos(B), "garbage": serving_pos(B),
                "full": torch.full((B,), T - 1, dtype=torch.int32,
-                                  device="cuda")}[kind]
+                                  device="cuda"),
+               "shard": shard_pos([-300, -1, T // 2, T + 300]),
+               "shard_window": shard_pos([-5, T // 4, T + 88, T + 300]),
+               "shard_shifted": serving_pos(B) - 128}[kind]
         q, kc, vc, ks, vs, pos = k4_inputs(B, Hkv, group, D, T, cache,
                                            seed=len(name), pos=pos,
                                            qdtype=qdt)
@@ -472,7 +527,7 @@ def phase_k4():
         # Rows that attend nothing: exactly o = 0 and lse = NEG_INF.
         valid = pos.long() + 1
         lo = valid - window if window else torch.zeros_like(valid)
-        empty = lo >= torch.clamp(valid, max=T)
+        empty = torch.clamp(lo, min=0) >= torch.clamp(valid, min=0, max=T)
         n_empty = int(empty.sum())
         empty_ok = bool((out[empty] == 0).all()
                         and (lse[empty] == NEG_INF).all())
@@ -487,8 +542,11 @@ def phase_k4():
               f"K4 {name}: error {e_out} (ratio {ratio}) / lse {e_lse} "
               f"over tolerance, or a row that attends nothing is not "
               f"o = 0, lse = NEG_INF")
-        check((n_empty > 0) == (kind == "past"),
-              f"K4 {name}: {n_empty} rows attend nothing")
+        want_empty = {"past": n_empty > 0, "shard": n_empty == 2,
+                      "shard_window": n_empty == 2,
+                      "shard_shifted": 0 < n_empty < B}.get(kind,
+                                                            n_empty == 0)
+        check(want_empty, f"K4 {name}: {n_empty} rows attend nothing")
         if q.dtype == torch.bfloat16:
             worst = max(worst, e_out)
     return worst
@@ -1502,7 +1560,7 @@ def phase_moe_fp32(params, cfg, prompts):
                    outs_q, solo_outputs(qp, cfg, prompts[:4]))
     return dict(k4_serve=k4, steps=steps, k4_speculative=k4_spec,
                 self_draft_rounds=rounds, self_draft_short_rounds=len(gaps),
-                k4_int8=k4_int8)
+                k4_int8=k4_int8, solo=solo)
 
 
 def moe_layer_ms(params, cfg):
@@ -1930,6 +1988,346 @@ def phase_cluster(prompts, dense):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: serving on a mesh.  Four ranks of one gloo process group,
+# spawned by this script, all on the one card (NCCL refuses two ranks on
+# one device; gloo runs all_reduce, all_gather and broadcast on CUDA
+# tensors through host staging).  The ranks time-share the card, and
+# every collective crosses the host, so no number here is a link speed.
+
+MESH_WORLD = 4
+MESH_MAX_LEN = 256      # prompts of 16-200 tokens + 32 new: both sp
+#                         slices of 128 tokens hold keys
+MESH_READY_S = 300      # spawn, torch import, CUDA and the rendezvous
+MESH_RUN_S = 900
+MESH_NOTE = {"gloo": "4 ranks time-share one GPU over gloo's host "
+                     "staging: no number is a link speed",
+             "nccl": "4 ranks, one GPU each, NCCL over the host's links"}
+
+
+def seeded_moe_shard(cfg, seed, mesh, rules):
+    """``init_moe_model(cfg, seed)``'s tree on this rank's card, drawn
+    leaf by leaf in that function's order from the same generator, each
+    leaf cut to this rank's shard by ``rules`` as soon as it is drawn:
+    a rank never holds the whole 2-layer fp32 Mixtral (12.6 GB)."""
+    import math
+
+    import torch
+    from nbdistributed_tpu_torch.parallel import apply_shardings
+    from nbdistributed_tpu_torch.utils import fan_in_normal
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    D, H, Hkv, Dh, L, E, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, cfg.n_layers, cfg.n_experts,
+                              cfg.d_ff)
+    lay = rules["layers"]
+
+    def cut(x, spec):
+        return apply_shardings(x, mesh, spec)
+
+    def normal(shape, fan_in):
+        return fan_in_normal(gen, shape, fan_in, cfg.dtype)
+
+    # init_moe_params' draws, layer by layer: (name, shape, fan_in); the
+    # router is N(0, 1) * 0.02 in fp32, the experts fan-in normal.
+    draws = (("router", (D, E), None), ("w_gate", (E, D, F), D),
+             ("w_up", (E, D, F), D), ("w_down", (E, F, D), F))
+    moe = {}
+    for i in range(L):
+        for name, shape, fan_in in draws:
+            spec = lay["moe"][name]
+            dtype = torch.float32 if fan_in is None else cfg.dtype
+            if all(e is None for e in spec) and dtype == torch.float32:
+                # A whole fp32 leaf is drawn straight into its layer's
+                # slot: the same normal_ on the same generator, the same
+                # division, no transient copy.
+                if name not in moe:
+                    moe[name] = torch.empty((L,) + shape, device="cuda")
+                out = torch.randn(shape, generator=gen, device="cuda",
+                                  out=moe[name][i])
+                out.mul_(0.02) if fan_in is None else \
+                    out.div_(math.sqrt(fan_in))
+                continue
+            x = (torch.randn(shape, generator=gen, device="cuda") * 0.02
+                 if fan_in is None else normal(shape, fan_in))
+            part = cut(x[None], spec)
+            del x
+            if name not in moe:
+                moe[name] = torch.empty((L,) + part.shape[1:],
+                                        dtype=part.dtype, device="cuda")
+            moe[name][i] = part[0]
+            del part
+    ones = lambda *shape: torch.ones(shape, device="cuda")  # noqa: E731
+    tree = {"embed": cut(normal((cfg.vocab_size, D), 1.0), rules["embed"])}
+    tree["layers"] = {
+        "attn_norm": ones(L, D),
+        "wq": cut(normal((L, D, H * Dh), D), lay["wq"]),
+        "wk": cut(normal((L, D, Hkv * Dh), D), lay["wk"]),
+        "wv": cut(normal((L, D, Hkv * Dh), D), lay["wv"]),
+        "wo": cut(normal((L, H * Dh, D), H * Dh), lay["wo"]),
+        "mlp_norm": ones(L, D), "moe": moe}
+    tree["final_norm"] = ones(D)
+    tree["lm_head"] = cut(normal((D, cfg.vocab_size), D), rules["lm_head"])
+    return tree
+
+
+def _count_collectives():
+    """Wrap torch.distributed's all_reduce, all_gather and broadcast
+    with call counters (the mesh layer looks them up at each call)."""
+    import torch.distributed as dist
+    counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    for name in counts:
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def mesh_job(job, counts):
+    """One mesh serving run on this rank: the model built from the seed
+    and cut to this rank's shard, then the requests served with the
+    launch and collective counts reset just before and read just after."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (init_params,
+                                                moe_model_shardings,
+                                                param_shardings,
+                                                smol_135m_config)
+    from nbdistributed_tpu_torch.parallel import apply_shardings, make_mesh
+
+    mesh = make_mesh(job["mesh"])
+    if job["model"] == "smol":
+        cfg = smol_135m_config(dtype=torch.float32)
+        params = init_params(cfg, 0)
+        if "tp" in mesh.shape:
+            params = apply_shardings(params, mesh, param_shardings(cfg))
+    else:
+        cfg = mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS,
+                          moe_dispatch=job["dispatch"])
+        rules = moe_model_shardings(
+            cfg, ep_axis="ep" if "ep" in mesh.shape else None,
+            tp_axis="tp" if "tp" in mesh.shape else None)
+        params = seeded_moe_shard(cfg, 0, mesh, rules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for k in counts:
+        counts[k] = 0
+    outs, steps, wall, step_s, run = serve(params, cfg, job["prompts"],
+                                           max_len=MESH_MAX_LEN, mesh=mesh)
+    k4, k1 = k4_launches(), launch_counts()["k1"]
+    del run                     # the server: its pool and the tree
+    n_coll = dict(counts)
+    step_s = sorted(step_s)
+    row = dict(outputs=outs, steps=steps, k4=k4, k1=k1, wall_s=wall,
+               ms_per_step_median=1e3 * step_s[len(step_s) // 2],
+               collectives=n_coll,
+               collectives_per_step=sum(n_coll.values()) / max(steps, 1),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               weight_gb=weight_bytes(params) / 1e9)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_rank(rank, port, jobs, q, backend):
+    """A rank of the mesh phase (spawned): joins the 4-rank group — gloo,
+    every rank on ``cuda:0``; or NCCL, rank r on ``cuda:r`` — loads the
+    kernels the parent built, runs ``jobs`` in order and puts ``(rank,
+    {job: row})`` (or the error) on ``q``."""
+    import datetime
+    import os
+    import traceback
+    try:
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import torch
+        import torch.distributed as dist
+        dev = rank if backend == "nccl" else 0
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{port}",
+            world_size=MESH_WORLD, rank=rank,
+            timeout=datetime.timedelta(seconds=MESH_READY_S),
+            **({"device_id": torch.device("cuda", dev)}
+               if backend == "nccl" else {}))
+        from nbdistributed_tpu_torch.ops import _build
+        out = {"rebuilt": sorted(_build.build_all())}
+        counts = _count_collectives()
+        for job in jobs:
+            out[job["name"]] = mesh_job(job, counts)
+        dist.barrier()
+        q.put((rank, out))
+        dist.destroy_process_group()
+    except BaseException:
+        err = traceback.format_exc()
+        try:                     # what held the card's memory, if CUDA ran
+            import gc
+            import torch
+            live = sorted(((t.numel() * t.element_size(), tuple(t.shape))
+                           for t in gc.get_objects()
+                           if torch.is_tensor(t) and t.is_cuda),
+                          reverse=True)[:12]
+            err += (f"\nallocated {torch.cuda.memory_allocated() / 2**30:.2f}"
+                    f" GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                    f" GiB; largest live tensors {live}")
+        except Exception:
+            pass
+        q.put((rank, {"error": err}))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_ranks(jobs, backend):
+    """Spawn the 4 ranks, run ``jobs`` on them, stop them all; returns
+    {rank: {job: row}} (a rank's error raises)."""
+    import multiprocessing as mp
+    import queue
+
+    import os
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, jobs, q, backend),
+                         daemon=True) for r in range(MESH_WORLD)]
+    out = {}
+    # The ranks' allocators grow segments in place: a job's freed blocks
+    # must not strand the next, larger job's memory on a shared card.
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for p in procs:
+            p.start()
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+        deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S
+        while len(out) < MESH_WORLD:
+            try:
+                rank, res = q.get(timeout=5.0)
+            except queue.Empty:
+                # A rank that died without a result (it could not even
+                # start) fails the phase now, not at the deadline.
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if r not in out and p.exitcode is not None}
+                check(not dead, f"mesh ranks exited without a result: "
+                      f"{dead}")
+                check(time.monotonic() < deadline, "mesh ranks "
+                      f"{sorted(set(range(MESH_WORLD)) - set(out))} did "
+                      f"not finish in time")
+                continue
+            check("error" not in res, f"mesh rank {rank} failed:\n"
+                  f"{res.get('error')}")
+            out[rank] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    return out
+
+
+def near_tie_or_equal(name, make_params, cfg, prompts, got, want):
+    """``got == want``, or the near-tie rule with the reference's
+    parameters built (by ``make_params``) only when a stream differs."""
+    if got == want:
+        say(name, requests=len(got), divergences_at_near_ties=0,
+            near_tie=NEAR_TIE)
+        return []
+    return near_tie_check(name, make_params(), cfg, prompts, got, want)
+
+
+def phase_mesh(smol_prompts, smol_solo, moe_solo, backend="gloo"):
+    """Phase 18: four ranks (gloo on the one card; NCCL on four cards
+    with ``--mesh-nccl``) serve, in fp32, SmolLM2-135M (30 layers) on
+    dp x sp and Mixtral (2 layers, full width, capacity factor 4) on
+    tp x sp and on ep (dense and dropless dispatch), each held to solo
+    ``generate`` under the near-tie rule; every rank's tokens equal and
+    its K4 launches layers x decode steps."""
+    import torch
+    from nbdistributed_tpu_torch.models import init_moe_model, init_params
+
+    ts = time.perf_counter()
+    torch.cuda.empty_cache()     # the ranks need what this process cached
+    moe_prompts = make_requests(mixtral_cfg())[:8]
+    # Largest first: every rank of tp x sp holds all 8 experts (11.3 GB).
+    jobs = [dict(name="mesh_mixtral_tp2_sp2", model="mixtral",
+                 mesh={"tp": 2, "sp": 2}, dispatch="dense",
+                 prompts=moe_prompts),
+            dict(name="mesh_mixtral_ep4_dense", model="mixtral",
+                 mesh={"ep": 4}, dispatch="dense", prompts=moe_prompts),
+            dict(name="mesh_mixtral_ep4_dropless", model="mixtral",
+                 mesh={"ep": 4}, dispatch="dropless", prompts=moe_prompts),
+            dict(name="mesh_smol_dp2_sp2", model="smol",
+                 mesh={"dp": 2, "sp": 2}, prompts=smol_prompts)]
+    ranks = run_mesh_ranks(jobs, backend)
+    check(all(r["rebuilt"] == [] for r in ranks.values()),
+          f"a mesh rank rebuilt kernels: {[r['rebuilt'] for r in ranks.values()]}")
+    smol = smol_135m_config_fp32()
+    mix = mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS)
+    rows = {}
+    for job in jobs:
+        name = job["name"]
+        per = [ranks[r][name] for r in range(MESH_WORLD)]
+        first = per[0]
+        L = smol.n_layers if job["model"] == "smol" else mix.n_layers
+        check(all(p["outputs"] == first["outputs"] for p in per),
+              f"{name}: the ranks' tokens differ")
+        check(all(p["steps"] == first["steps"] and p["steps"] > 0
+                  and p["k4"] == L * p["steps"] for p in per),
+              f"{name}: K4 launches {[p['k4'] for p in per]} over "
+              f"{[p['steps'] for p in per]} steps, want {L} per step")
+        if job["model"] == "smol":
+            near_tie_or_equal(f"{name}_vs_solo",
+                              lambda: init_params(smol, 0), smol,
+                              job["prompts"], first["outputs"], smol_solo)
+        else:
+            near_tie_or_equal(f"{name}_vs_solo",
+                              lambda: init_moe_model(mix, 0), mix,
+                              job["prompts"], first["outputs"], moe_solo)
+        rows[name] = dict(
+            mesh=job["mesh"], layers=L, requests=len(first["outputs"]),
+            decode_steps=first["steps"], k4_launches_rank0=first["k4"],
+            k4_launches_per_rank=[p["k4"] for p in per],
+            want_k4=L * first["steps"], k1_launches_rank0=first["k1"],
+            ms_per_step_median_rank0=first["ms_per_step_median"],
+            ms_per_step_median_per_rank=[p["ms_per_step_median"]
+                                         for p in per],
+            wall_s_rank0=first["wall_s"],
+            collectives_rank0=first["collectives"],
+            collectives_per_step_rank0=first["collectives_per_step"],
+            peak_gb_per_rank=[p["peak_gb"] for p in per],
+            weight_gb_per_rank=[p["weight_gb"] for p in per],
+            backend=backend, note=MESH_NOTE[backend])
+        say(name, **rows[name])
+    rows["seconds"] = time.perf_counter() - ts
+    say("mesh_seconds", seconds=rows["seconds"])
+    return rows
+
+
+def smol_135m_config_fp32():
+    import torch
+    from nbdistributed_tpu_torch.models import smol_135m_config
+    return smol_135m_config(dtype=torch.float32)
+
+
 def hf_layout(params, cfg):
     """The port's parameters as a ``transformers`` state dict (Llama or
     Mixtral naming; torch ``nn.Linear`` weights are (out, in), so every
@@ -2131,6 +2529,10 @@ def phase_timing():
                                             torch.bfloat16, seed=4))
     rows["K4_mixtral"] = time_k4(serving_pos(8), 1024, Hkv=8, group=4,
                                  D=128)
+    # K4 at the mesh phase's sp shard shape: a SmolLM2 dp x sp rank's 4
+    # rows against its T/2 = 128-token slice, positions as the sp index
+    # 0 rank sees them (its slice holds the first 128 of each row's).
+    rows["K4_sp_shard"] = time_k4(serving_pos(4), MESH_MAX_LEN // 2, B=4)
     rows.update(time_train_shape())
     for name, row in rows.items():
         say("timing", kernel=name, **row)
@@ -2181,7 +2583,7 @@ def time_k4(pos, T, B=8, Hkv=3, group=3, D=64):
 
     ms, plain, lib = graph_ms(kern), graph_ms(plain_fn), graph_ms(lib_fn)
     ms_eager = cuda_ms(kern, 90)
-    n_valid = int(torch.clamp(pos.long() + 1, max=T).sum())
+    n_valid = int(torch.clamp(pos.long() + 1, min=0, max=T).sum())
     nbytes = 2 * (2 * n_valid * Hkv * D + 2 * B * Hkv * group * D) + 4 * B
     flops = 4 * n_valid * Hkv * group * D
     t_f, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
@@ -2312,6 +2714,40 @@ def gpu_name_and_power():
     return out.stdout.strip().splitlines()[0]
 
 
+def main_mesh_nccl() -> int:
+    """``--mesh-nccl``: phase 18 alone on four cards, one NCCL rank each,
+    against the solo references it computes first on card 0."""
+    import torch
+    from nbdistributed_tpu_torch.models import init_moe_model, init_params
+    from nbdistributed_tpu_torch.ops import _build
+
+    check(torch.cuda.device_count() >= MESH_WORLD,
+          f"--mesh-nccl needs {MESH_WORLD} GPUs, found "
+          f"{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60,
+                           check=True).stdout.strip().splitlines()
+    say("cards", cards=cards)
+    smol = smol_135m_config_fp32()
+    prompts = make_requests(smol)
+    solo = solo_outputs(init_params(smol, 0), smol, prompts)
+    mix = mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS)
+    msolo = solo_outputs(init_moe_model(mix, 0), mix,
+                         make_requests(mix)[:8])
+    mesh = phase_mesh(prompts, solo, msolo, backend="nccl")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
+        {"cards": cards, "mesh": mesh}, indent=1))
+    print(cards[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2319,6 +2755,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:] == ["--mesh-nccl"]:
+        return main_mesh_nccl()
     from nbdistributed_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2350,6 +2788,8 @@ def main() -> int:
     lora_losses = phase_lora()
     torch.cuda.empty_cache()
     moe = phase_moe()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(prompts, solo32, moe["fp32"]["solo"])
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2378,7 +2818,9 @@ def main() -> int:
                 "serve_moe_paged": moe["serve"]["k4_paged"],
                 "serve_moe_speculative": moe["fp32"]["k4_speculative"],
                 "serve_moe_int8": moe["serve"]["k4_int8"]
-                + moe["fp32"]["k4_int8"]}
+                + moe["fp32"]["k4_int8"],
+                **{name: row["k4_launches_rank0"]
+                   for name, row in mesh.items() if name != "seconds"}}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "train": train["k1"],
@@ -2416,14 +2858,16 @@ def main() -> int:
                "nbdistributed_tpu/ops/decode.py:214", sum(k4_paths.values()),
                max(k4_err, timing["K4"]["max_abs_err"],
                    timing["K4_full_context"]["max_abs_err"],
-                   timing["K4_mixtral"]["max_abs_err"]),
+                   timing["K4_mixtral"]["max_abs_err"],
+                   timing["K4_sp_shard"]["max_abs_err"]),
                "K4", "split-T flash-decoding: (B*Hkv, nsplit) blocks, "
                "cp.async ring, warp-level dot products, lse combine kernel",
                ("decode_split_kernel", "decode_combine_kernel"),
                launches_by_path=k4_paths,
                full_context={k: timing["K4_full_context"][k]
                              for k in timed},
-               mixtral_shape={k: timing["K4_mixtral"][k] for k in timed}),
+               mixtral_shape={k: timing["K4_mixtral"][k] for k in timed},
+               sp_shard_shape={k: timing["K4_sp_shard"][k] for k in timed}),
     ]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
@@ -2433,7 +2877,7 @@ def main() -> int:
          "lora_losses": lora_losses, "ptxas": ptxas,
          "serving_beyond_dense": beyond,
          "serving_beyond_dense_seconds": seconds, "moe": moe,
-         "cluster": cluster, "hf": hf_row},
+         "cluster": cluster, "hf": hf_row, "mesh": mesh},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

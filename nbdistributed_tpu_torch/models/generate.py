@@ -13,6 +13,18 @@ scalar pointer and for per-row pointers alike.  Decode steps (S == 1)
 with ``cfg.use_flash`` call the flash-decode kernel; prefill goes
 through :func:`_cached_attention`, whose large products stay
 ``torch.einsum``.
+
+**On a mesh** (:mod:`..parallel.mesh`), every rank runs the same call
+on its own shard, as SPMD over processes: batch rows over ``dp``, heads
+and FFN columns over ``tp`` (Megatron: one ``psum`` after ``wo`` and one
+after ``w_down``; the column-split embedding and the vocab-split
+lm_head gathered over ``tp``), and the cache's token axis over ``sp``.
+A decode step runs the flash-decode kernel on each rank's (B/dp,
+Hkv/tp, T/sp) cache slice at positions shifted by the slice's offset,
+and the ``sp`` ranks merge by their lse (:func:`_flash_decode_on_mesh`);
+a prefill or a speculative verify attends each slice with
+:func:`_cached_attention` and merges the same way.  A rank writes only
+the cache positions of its slice.
 """
 
 from __future__ import annotations
@@ -23,30 +35,91 @@ import torch
 
 from ..ops import flash_decode_attention
 from ..ops._common import NEG_INF, resolve_device
+from ..parallel.mesh import P, local_slice, shard_batch, spec_split
+from ..parallel.tensor_parallel import int4_row_shard
 from .moe import MoEConfig, _moe_mlp_block
 from .quant import dequantize_weight, quantize_weight
 from .transformer import (TransformerConfig, _as_tokens, _mlp_block,
-                          _rms_norm, _rope, layer_params, qlinear)
+                          _rms_norm, _rope, is_quantized, is_quantized4,
+                          layer_params, qlinear)
 
 
 # ----------------------------------------------------------------------
 # cache
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
+                  mesh=None, rules: dict | None = None,
                   quantized: bool = False, device=None) -> dict:
     """Zeroed (L, B, Hkv, max_len, Dh) K and V buffers on ``device``
     (None = the GPU); int8 with per-(token, kv-head) fp32 scales
-    ``k_s``/``v_s`` (L, B, Hkv, max_len, 1) when ``quantized``."""
+    ``k_s``/``v_s`` (L, B, Hkv, max_len, 1) when ``quantized``.
+
+    With ``mesh``, ``batch`` and ``max_len`` are the whole cache's and
+    this rank allocates its own shard at its local shape (never a view
+    of a whole buffer: the decode kernel takes contiguous caches), laid
+    out by ``rules`` (default: :func:`kv_cache_shardings` on the axes the
+    mesh has).  An extent the rules do not divide raises a ValueError
+    naming the axis."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    sshape = shape[:-1] + (1,)
+    shapes = {"k": shape, "v": shape}
     if quantized:
-        sshape = shape[:-1] + (1,)
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "k_s": torch.zeros(sshape, dtype=torch.float32, device=dev),
-                "v_s": torch.zeros(sshape, dtype=torch.float32, device=dev)}
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+        shapes.update(k_s=sshape, v_s=sshape)
+    if mesh is not None:
+        if rules is None:
+            rules = kv_cache_shardings(
+                dp_axis="dp" if "dp" in mesh.shape else None,
+                tp_axis="tp" if "tp" in mesh.shape else None,
+                sp_axis="sp" if "sp" in mesh.shape else None,
+                quantized=quantized)
+        missing = set(shapes) - set(rules)
+        if missing:
+            hint = (" — a quantized cache needs scale specs too (see "
+                    "kv_cache_shardings(quantized=True))"
+                    if missing & {"k_s", "v_s"} else "")
+            raise ValueError(f"cache sharding rules missing specs for "
+                             f"{sorted(missing)}{hint}")
+        shapes = {name: _local_shape(shp, rules[name], mesh, "kv cache")
+                  for name, shp in shapes.items()}
+    dtype = torch.int8 if quantized else cfg.dtype
+    return {name: torch.zeros(shp, device=dev,
+                              dtype=torch.float32 if name.endswith("_s")
+                              else dtype)
+            for name, shp in shapes.items()}
+
+
+_CACHE_DIMS = ("layer", "batch", "kv-head", "token", "head-dim")
+
+
+def _local_shape(shape, spec, mesh, what: str) -> tuple:
+    """``shape`` divided by the shard counts of ``spec``'s entries on
+    ``mesh``; an indivisible extent raises naming its axis."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n, _ = spec_split(mesh, entry)
+        if out[d] % n:
+            raise ValueError(f"{what}: {_CACHE_DIMS[d]} extent {out[d]} "
+                             f"does not divide over the {entry} axis of "
+                             f"size {n}")
+        out[d] //= n
+    return tuple(out)
+
+
+def kv_cache_shardings(dp_axis: str | None = "dp",
+                       tp_axis: str | None = "tp",
+                       sp_axis: str | None = None,
+                       quantized: bool = False) -> dict:
+    """The cache's specs (``generate.py:92``): batch over ``dp_axis``, KV
+    heads over ``tp_axis``, and the token axis over ``sp_axis``
+    (sequence-parallel decode: each shard holds T/n tokens and the
+    shards merge by log-sum-exp).  The int8 scales share the layout."""
+    spec = P(None, dp_axis, tp_axis, sp_axis, None)
+    rules = {"k": spec, "v": spec}
+    if quantized:
+        rules["k_s"] = spec
+        rules["v_s"] = spec
+    return rules
 
 
 def _quantize_kv(x):
@@ -59,31 +132,53 @@ def _dequantize_kv(q8, s):
     return dequantize_weight({"q8": q8, "s": s})
 
 
-def _write_kv(buf, new, start) -> None:
+def _write_kv(buf, new, start, offset: int = 0, total: int | None = None
+              ) -> None:
     """Write ``new`` (B, Hkv, S, X) into ``buf`` (B, Hkv, T, X) at token
     offset ``start`` — an int, a 0-d tensor, or a (B,) tensor of per-row
     offsets — as ``dynamic_update_slice`` places it: a negative start
-    counts once from the end, then the start is clamped to [0, T - S]."""
-    T, S = buf.shape[2], new.shape[2]
+    counts once from the end, then the start is clamped to [0, T - S].
+
+    On a sequence-parallel mesh ``buf`` is the slice of a ``total``-token
+    cache that starts at token ``offset``: the clamp is the whole
+    cache's, and only the positions inside the slice are written."""
+    T_loc, S = buf.shape[2], new.shape[2]
+    T = T_loc if total is None else total
     if S > T:
         raise ValueError(f"cannot write {S} tokens into a cache of {T}")
     if not torch.is_tensor(start) or start.ndim == 0:
         s0 = int(start)
         s0 = min(max(s0 + T if s0 < 0 else s0, 0), T - S)
-        buf[:, :, s0:s0 + S] = new
+        lo, hi = max(s0, offset), min(s0 + S, offset + T_loc)
+        if lo < hi:
+            buf[:, :, lo - offset:hi - offset] = new[:, :, lo - s0:hi - s0]
         return
     first = start.to(torch.long)
     first = torch.clamp(torch.where(first < 0, first + T, first), 0, T - S)
-    idx = first[:, None] + torch.arange(S, device=buf.device)   # (B, S)
-    idx = idx[:, None, :, None].expand(-1, buf.shape[1], -1, buf.shape[3])
-    buf.scatter_(2, idx, new)
+    loc = first[:, None] + torch.arange(S, device=buf.device) - offset
+    expand = (-1, buf.shape[1], -1, buf.shape[3])
+    if T_loc == T:
+        buf.scatter_(2, loc[:, None, :, None].expand(*expand), new)
+        return
+    # A row's S consecutive positions are S distinct slots mod T_loc
+    # (S <= T_loc): the positions outside the slice rewrite the value
+    # their slot holds, so no two writes of a row meet.
+    if S > T_loc:
+        raise ValueError(f"a per-row write of {S} tokens spans more than "
+                         f"one sequence-parallel slice of {T_loc}")
+    keep = ((loc >= 0) & (loc < T_loc))[:, None, :, None]
+    idx = torch.remainder(loc, T_loc)[:, None, :, None].expand(*expand)
+    buf.scatter_(2, idx, torch.where(keep, new, buf.gather(2, idx)))
 
 
-def _cached_attention(q, kc, vc, positions, scale, window=None):
+def _cached_attention(q, kc, vc, positions, scale, window=None,
+                      return_lse: bool = False):
     """GQA attention of S new queries against the whole cache
     (``generate.py:131``).  q: (B, S, H, Dh); kc/vc: (B, Hkv, T, Dh);
     positions: (B, S).  Keys ``t <= position`` (and inside the window)
-    attend.  Returns (B, S, H*Dh) in q's dtype."""
+    attend.  Returns (B, S, H*Dh) in q's dtype; with ``return_lse``,
+    (o (B, S, H, Dh) fp32, lse (B, S, H) fp32) — a query that attends no
+    key gets o = 0 and lse = NEG_INF, as the decode kernel gives."""
     B, S, H, Dh = q.shape
     Hkv, T = kc.shape[1], kc.shape[2]
     group = H // Hkv
@@ -96,23 +191,144 @@ def _cached_attention(q, kc, vc, positions, scale, window=None):
     s = s.masked_fill(~mask[:, None, None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bskgd", p, vc.float())
-    return o.reshape(B, S, H * Dh).to(q.dtype)
+    if not return_lse:
+        return o.reshape(B, S, H * Dh).to(q.dtype)
+    seen = mask.any(dim=-1)                                     # (B, S)
+    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(B, S, H)
+    lse = torch.where(seen[..., None], lse, NEG_INF)
+    o = torch.where(seen[..., None, None, None], o, 0.0)
+    return o.reshape(B, S, H, Dh), lse
 
 
-def _make_mlp_fn(cfg: TransformerConfig, token_mask=None):
+def _sp_combine(o, lse, mesh, dtype):
+    """Merge the ``sp`` ranks' partial attentions by their lse: ``o =
+    Σ exp(lse_i − m)·o_i / Σ exp(lse_i − m)``, ``m = max_i lse_i`` — one
+    ``pmax`` and ONE ``psum`` of ``[o·w, w]`` in fp32 (``generate.py:
+    199-214``).  A rank whose slice held no key (lse = NEG_INF) weighs 0."""
+    lse = lse[..., None]
+    m = mesh.pmax(lse, "sp")
+    w = torch.exp(lse - m)
+    both = mesh.psum(torch.cat([o.float() * w, w], dim=-1), "sp")
+    num, den = both[..., :-1], both[..., -1:]
+    return (num / torch.clamp(den, min=1e-30)).to(dtype)
+
+
+def _flash_decode_on_mesh(q, kc, vc, pos, mesh, scale, window=None,
+                          k_s=None, v_s=None):
+    """The flash-decode kernel on this rank's shard (``generate.py:158``):
+    q (B/dp, H/tp, Dh) against the (B/dp, Hkv/tp, T/sp, Dh) cache slice.
+    The GQA grouping survives the head split: q-head block
+    [t·H/tp, (t+1)·H/tp) maps onto kv-head block [t·Hkv/tp, ...).
+    Under ``sp`` the kernel runs at ``pos − i·T/sp`` (negative, or past
+    the slice, where the slice holds none or all of a row's keys; the
+    window's bound is offset-invariant) with its lse, and the slices
+    merge by :func:`_sp_combine`.  pos: (B/dp,) global positions."""
+    if mesh.size("sp") == 1:
+        return flash_decode_attention(q, kc, vc, pos, scale=scale,
+                                      window=window, k_s=k_s, v_s=v_s)
+    pos_loc = pos - mesh.index("sp") * kc.shape[2]
+    o, lse = flash_decode_attention(q, kc, vc, pos_loc, scale=scale,
+                                    window=window, k_s=k_s, v_s=v_s,
+                                    return_lse=True)
+    return _sp_combine(o, lse, mesh, q.dtype)
+
+
+def _dp_rows(x, mesh):
+    """This rank's rows of a batch every rank holds whole."""
+    return shard_batch(x, mesh) if "dp" in mesh.shape else x
+
+
+def _can_flash_decode_on_mesh(mesh, B, H, Hkv, T=None) -> bool:
+    """Whether each shard holds whole head groups, whole batch rows and
+    (under ``sp``) equal token slices (``generate.py:221``)."""
+    tp_n, dp_n, sp_n = mesh.size("tp"), mesh.size("dp"), mesh.size("sp")
+    return (H % tp_n == 0 and Hkv % tp_n == 0 and B % dp_n == 0
+            and (T is None or T % sp_n == 0))
+
+
+def _check_mesh_decode(mesh, B, H, Hkv, T=None) -> None:
+    """Raise where :func:`_can_flash_decode_on_mesh` is false, naming
+    the axis and the sizes: the JAX package falls back to a replicated
+    einsum there, which an SPMD rank holding only its shard cannot run
+    (ROADMAP C2)."""
+    if _can_flash_decode_on_mesh(mesh, B, H, Hkv, T):
+        return
+    for axis, what, n in (("tp", "n_heads", H), ("tp", "n_kv_heads", Hkv),
+                          ("dp", "batch", B), ("sp", "max_len", T)):
+        if n is not None and n % mesh.size(axis):
+            raise ValueError(f"{what} {n} does not divide over the "
+                             f"{axis} axis of size {mesh.size(axis)}: each "
+                             f"rank must hold whole shards of it")
+
+
+# The tensor-parallel split of each layer weight: output columns or
+# contraction rows, and the full extent that tells a whole leaf from a
+# shard (the layout read from the leaf's shape, as GSPMD reads it).
+def _tp_extents(cfg):
+    H, Hkv, Dh, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    return {"wq": ("cols", H * Dh), "wk": ("cols", Hkv * Dh),
+            "wv": ("cols", Hkv * Dh), "w_gate": ("cols", F),
+            "w_up": ("cols", F), "wo": ("rows", H * Dh),
+            "w_down": ("rows", F)}
+
+
+def _weight_dims(w) -> tuple[int, int]:
+    """(d_in, d_out) of a plain, int8 or int4 weight."""
+    if is_quantized(w):
+        return w["q8"].shape[-2], w["q8"].shape[-1]
+    if is_quantized4(w):
+        return 2 * w["q4"].shape[-2], w["q4"].shape[-1]
+    return w.shape[-2], w.shape[-1]
+
+
+def _tp_shard(w, how: str, n: int, idx: int):
+    """Shard ``idx`` of ``n`` of a whole weight: output columns (the
+    scales with them) or contraction rows (an int8 leaf's per-column
+    scales stay whole; an int4 leaf's groups are re-cut)."""
+    if how == "cols":
+        if isinstance(w, dict):
+            return {k: local_slice(v, -1, n, idx) for k, v in w.items()}
+        return local_slice(w, -1, n, idx)
+    if is_quantized(w):
+        return {"q8": local_slice(w["q8"], -2, n, idx), "s": w["s"]}
+    if is_quantized4(w):
+        return int4_row_shard(w, n, idx)
+    return local_slice(w, -2, n, idx)
+
+
+def _tp_local_layer(layer: dict, cfg, mesh) -> dict:
+    """This rank's tp shard of a layer's weights: a leaf already split by
+    :func:`.transformer.param_shardings` passes, a whole one is cut."""
+    n, idx = mesh.size("tp"), mesh.index("tp")
+    out = dict(layer)
+    for name, (how, full) in _tp_extents(cfg).items():
+        if name in layer:
+            d_in, d_out = _weight_dims(layer[name])
+            if (d_out if how == "cols" else d_in) == full:
+                out[name] = _tp_shard(layer[name], how, n, idx)
+    return out
+
+
+def _make_mlp_fn(cfg: TransformerConfig, token_mask=None, mesh=None,
+                 ep_axis: str = "ep"):
     """The per-layer feed-forward branch (``generate.py:231``): the
-    dense SwiGLU, or the MoE block for a :class:`.moe.MoEConfig`, with
-    ``token_mask`` reaching its expert dispatch."""
+    dense SwiGLU (its row-split ``w_down`` summed over ``tp``), or the
+    MoE block for a :class:`.moe.MoEConfig`, with ``token_mask``
+    reaching its expert dispatch."""
     if isinstance(cfg, MoEConfig):
-        return lambda x, layer: _moe_mlp_block(x, layer, cfg,
+        return lambda x, layer: _moe_mlp_block(x, layer, cfg, mesh, ep_axis,
                                                token_mask=token_mask)[0]
+    if mesh is not None and mesh.size("tp") > 1:
+        return lambda x, layer: _mlp_block(
+            x, layer, cfg, reduce=lambda y: mesh.psum(y, "tp"))
     return lambda x, layer: _mlp_block(x, layer, cfg)
 
 
 @torch.no_grad()
 def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
                        cfg: TransformerConfig, *, last_only: bool = False,
-                       last_index=None, row_mask=None, token_mask=None):
+                       last_index=None, mesh=None, ep_axis: str = "ep",
+                       row_mask=None, token_mask=None):
     """Run ``tokens`` (B, S) through the model, writing K/V into
     ``cache`` at offset ``cache_len`` (an int or a per-row (B,)
     tensor) and attending everything up to each position.
@@ -127,11 +343,18 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     dispatch, where they would take capacity slots and could evict
     real tokens.  ``row_mask`` (B,) masks whole rows (inactive server
     slots, finished speculative streams); passing both ANDs them.  The
-    dense SwiGLU is per-token, so the masks reach only the MoE layer."""
+    dense SwiGLU is per-token, so the masks reach only the MoE layer.
+
+    ``mesh``: SPMD over the mesh's ranks (module docstring).  ``tokens``,
+    ``cache_len``, the masks and the logits are this rank's rows over
+    ``dp`` (``parallel.mesh.shard_batch``), the cache its
+    :func:`init_kv_cache` shard; the parameters are split by
+    :func:`.transformer.param_shardings` or whole (each rank then cuts
+    its shard per layer).  MoE experts split over ``ep_axis``."""
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
     if torch.is_tensor(cache_len) and cache_len.ndim == 1:
         offs = cache_len.to(device=device, dtype=torch.long)[:, None]
         start = offs[:, 0]
@@ -139,7 +362,11 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
         offs = int(cache_len)
         start = offs
     positions = offs + torch.arange(S, device=device).expand(B, S)
+    tp = mesh is not None and mesh.size("tp") > 1
+    sp = mesh is not None and mesh.size("sp") > 1
     x = params["embed"][tokens].to(cfg.dtype)
+    if tp and x.shape[-1] != cfg.d_model:        # column-split embedding
+        x = mesh.all_gather(x, "tp", dim=-1)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if token_mask is not None:
         token_mask = torch.as_tensor(token_mask, dtype=torch.bool,
@@ -147,45 +374,63 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     if row_mask is not None:
         rows = row_mask.to(device)[:, None].expand(B, S)
         token_mask = rows if token_mask is None else token_mask & rows
-    mlp = _make_mlp_fn(cfg, token_mask)
+    mlp = _make_mlp_fn(cfg, token_mask, mesh, ep_axis)
     quantized = "k_s" in cache
     window = cfg.sliding_window
     decode = S == 1 and cfg.use_flash
     if decode:   # the kernel's int32 positions, cast once for all layers
         pos32 = positions[:, 0].to(torch.int32).contiguous()
+    # Under sp this rank's cache slice holds tokens [off, off + T_loc).
+    T_loc = cache["k"].shape[3]
+    off = mesh.index("sp") * T_loc if sp else 0
+    T_all = T_loc * mesh.size("sp") if sp else None
+
+    def write(buf, new):
+        _write_kv(buf, new, start, off, T_all)
+
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
+        if tp:
+            layer = _tp_local_layer(layer, cfg, mesh)
         kc, vc = cache["k"][i], cache["v"][i]
         ks = cache["k_s"][i] if quantized else None
         vs = cache["v_s"][i] if quantized else None
         h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _rope(qlinear(h, layer["wq"]).reshape(B, S, H, Dh), positions,
+        q = _rope(qlinear(h, layer["wq"]).reshape(B, S, -1, Dh), positions,
                   cfg.rope_theta)
-        k = _rope(qlinear(h, layer["wk"]).reshape(B, S, Hkv, Dh),
+        k = _rope(qlinear(h, layer["wk"]).reshape(B, S, -1, Dh),
                   positions, cfg.rope_theta)
-        v = qlinear(h, layer["wv"]).reshape(B, S, Hkv, Dh)
+        v = qlinear(h, layer["wv"]).reshape(B, S, -1, Dh)
         kT, vT = k.transpose(1, 2), v.transpose(1, 2)   # heads-major
         if quantized:
             k8, k_sc = _quantize_kv(kT)
             v8, v_sc = _quantize_kv(vT)
-            _write_kv(kc, k8, start)
-            _write_kv(vc, v8, start)
-            _write_kv(ks, k_sc, start)
-            _write_kv(vs, v_sc, start)
+            write(kc, k8)
+            write(vc, v8)
+            write(ks, k_sc)
+            write(vs, v_sc)
         else:
-            _write_kv(kc, kT.to(kc.dtype), start)
-            _write_kv(vc, vT.to(vc.dtype), start)
-        if decode:
+            write(kc, kT.to(kc.dtype))
+            write(vc, vT.to(vc.dtype))
+        if decode and mesh is not None:
+            o = _flash_decode_on_mesh(q[:, 0].contiguous(), kc, vc, pos32,
+                                      mesh, scale, window, ks, vs)
+        elif decode:
             o = flash_decode_attention(
                 q[:, 0].contiguous(), kc, vc, pos32,
-                scale=scale, window=window, k_s=ks,
-                v_s=vs).reshape(B, 1, H * Dh)
+                scale=scale, window=window, k_s=ks, v_s=vs)
         else:
             if quantized:
                 kc, vc = _dequantize_kv(kc, ks), _dequantize_kv(vc, vs)
-            o = _cached_attention(q, kc, vc, positions, scale,
-                                  window=window)
-        x = x + qlinear(o, layer["wo"])
+            if sp:
+                o = _sp_combine(*_cached_attention(
+                    q, kc, vc, positions - off, scale, window=window,
+                    return_lse=True), mesh, q.dtype)
+            else:
+                o = _cached_attention(q, kc, vc, positions, scale,
+                                      window=window)
+        y = qlinear(o.reshape(B, S, -1), layer["wo"])
+        x = x + (mesh.psum(y, "tp") if tp else y)
         x = mlp(x, layer)
     if last_index is not None:
         idx = torch.as_tensor(last_index, dtype=torch.long, device=device)
@@ -193,7 +438,10 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     elif last_only:
         x = x[:, -1:]
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return qlinear(x, params["lm_head"]).float(), cache
+    logits = qlinear(x, params["lm_head"]).float()
+    if tp and logits.shape[-1] != cfg.vocab_size:   # vocab-split head
+        logits = mesh.all_gather(logits, "tp", dim=-1)
+    return logits, cache
 
 
 # ----------------------------------------------------------------------
@@ -241,10 +489,17 @@ def generate(params: dict, prompt, cfg: TransformerConfig,
              max_new_tokens: int, *, temperature: float = 0.0,
              top_k: int | None = None, top_p: float | None = None,
              generator: torch.Generator | None = None,
-             max_len: int | None = None, kv_quantized: bool = False):
+             max_len: int | None = None, mesh=None, ep_axis: str = "ep",
+             kv_quantized: bool = False):
     """Generate ``max_new_tokens`` continuations of ``prompt`` (B, S0)
     on the parameters' device; returns (B, S0 + max_new_tokens) long.
-    Greedy at ``temperature == 0``, else sampled from ``generator``."""
+    Greedy at ``temperature == 0``, else sampled from ``generator``.
+
+    With ``mesh``, every rank passes the whole prompt and gets the whole
+    result: each decodes its ``dp`` rows against its shard of the cache
+    (:func:`init_kv_cache` on the mesh; batch, heads and ``max_len``
+    must divide over ``dp``, ``tp`` and ``sp``), and the rows are
+    gathered over ``dp`` at the end."""
     device = params["embed"].device
     prompt = _as_tokens(prompt, device)
     if max_new_tokens < 0:
@@ -263,24 +518,30 @@ def generate(params: dict, prompt, cfg: TransformerConfig,
     if T < S0 + max_new_tokens:
         raise ValueError(f"max_len {T} < prompt {S0} + new "
                          f"{max_new_tokens}")
-    cache = init_kv_cache(cfg, B, T, quantized=kv_quantized,
+    if mesh is not None:
+        _check_mesh_decode(mesh, B, cfg.n_heads, cfg.n_kv_heads, T)
+        prompt = _dp_rows(prompt, mesh)
+    cache = init_kv_cache(cfg, B, T, mesh=mesh, quantized=kv_quantized,
                           device=device)
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
-                                       last_only=True)
+                                       last_only=True, mesh=mesh,
+                                       ep_axis=ep_axis)
     toks = [_sample(logits[:, -1], temperature, generator, top_k, top_p)]
     for i in range(max_new_tokens - 1):
         logits, cache = forward_with_cache(params, toks[-1][:, None],
-                                           cache, S0 + i, cfg)
+                                           cache, S0 + i, cfg, mesh=mesh,
+                                           ep_axis=ep_axis)
         toks.append(_sample(logits[:, -1], temperature, generator, top_k,
                             top_p))
-    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+    out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+    return out if mesh is None else mesh.all_gather(out, "dp")
 
 
 def make_generate_fn(cfg: TransformerConfig, max_new_tokens: int, *,
                      temperature: float = 0.0, top_k: int | None = None,
                      top_p: float | None = None,
-                     max_len: int | None = None,
-                     kv_quantized: bool = False):
+                     max_len: int | None = None, mesh=None,
+                     ep_axis: str = "ep", kv_quantized: bool = False):
     """A ``(params, prompt, generator=None) -> tokens`` closure over
     :func:`generate` (``generate.py:498``; the port has no jit, so it
     only binds the arguments)."""
@@ -288,20 +549,22 @@ def make_generate_fn(cfg: TransformerConfig, max_new_tokens: int, *,
     def fn(params, prompt, generator=None):
         return generate(params, prompt, cfg, max_new_tokens,
                         temperature=temperature, top_k=top_k, top_p=top_p,
-                        generator=generator, max_len=max_len,
-                        kv_quantized=kv_quantized)
+                        generator=generator, max_len=max_len, mesh=mesh,
+                        ep_axis=ep_axis, kv_quantized=kv_quantized)
 
     return fn
 
 
 @torch.no_grad()
 def prefill_chunked(params: dict, tokens, cache: dict,
-                    cfg: TransformerConfig, *, chunk: int):
+                    cfg: TransformerConfig, *, chunk: int, mesh=None,
+                    ep_axis: str = "ep"):
     """Prefill ``tokens`` (B, S), S divisible by ``chunk``, into
     ``cache`` one chunk at a time (``generate.py:516``): activation
     memory O(chunk) instead of O(S), and the cache fills as one
     whole-prompt prefill would (causal attention makes the two the same
-    computation).  Returns (last_logits (B, 1, V), cache)."""
+    computation).  Returns (last_logits (B, 1, V), cache).  ``mesh``:
+    as :func:`forward_with_cache` takes it (this rank's rows and shard)."""
     tokens = _as_tokens(tokens, params["embed"].device)
     B, S = tokens.shape
     if S == 0:
@@ -312,5 +575,5 @@ def prefill_chunked(params: dict, tokens, cache: dict,
     for i in range(S // chunk):
         logits, cache = forward_with_cache(
             params, tokens[:, i * chunk:(i + 1) * chunk], cache, i * chunk,
-            cfg, last_only=True)
+            cfg, last_only=True, mesh=mesh, ep_axis=ep_axis)
     return logits, cache

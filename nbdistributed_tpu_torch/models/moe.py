@@ -8,8 +8,9 @@ Per-layer tensors carry a leading (n_layers,) axis, the experts' a
 second (n_experts,) one: ``layers["moe"] = {"router" (L, D, E) fp32,
 "w_gate", "w_up" (L, E, D, F), "w_down" (L, E, F, D)}``.  The forward
 loops over layers and returns the load-balance aux loss averaged over
-them.  Sequence parallelism (ROADMAP A5) and expert meshes (A2) are
-not ported yet.
+them.  On a mesh (:mod:`..parallel.mesh`) the experts split over
+``ep`` (:func:`moe_model_shardings`) and the tokens over ``dp``; the
+training loss on a mesh is ROADMAP A8 and sequence parallelism A5.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from ..ops._common import resolve_device
 from ..ops.xent import shifted_chunked_xent
-from ..parallel.expert import init_moe_params, moe_ffn
+from ..parallel.expert import init_moe_params, moe_ffn, moe_param_shardings
+from ..parallel.mesh import P
 from ..utils import fan_in_normal
 from .transformer import (TransformerConfig, _as_tokens, _attention_block,
                           _rms_norm, is_quantized, is_quantized4,
@@ -98,33 +100,61 @@ def init_moe_model(cfg: MoEConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def moe_model_shardings(cfg: MoEConfig, ep_axis: str = "ep",
+                        tp_axis: str | None = "tp") -> dict:
+    """Rules of an :func:`init_moe_model` tree (``moe.py:99``): the
+    attention tensor-parallel over ``tp_axis`` as in the dense family,
+    the experts over ``ep_axis``."""
+    return {
+        "embed": P(None, tp_axis),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, tp_axis),
+            "wk": P(None, None, tp_axis),
+            "wv": P(None, None, tp_axis),
+            "wo": P(None, tp_axis, None),
+            "mlp_norm": P(None, None),
+            "moe": moe_param_shardings(ep_axis, None, leading=(None,)),
+        },
+        "final_norm": P(None),
+        "lm_head": P(None, tp_axis),
+    }
+
+
 def _moe_mlp_block(x, layer, cfg: MoEConfig, mesh=None, ep_axis: str = "ep",
-                   token_mask=None):
+                   token_mask=None, token_axes: tuple = ("dp",)):
     """The MoE feed-forward residual block, shared by the training
     forward and the cached generation path; returns (x, layer aux).
-    Masked tokens pass through the residual untouched."""
+    Masked tokens pass through the residual untouched.  On a mesh,
+    ``x``'s tokens are this rank's block over ``token_axes``."""
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(h, layer["moe"], top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor, mesh=mesh,
                      ep_axis=ep_axis, dispatch_mode=cfg.moe_dispatch,
-                     token_mask=token_mask)
+                     token_mask=token_mask, token_axes=token_axes)
     return x + y, aux
 
 
 def _check_parallel(mesh, sp) -> None:
     if sp is not None:
         raise NotImplementedError("sp: sequence parallelism needs the "
-                                  "port's process group (ROADMAP A5)")
-    if mesh is not None:
-        raise NotImplementedError("mesh: expert parallelism is not "
-                                  "ported yet (ROADMAP A2)")
+                                  "port's ring/Ulysses attention "
+                                  "(ROADMAP A5)")
+    if mesh is not None and any(mesh.size(a) > 1 for a in mesh.shape
+                                if a not in ("dp", "ep")):
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: the training forward runs on dp and ep "
+            f"axes; attention over tp or sp in training is ROADMAP A8")
 
 
 def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
                        ep_axis: str = "ep", positions=None, sp=None,
                        segment_ids=None):
     """tokens (B, S) -> (final-norm hidden (B, S, D) in ``cfg.dtype``,
-    aux fp32 scalar, the mean of the layers' load-balance losses)."""
+    aux fp32 scalar, the mean of the layers' load-balance losses).
+    ``mesh`` (dp and ep axes): ``tokens`` are this rank's rows over
+    ``dp`` (``parallel.mesh.shard_batch``), the experts split over
+    ``ep_axis``; the aux loss covers every rank's tokens."""
     _check_parallel(mesh, sp)
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
@@ -138,7 +168,7 @@ def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
         x = _attention_block(x, layer, cfg, positions, segment_ids)
-        x, layer_aux = _moe_mlp_block(x, layer, cfg)
+        x, layer_aux = _moe_mlp_block(x, layer, cfg, mesh, ep_axis)
         aux = aux + layer_aux
     return _rms_norm(x, params["final_norm"], cfg.norm_eps), \
         aux / cfg.n_layers
@@ -163,7 +193,11 @@ def moe_loss_fn(params, batch, cfg: MoEConfig, *, mesh=None,
     ``batch["segments"]`` packs documents: attention masked across them,
     RoPE restarting in each, boundary targets dropped.  With
     ``cfg.ce_chunk`` and a plain lm_head the chunked-vocab tail runs and
-    the (B, S, V) logits never exist."""
+    the (B, S, V) logits never exist.  ``mesh`` raises: training on a
+    mesh is ROADMAP A8."""
+    if mesh is not None:
+        raise NotImplementedError("mesh: the MoE loss on an ep mesh is "
+                                  "training on a mesh (ROADMAP A8)")
     _check_parallel(mesh, sp)
     device = params["embed"].device
     tokens = _as_tokens(batch["tokens"], device)

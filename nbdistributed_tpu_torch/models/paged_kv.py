@@ -36,15 +36,23 @@ import numpy as np
 import torch
 
 from ..serving_fast.paging import BlockAllocator, blocks_needed
-from .generate import init_kv_cache
+from .generate import init_kv_cache, kv_cache_shardings
 
 
-def make_paged_pool(cfg, n_blocks: int, block_tokens: int, *,
+def make_paged_pool(cfg, n_blocks: int, block_tokens: int, *, mesh=None,
                     quantized: bool = False, device=None) -> dict:
     """The physical block pool: ``init_kv_cache`` with the batch axis
-    repurposed as blocks (+1 trash block)."""
+    repurposed as blocks (+1 trash block).  With a mesh only the KV
+    heads split (over ``tp``): block ids are gather indices into the
+    whole block axis, so every rank holds every block of its heads."""
+    rules = None
+    if mesh is not None:
+        rules = kv_cache_shardings(
+            dp_axis=None, tp_axis="tp" if "tp" in mesh.shape else None,
+            sp_axis=None, quantized=quantized)
     return init_kv_cache(cfg, int(n_blocks) + 1, int(block_tokens),
-                         quantized=quantized, device=device)
+                         mesh=mesh, rules=rules, quantized=quantized,
+                         device=device)
 
 
 def _flat(c):

@@ -13,14 +13,17 @@
 The model's products dispatch on the leaf kind in
 :func:`.transformer.qlinear` (the MoE experts' in
 ``parallel/expert.py``), so one forward serves plain and quantized
-trees.  The mesh shardings of these trees wait for the process group
-(ROADMAP A5, then A2).
+trees.  :func:`quantized_shardings`, :func:`quantized_shardings4` and
+:func:`quantized_moe_shardings` map a tree's mesh rules onto its
+quantized leaves (``parallel/tensor_parallel.apply_shardings`` places
+them; an int4 leaf split on its rows gets its scales re-cut there).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import P
 from .lora import ATTN_TARGETS
 from .transformer import (_pack_nibbles, _unpack_nibbles, is_quantized,
                           is_quantized4)
@@ -87,6 +90,34 @@ def _map_targets(tree: dict, leaf_fn, targets,
     return out
 
 
+def _q_spec(spec: P) -> dict:
+    """Specs of an int8 leaf: ``q8`` keeps the weight's; ``s`` ((...,
+    1, d_out)) keeps the leading and output entries, its size-1
+    contraction entry whole (``quant.py:171``)."""
+    return {"q8": spec, "s": P(*spec[:-2], None, spec[-1])}
+
+
+def _q_spec4(spec: P) -> dict:
+    """Specs of an int4 leaf: the packed array keeps the weight's (the
+    packing halves the contraction extent, not its split); the grouped
+    scales ((..., G, 1, d_out)) keep the output entry and stay whole
+    over the contraction, which G need not divide (``quant.py:120``)."""
+    return {"q4": spec, "s": P(*spec[:-2], None, None, spec[-1])}
+
+
+def quantized_shardings(rules: dict, targets=DEFAULT_TARGETS,
+                        quantize_lm_head: bool = True) -> dict:
+    """A tree's rules mapped onto its :func:`quantize_params` form;
+    ``targets``/``quantize_lm_head`` must be the ones quantized."""
+    return _map_targets(rules, _q_spec, targets, quantize_lm_head)
+
+
+def quantized_shardings4(rules: dict, targets=DEFAULT_TARGETS,
+                         quantize_lm_head: bool = True) -> dict:
+    """The rules of a :func:`quantize_params4` tree."""
+    return _map_targets(rules, _q_spec4, targets, quantize_lm_head)
+
+
 def quantize_params(params: dict, targets=DEFAULT_TARGETS,
                     quantize_lm_head: bool = True) -> dict:
     """Params with the targeted per-layer weights (and optionally
@@ -113,6 +144,20 @@ def quantize_moe_params(params: dict, quantize_lm_head: bool = True) -> dict:
     for name in EXPERT_TARGETS:
         moe[name] = quantize_weight(moe[name])
     out["layers"]["moe"] = moe
+    return out
+
+
+def quantized_moe_shardings(rules: dict,
+                            quantize_lm_head: bool = True) -> dict:
+    """The rules of a :func:`quantize_moe_params` tree (``quant.py:200``):
+    the attention weights' and the experts' leaves mapped as
+    :func:`quantized_shardings` maps them."""
+    out = quantized_shardings(rules, targets=ATTN_TARGETS,
+                              quantize_lm_head=quantize_lm_head)
+    moe = dict(out["layers"]["moe"])
+    for name in EXPERT_TARGETS:
+        moe[name] = _q_spec(moe[name])
+    out["layers"] = {**out["layers"], "moe": moe}
     return out
 
 

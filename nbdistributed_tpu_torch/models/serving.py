@@ -1,6 +1,5 @@
 """Continuous-batching decode server over a fixed slot pool
-(counterpart of ``nbdistributed_tpu/models/serving.py:69``, dense
-family on one device).
+(counterpart of ``nbdistributed_tpu/models/serving.py:69``).
 
 The cache is one ``(L, max_batch, Hkv, max_len, Dh)`` pool; a request
 holds a batch slot for its lifetime.  Admission prefills the prompt,
@@ -36,9 +35,21 @@ and prefix caching, as in the JAX package: expert capacity is
 shape-derived, so admission runs at the exact prompt length
 (``pad_to`` is forced to 1), pads and inactive rows are masked out of
 expert dispatch, and a request served alone matches solo ``generate``;
-live MoE requests pool expert capacity across rows.  Meshes wait for
-the process group (ROADMAP A5, then A2) and raise
-``NotImplementedError``.
+live MoE requests pool expert capacity across rows.
+
+**On a mesh** (``mesh=``, :mod:`..parallel.mesh`) the server runs SPMD:
+every rank runs the same host scheduler on the same requests and keeps
+the same host state and the same (B,) pointers, and holds its shard of
+the pool — rows over ``dp``, KV heads over ``tp``, tokens over ``sp``
+(:func:`.generate.init_kv_cache`).  Slot ``s`` lives on the ranks whose
+``dp`` coordinate is ``s // (max_batch / dp)``: its prefill runs there
+(their ``tp``/``sp``/``ep`` collectives stay among them) and its first
+token reaches the other ``dp`` slices by one broadcast over ``dp``.
+Each decode step runs every rank's own rows and all-gathers the
+sampled tokens over ``dp``, so every host loop sees every row.  The
+paged pool and the prefix buffers split over ``tp`` only (as in the
+JAX package): their forwards run on every rank.  The target and the
+draft of a speculative server share the mesh.
 """
 
 from __future__ import annotations
@@ -46,8 +57,8 @@ from __future__ import annotations
 import torch
 
 from ..serving_fast.paging import BlocksExhausted
-from .generate import _check_sampling, _sample, forward_with_cache, \
-    init_kv_cache
+from .generate import (_check_mesh_decode, _check_sampling, _sample,
+                       forward_with_cache, init_kv_cache, kv_cache_shardings)
 from .moe import MoEConfig
 from .paged_kv import (PagedKVCache, gather_dense, gather_row,
                        make_paged_pool, scatter_row, scatter_step)
@@ -79,16 +90,13 @@ class DecodeServer:
                  temperature: float = 0.0, top_k: int | None = None,
                  top_p: float | None = None, eos_id: int | None = None,
                  kv_quantized: bool = False, pad_to: int = 64,
-                 seed: int = 0, mesh=None, draft_params=None,
+                 seed: int = 0, mesh=None, ep_axis: str = "ep",
+                 draft_params=None,
                  draft_cfg=None, gamma: int = 4,
                  prefill_chunk: int | None = None,
                  kv_block_tokens: int | None = None,
                  kv_blocks: int | None = None,
                  interleave_prefill: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: serving over a device mesh needs the port's "
-                "process group (ROADMAP A5, then A2)")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if pad_to < 1:
@@ -131,8 +139,22 @@ class DecodeServer:
                     "expert capacity is shape-derived, so per-chunk "
                     "capacity would differ from a solo run's and "
                     "change which tokens drop")
+        if mesh is not None:
+            # The dense pool splits rows, heads and tokens; the paged
+            # pool heads only.
+            whole = kv_block_tokens is not None
+            for c in (cfg,) + ((draft_cfg,) if draft_cfg else ()):
+                _check_mesh_decode(
+                    mesh.without("dp", "sp") if whole else mesh,
+                    max_batch, c.n_heads, c.n_kv_heads, max_len)
         self._params = params
         self._cfg = cfg
+        self._mesh = mesh
+        self._ep_axis = ep_axis
+        # A dp rank's slots: [dp_idx * B_loc, (dp_idx + 1) * B_loc).
+        split = mesh is not None and kv_block_tokens is None
+        self._B_loc = max_batch // mesh.size("dp") if split else max_batch
+        self._dp_idx = mesh.index("dp") if split else 0
         self._kv_quantized = kv_quantized
         self._B = max_batch
         self._T = max_len
@@ -157,12 +179,12 @@ class DecodeServer:
                                        block_tokens=kv_block_tokens,
                                        device=device)
             self._cache = make_paged_pool(cfg, kv_blocks, kv_block_tokens,
-                                          quantized=kv_quantized,
+                                          mesh=mesh, quantized=kv_quantized,
                                           device=device)
             self._prefill_fn = self._make_prefill_paged()
         else:
             self._paged = None
-            self._cache = init_kv_cache(cfg, max_batch, max_len,
+            self._cache = init_kv_cache(cfg, max_batch, max_len, mesh=mesh,
                                         quantized=kv_quantized,
                                         device=device)
             self._prefill_fn = self._make_prefill(cfg)
@@ -176,7 +198,7 @@ class DecodeServer:
         self._gamma = gamma
         if draft_cfg is not None:
             self._cache_d = init_kv_cache(draft_cfg, max_batch, max_len,
-                                          quantized=kv_quantized,
+                                          mesh=mesh, quantized=kv_quantized,
                                           device=device)
             self._lens_d = torch.zeros(max_batch, dtype=torch.long,
                                        device=device)
@@ -203,16 +225,39 @@ class DecodeServer:
 
     # ---- device work -----------------------------------------------------
 
-    def _make_prefill(self, cfg):
+    def _owner(self, slot: int) -> int:
+        """The dp coordinate of the ranks that hold ``slot``'s rows."""
+        return slot // self._B_loc
+
+    def _fwd(self, *drop: str) -> dict:
+        """forward_with_cache's mesh arguments, the mesh without the
+        axes ``drop`` (those the call's rows or cache are not split on)."""
+        if self._mesh is None:
+            return {}
+        return dict(mesh=self._mesh.without(*drop), ep_axis=self._ep_axis)
+
+    def _make_prefill(self, cfg, whole: bool = False):
+        """The prefill of one slot of the pool (``whole=False``) or of a
+        one-row buffer held whole on every rank (a prefix buffer)."""
+        fwd = self._fwd("dp", "sp") if whole else self._fwd("dp")
+        b_loc, dp_idx = self._B_loc, self._dp_idx   # no cycle via self
+
         def fn(params, cache, prompt, slot, start, length):
             """prompt (1, s_pad), right-padded: writes the slot's cache
             rows (in place, through a view of the pool) at offset
             ``start`` and returns (cache, logits (V,) at the segment's
-            last real token).  The pads stay out of expert dispatch."""
+            last real token).  The pads stay out of expert dispatch.  On
+            a mesh only the slot's dp ranks run it; the others return
+            (cache, None)."""
+            if not whole:
+                if slot // b_loc != dp_idx:
+                    return cache, None
+                slot -= dp_idx * b_loc
             row = {name: buf[:, slot:slot + 1] for name, buf in cache.items()}
             logits, _ = forward_with_cache(params, prompt, row, start, cfg,
                                            last_index=[length - 1],
-                                           token_mask=_real(prompt, length))
+                                           token_mask=_real(prompt, length),
+                                           **fwd)
             return cache, logits[0, 0]
 
         return fn
@@ -220,36 +265,53 @@ class DecodeServer:
     def _make_prefill_paged(self):
         """Paged prefill, shaped like the dense one so
         :meth:`_run_prefill` drives both: gather the slot's blocks into a
-        dense row, run the same forward, scatter the whole row back."""
-        cfg = self._cfg
+        dense row, run the same forward, scatter the whole row back.  On
+        a mesh every rank runs it on its heads' whole pool."""
+        cfg, fwd, paged = self._cfg, self._fwd("dp", "sp"), self._paged
 
         def fn(params, pool, prompt, slot, start, length):
-            ids = self._paged.device_row(slot)
+            ids = paged.device_row(slot)
             row = gather_row(pool, ids)
             logits, _ = forward_with_cache(params, prompt, row, start, cfg,
                                            last_index=[length - 1],
-                                           token_mask=_real(prompt, length))
+                                           token_mask=_real(prompt, length),
+                                           **fwd)
             scatter_row(pool, row, ids)
             return pool, logits[0, 0]
 
         return fn
+
+    def _rows(self):
+        """This rank's slots of the (B,) pointers: its dp rows."""
+        return slice(self._dp_idx * self._B_loc,
+                     (self._dp_idx + 1) * self._B_loc)
+
+    def _gather_rows(self, t):
+        """This rank's rows of a per-slot result, gathered over ``dp``."""
+        if self._mesh is None or self._paged is not None:
+            return t
+        return self._mesh.all_gather(t, "dp")
 
     def _decode_step(self):
         """One decode step of every slot; returns the (B,) next tokens
         on the device (inactive slots repeat their last token).  Paged:
         the slots' blocks are gathered into a dense view and the block
         holding each slot's written position goes back (inactive slots
-        to the trash block)."""
+        to the trash block).  On a mesh each rank decodes its dp rows
+        (paged: every row) and the tokens are gathered over ``dp``."""
         cache = self._cache
         if self._paged is not None:
             table = self._paged.device_table()
             cache = gather_dense(self._cache, table)
-        logits, _ = forward_with_cache(self._params, self._last[:, None],
-                                       cache, self._lens, self._cfg,
-                                       row_mask=self._active)
+            rows, fwd = slice(None), self._fwd("dp", "sp")
+        else:
+            rows, fwd = self._rows(), self._fwd()
+        logits, _ = forward_with_cache(self._params, self._last[rows, None],
+                                       cache, self._lens[rows], self._cfg,
+                                       row_mask=self._active[rows], **fwd)
         nxt = _sample(logits[:, -1], self._temperature, self._gen,
                       self._top_k, self._top_p)
-        nxt = torch.where(self._active, nxt, self._last)
+        nxt = torch.where(self._active, self._gather_rows(nxt), self._last)
         if self._paged is not None:
             scatter_step(self._cache, cache, table, self._lens, self._active,
                          self._paged.trash, self._paged.block_tokens)
@@ -353,16 +415,27 @@ class DecodeServer:
             raise ValueError(f"prefix ({len(toks)}) must leave room "
                              f"under max_len {self._T}")
 
-        def build(cfg, params, prefill_fn):
+        # On a mesh the buffer splits over tp only, like the paged pool:
+        # a one-row buffer cannot split over dp, and its length need not
+        # divide sp.  Every rank prefills it.
+        rules = None
+        if self._mesh is not None:
+            rules = kv_cache_shardings(
+                dp_axis=None,
+                tp_axis="tp" if "tp" in self._mesh.shape else None,
+                sp_axis=None, quantized=self._kv_quantized)
+
+        def build(cfg, params):
             # Room for the PADDED writes (bucket or whole chunks), so no
             # write is clamped onto earlier rows.
             ck = self._prefill_chunk
             t_buf = self._bucket(len(toks))
             if ck is not None and len(toks) > ck:
                 t_buf = max(t_buf, -(-len(toks) // ck) * ck)
-            buf = init_kv_cache(cfg, 1, min(t_buf, self._T),
-                                quantized=self._kv_quantized,
+            buf = init_kv_cache(cfg, 1, min(t_buf, self._T), mesh=self._mesh,
+                                rules=rules, quantized=self._kv_quantized,
                                 device=self._device)
+            prefill_fn = self._make_prefill(cfg, whole=True)
             buf, last_logits = self._run_prefill(prefill_fn, params, buf,
                                                  toks, 0)
             # Only the real rows: the copy into a slot must not carry
@@ -370,10 +443,8 @@ class DecodeServer:
             return ({name: c[:, :, :, :len(toks)].clone()
                      for name, c in buf.items()}, last_logits)
 
-        buf_t, last_logits = build(self._cfg, self._params,
-                                   self._prefill_fn)
-        buf_d = (build(self._draft_cfg, self._draft_params,
-                       self._prefill_d)[0]
+        buf_t, last_logits = build(self._cfg, self._params)
+        buf_d = (build(self._draft_cfg, self._draft_params)[0]
                  if self._draft_cfg is not None else None)
         pid = self._next_pid
         self._next_pid += 1
@@ -397,11 +468,19 @@ class DecodeServer:
                     best = pid
         return best
 
-    @staticmethod
-    def _absorb(cache: dict, pfx: dict, slot: int) -> None:
-        """Copy a prefix's K/V rows into ``slot``'s first rows."""
+    def _absorb(self, cache: dict, pfx: dict, slot: int) -> None:
+        """Copy a prefix's K/V rows into ``slot``'s first rows (on a
+        mesh: on the slot's dp ranks, the positions of their sp slice)."""
+        if self._owner(slot) != self._dp_idx:
+            return
+        slot -= self._dp_idx * self._B_loc
         for name, c in cache.items():
-            c[:, slot:slot + 1, :, :pfx[name].shape[3]] = pfx[name]
+            T_loc = c.shape[3]
+            off = self._mesh.index("sp") * T_loc if self._mesh else 0
+            lo, hi = max(off, 0), min(off + T_loc, pfx[name].shape[3])
+            if lo < hi:
+                c[:, slot:slot + 1, :, lo - off:hi - off] = \
+                    pfx[name][:, :, :, lo:hi]
 
     def _admit_pending(self) -> None:
         while self._pending and self._free:
@@ -462,9 +541,17 @@ class DecodeServer:
     def _activate(self, slot: int, rid: int, prompt: list[int],
                   budget: int, last_logits) -> None:
         """Sample a prefilled request's first token and make its slot
-        live (or finish it at once)."""
-        tok = int(_sample(last_logits[None], self._temperature, self._gen,
-                          self._top_k, self._top_p)[0])
+        live (or finish it at once).  On a mesh whose pool splits over
+        dp, the slot's dp ranks sample it and broadcast it over dp."""
+        owner = self._owner(slot)
+        if owner == self._dp_idx:
+            t = _sample(last_logits[None], self._temperature, self._gen,
+                        self._top_k, self._top_p)
+        else:
+            t = torch.zeros(1, dtype=torch.long, device=self._device)
+        if self._mesh is not None and self._paged is None:
+            t = self._mesh.broadcast(t, "dp", owner)
+        tok = int(t[0])
         self.outputs[rid].append(tok)
         self._lens[slot] = len(prompt)
         self._last[slot] = tok
@@ -562,13 +649,25 @@ class DecodeServer:
 
     def _spec_round(self, active):
         """One speculative round of every slot (``active`` rows
-        advance); returns (cand, n_acc) on the device."""
-        self._lens, self._lens_d, cand, n_acc, self._last = spec_round(
+        advance); returns (cand, n_acc) on the device.  On a mesh each
+        rank runs its dp rows and one all-gather over dp returns every
+        row's pointers, tokens and acceptance."""
+        r = self._rows()
+        out = spec_round(
             self._params, self._draft_params, self._cfg, self._draft_cfg,
             gamma=self._gamma, temperature=self._temperature,
-            cache_t=self._cache, len_t=self._lens, cache_d=self._cache_d,
-            len_d=self._lens_d, last_tok=self._last, active=active,
-            generator=self._gen, top_k=self._top_k, top_p=self._top_p)
+            cache_t=self._cache, len_t=self._lens[r], cache_d=self._cache_d,
+            len_d=self._lens_d[r], last_tok=self._last[r], active=active[r],
+            generator=self._gen, top_k=self._top_k, top_p=self._top_p,
+            **self._fwd())
+        lens, lens_d, cand, n_acc, last = out
+        if self._mesh is not None:
+            packed = self._gather_rows(torch.cat(
+                [torch.stack([lens, lens_d, n_acc.long(), last], dim=1),
+                 cand], dim=1))
+            lens, lens_d, n_acc, last = packed[:, :4].unbind(1)
+            cand = packed[:, 4:]
+        self._lens, self._lens_d, self._last = lens, lens_d, last
         return cand, n_acc
 
     def _spec_step(self) -> dict[int, list[int]]:

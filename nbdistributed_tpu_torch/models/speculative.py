@@ -29,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from .generate import (_check_sampling, _sample, forward_with_cache,
-                       init_kv_cache, truncate_logits)
+from .generate import (_check_mesh_decode, _check_sampling, _dp_rows, _sample,
+                       forward_with_cache, init_kv_cache, truncate_logits)
 from .transformer import TransformerConfig, _as_tokens
 
 
@@ -90,7 +90,8 @@ def _accept(drafts, draft_logits, verify_logits, temperature: float,
 def spec_round(params, draft_params, cfg, draft_cfg, *, gamma: int,
                temperature: float, cache_t, len_t, cache_d, len_d,
                last_tok, active, generator=None,
-               top_k: int | None = None, top_p: float | None = None):
+               top_k: int | None = None, top_p: float | None = None,
+               mesh=None, ep_axis: str = "ep"):
     """ONE draft-propose / target-verify round for B streams
     (``speculative.py:69``), shared by :func:`speculative_generate` and
     the server's speculative mode.  Both caches are written in place.
@@ -103,11 +104,13 @@ def spec_round(params, draft_params, cfg, draft_cfg, *, gamma: int,
     Returns ``(len_t, len_d, cand, n_acc, new_last)``: ``cand`` (B,
     gamma+1) holds each row's accepted prefix and the correction/bonus
     token at index ``n_acc`` (later entries stale); rows with
-    ``active`` False keep their pointers and last token."""
+    ``active`` False keep their pointers and last token.  ``mesh``: the
+    rows and caches are this rank's (:func:`.generate.forward_with_cache`)."""
+    fwd = dict(row_mask=active, mesh=mesh, ep_axis=ep_axis)
     tok, lens, drafts, dlogits = last_tok, len_d, [], []
     for _ in range(gamma):
         lg, _ = forward_with_cache(draft_params, tok[:, None], cache_d, lens,
-                                   draft_cfg, row_mask=active)
+                                   draft_cfg, **fwd)
         tok = _sample(lg[:, -1], temperature, generator, top_k, top_p)
         drafts.append(tok)
         dlogits.append(lg[:, -1])
@@ -117,10 +120,10 @@ def spec_round(params, draft_params, cfg, draft_cfg, *, gamma: int,
     # missing, and a round that accepts all g needs it (the pointer then
     # moves past its slot).  One more draft write, logits unused.
     forward_with_cache(draft_params, drafts[:, -1:], cache_d, lens,
-                       draft_cfg, row_mask=active)
+                       draft_cfg, **fwd)
     verify_in = torch.cat([last_tok[:, None], drafts], dim=1)  # (B, g+1)
     logits_v, _ = forward_with_cache(params, verify_in, cache_t, len_t, cfg,
-                                     row_mask=active)
+                                     **fwd)
     n_acc, next_tok = _accept(drafts, torch.stack(dlogits, dim=1), logits_v,
                               temperature, generator, top_k, top_p)
     B = last_tok.shape[0]
@@ -141,7 +144,8 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
                          top_k: int | None = None,
                          top_p: float | None = None,
                          max_len: int | None = None,
-                         kv_quantized: bool = False):
+                         kv_quantized: bool = False, mesh=None,
+                         ep_axis: str = "ep"):
     """Generate ``max_new_tokens`` continuations of ``prompt`` (B, S0)
     with draft-proposed, target-verified decoding
     (``speculative.py:143``), on the parameters' device.
@@ -149,7 +153,10 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     Returns (tokens (B, S0 + max_new_tokens), mean_accepted): the second
     is the mean number of draft tokens accepted per round per active
     stream (at most ``gamma``).  Each round ends in one host read (have
-    all streams finished?)."""
+    all streams finished?).  With ``mesh``, every rank passes the whole
+    prompt and gets the whole result: each runs its ``dp`` rows against
+    its cache shards, the round loop runs until every rank's rows are
+    done, and the rows are gathered over ``dp`` at the end."""
     device = params["embed"].device
     prompt = _as_tokens(prompt, device)
     if prompt.ndim != 2 or prompt.shape[0] < 1:
@@ -176,13 +183,22 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     if T < buf_len:
         raise ValueError(f"max_len {T} < required {buf_len} "
                          f"(prompt + max_new_tokens + gamma + 1)")
-    cache_t = init_kv_cache(cfg, B, T, quantized=kv_quantized, device=device)
+    if mesh is not None:
+        _check_mesh_decode(mesh, B, cfg.n_heads, cfg.n_kv_heads, T)
+        _check_mesh_decode(mesh, B, draft_cfg.n_heads,
+                           draft_cfg.n_kv_heads, T)
+    fwd = dict(mesh=mesh, ep_axis=ep_axis)
+    cache_t = init_kv_cache(cfg, B, T, quantized=kv_quantized, device=device,
+                            mesh=mesh)
     cache_d = init_kv_cache(draft_cfg, B, T, quantized=kv_quantized,
-                            device=device)
+                            device=device, mesh=mesh)
+    if mesh is not None:
+        prompt = _dp_rows(prompt, mesh)
+        B = prompt.shape[0]
     logits_t, _ = forward_with_cache(params, prompt, cache_t, 0, cfg,
-                                     last_only=True)
+                                     last_only=True, **fwd)
     forward_with_cache(draft_params, prompt, cache_d, 0, draft_cfg,
-                       last_only=True)
+                       last_only=True, **fwd)
     first = _sample(logits_t[:, -1], temperature, generator, top_k, top_p)
 
     toks = torch.zeros((B, buf_len), dtype=torch.long, device=device)
@@ -195,13 +211,13 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     acc_sum = torch.zeros((), dtype=torch.float32, device=device)
     rounds = torch.zeros((), dtype=torch.float32, device=device)
     slot = torch.arange(gamma + 1, device=device)
-    while bool((n < max_new_tokens).any()):
+    while _any_rank(n < max_new_tokens, mesh):
         active = n < max_new_tokens
         len_t, len_d, cand, n_acc, last = spec_round(
             params, draft_params, cfg, draft_cfg, gamma=gamma,
             temperature=temperature, cache_t=cache_t, len_t=len_t,
             cache_d=cache_d, len_d=len_d, last_tok=last, active=active,
-            generator=generator, top_k=top_k, top_p=top_p)
+            generator=generator, top_k=top_k, top_p=top_p, **fwd)
         # Commit every candidate slot of an active row; only the first
         # n_acc + 1 are real, and a later round overwrites the rest
         # before the counter reaches them.  Finished rows write nothing.
@@ -211,5 +227,17 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
         n = n + torch.where(active, n_acc + 1, 0)
         acc_sum += torch.where(active, n_acc.float(), 0.0).sum()
         rounds += active.float().sum()
+    if mesh is not None:
+        acc_sum, rounds = mesh.psum(torch.stack([acc_sum, rounds]), "dp")
+        toks = mesh.all_gather(toks, "dp")
     mean_acc = float(acc_sum / torch.clamp(rounds, min=1.0))
     return toks[:, :S0 + max_new_tokens], mean_acc
+
+
+def _any_rank(flags, mesh) -> bool:
+    """Whether any row of any ``dp`` rank is still set: every rank must
+    run the same number of rounds, or their collectives part ways."""
+    flag = flags.any()
+    if mesh is not None:
+        flag = mesh.pmax(flag.to(torch.int32)[None], "dp")[0]
+    return bool(flag)

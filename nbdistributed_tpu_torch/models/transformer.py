@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import attention_reference, flash_attention
 from ..ops.xent import shifted_chunked_xent
 from ..ops._common import resolve_device
+from ..parallel.mesh import P
 from ..utils import fan_in_normal
 
 
@@ -139,6 +140,30 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
         "layers": layers,
         "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
         "lm_head": fan_in_normal(gen, (D, cfg.vocab_size), D, cfg.dtype),
+    }
+
+
+def param_shardings(cfg: TransformerConfig) -> dict:
+    """Megatron-style tensor-parallel rules over the mesh axis ``tp``
+    (``transformer.py:182``): columns of wq/wk/wv/w_gate/w_up, rows of
+    wo/w_down, so each block ends in one all-reduce over ``tp``; the
+    embedding's columns and the lm_head's vocab columns are split too,
+    and gathered over ``tp`` where they are used."""
+    return {
+        "embed": P(None, "tp"),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, "tp"),
+            "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"),
+            "wo": P(None, "tp", None),
+            "mlp_norm": P(None, None),
+            "w_gate": P(None, None, "tp"),
+            "w_up": P(None, None, "tp"),
+            "w_down": P(None, "tp", None),
+        },
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
     }
 
 
@@ -270,11 +295,14 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions,
     return x + qlinear(o.reshape(B, S, H * Dh), layer["wo"])
 
 
-def _mlp_block(x, layer, cfg: TransformerConfig):
+def _mlp_block(x, layer, cfg: TransformerConfig, reduce=None):
+    """The SwiGLU residual block; ``reduce`` sums a row-split
+    ``w_down``'s partial products over the tensor-parallel ranks."""
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gated = (torch.nn.functional.silu(qlinear(h, layer["w_gate"]))
              * qlinear(h, layer["w_up"]))
-    return x + qlinear(gated, layer["w_down"])
+    y = qlinear(gated, layer["w_down"])
+    return x + (y if reduce is None else reduce(y))
 
 
 def _as_tokens(tokens, device) -> torch.Tensor:

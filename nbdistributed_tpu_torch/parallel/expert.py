@@ -1,5 +1,5 @@
-"""Mixture-of-experts routing and the SwiGLU expert layer on one device
-(counterpart of ``nbdistributed_tpu/parallel/expert.py``).
+"""Mixture-of-experts routing and the SwiGLU expert layer (counterpart
+of ``nbdistributed_tpu/parallel/expert.py``).
 
 Routing is the GShard/Switch recipe with a fixed per-expert capacity C:
 softmax over the router's fp32 logits, a normalized top-k, and a
@@ -21,9 +21,19 @@ op (``jax.lax.ragged_dot`` included): there is no Pallas kernel to
 port.  One-hots are built by comparison (``jax.nn.one_hot`` gives a zero
 row for an index out of range, where ``torch.nn.functional.one_hot``
 raises), and the top-k is a stable sort, so tied probabilities pick the
-lowest expert index as ``jax.lax.top_k`` does.  Expert parallelism over
-an ``ep`` mesh axis is ROADMAP A2 (over the process group of
-``parallel/collectives.py``).
+lowest expert index as ``jax.lax.top_k`` does.
+
+**On a mesh** (:mod:`.mesh`), ``x`` holds this rank's block of the
+tokens, split over ``token_axes`` (default ``dp``) and replicated over
+the rest, and the experts are split over ``ep``
+(:func:`moe_param_shardings`): each rank computes its E/ep experts'
+share and one ``psum`` over ``ep`` sums them.  The ``dense`` and
+``sparse`` modes route every token of the batch together, as the JAX
+layer does (capacity and priority are global), so a token-split batch
+is gathered first and each rank keeps its own rows of the result.
+``dropless`` over ``ep`` is the hierarchical shard-capacity path
+(:func:`_dropless_ffn_ep`): routing on each rank's own token block,
+its experts' rows cut at a pooled shard capacity.
 """
 
 from __future__ import annotations
@@ -32,9 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import fan_in_normal
-
-_MESH_TODO = ("expert parallelism over an ep mesh axis is not ported "
-              "yet (ROADMAP A2)")
+from .mesh import P, spec_split
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
@@ -51,8 +59,17 @@ def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
             "w_down": fan_in_normal(generator, (E, Fd, D), Fd, dtype)}
 
 
-def moe_param_shardings(*args, **kwargs):
-    raise NotImplementedError(f"moe_param_shardings: {_MESH_TODO}")
+def moe_param_shardings(ep_axis: str = "ep", tp_axis: str | None = None,
+                        leading=()) -> dict:
+    """Rules for :func:`init_moe_params` trees (``expert.py:49``): the
+    experts split over ``ep_axis`` (their ffn dim over ``tp_axis`` too,
+    if given), the router whole; ``leading`` prefixes the entries of
+    extra leading axes (the models' (n_layers,))."""
+    lead = tuple(leading)
+    return {"router": P(*lead, None, None),
+            "w_gate": P(*lead, ep_axis, None, tp_axis),
+            "w_up": P(*lead, ep_axis, None, tp_axis),
+            "w_down": P(*lead, ep_axis, tp_axis, None)}
 
 
 def compute_capacity(num_tokens: int, n_experts: int, top_k: int,
@@ -172,14 +189,105 @@ def _dropless_ffn(xt, params, gates, expert_idx, E: int, token_mask=None):
 _dropless_ffn.host_reads = 0
 
 
-def _dropless_ffn_ep(*args, **kwargs):
-    raise NotImplementedError(f"_dropless_ffn_ep: {_MESH_TODO}")
+def _local_experts(params: dict, E: int, mesh, ep_axis: str):
+    """(w_gate, w_up, w_down, first expert, E_loc) of this rank's
+    experts on the ``ep`` axis.  A tree split by
+    :func:`moe_param_shardings` already holds them; a whole tree is cut
+    here (the layout read from the leaf's shape, as GSPMD reads it from
+    the array's)."""
+    from ..models.transformer import _slice_layer
+    n_ep = mesh.size(ep_axis)
+    if E % n_ep:
+        raise ValueError(f"n_experts {E} not divisible by ep axis "
+                         f"size {n_ep}")
+    E_loc, lo = E // n_ep, mesh.index(ep_axis) * (E // n_ep)
+    ws = []
+    for name in ("w_gate", "w_up", "w_down"):
+        w = params[name]
+        n = (w["q8"] if isinstance(w, dict) else w).shape[0]
+        if n == E and n_ep > 1:
+            w = _slice_layer(w, slice(lo, lo + E_loc))
+        elif n != E_loc:
+            raise ValueError(f"{name} holds {n} experts; the {ep_axis} "
+                             f"axis gives this rank {E_loc} of {E}")
+        ws.append(w)
+    return (*ws, lo, E_loc)
+
+
+def _dropless_ffn_ep(xt, params, logits, top_k: int, E: int, mesh,
+                     ep_axis: str, capacity_factor: float,
+                     token_mask=None, capacity: int | None = None):
+    """Expert-parallel dropless (``expert.py:207``): this rank routes its
+    own token block ``xt`` (T_loc, D) by its router ``logits``, takes
+    the rows routed to its E/ep experts — contiguous in the expert-
+    sorted order — up to a pooled shard capacity ``Cs =
+    compute_capacity(T_loc, ep, k, cf)`` (an explicit per-expert
+    ``capacity`` pools to ``E_loc * capacity``), capped at ``k *
+    T_loc``, runs each local expert over its segment, and one ``psum``
+    over ``ep`` combines the shards.  Rows past ``Cs`` are the sorted
+    tail of the shard's segment, and drop.  The segment sizes are read
+    on the host once (``_dropless_ffn.host_reads``)."""
+    T, D = xt.shape
+    k = top_k
+    wg, wu, wd, lo, E_loc = _local_experts(params, E, mesh, ep_axis)
+    n_ep = mesh.size(ep_axis)
+    Cs = (E_loc * capacity if capacity is not None
+          else compute_capacity(T, n_ep, k, capacity_factor))
+    Cs = min(Cs, k * T)
+    gates, expert_idx, _ = top_k_routing(logits, k)
+    order, _, tok, counts = _route_sort(expert_idx, E, token_mask)
+    cnt = counts[:E].tolist()
+    _dropless_ffn.host_reads += 1
+    start = sum(cnt[:lo])
+    sizes, off = [], 0
+    for n_e in cnt[lo:lo + E_loc]:
+        sizes.append(min(off + n_e, Cs) - min(off, Cs))
+        off += n_e
+    n = sum(sizes)
+    tok = tok[start:start + n]
+    xs = xt[tok]
+    h = (F.silu(_segment_linear(xs, wg, sizes))
+         * _segment_linear(xs, wu, sizes))
+    rows = _segment_linear(h, wd, sizes)
+    g = gates.transpose(0, 1).reshape(-1)[order[start:start + n]]
+    y = torch.zeros((T, D), dtype=xt.dtype, device=xt.device).index_add(
+        0, tok, rows * g.to(xt.dtype)[:, None])
+    return mesh.psum(y, ep_axis)
+
+
+def _token_block(mesh, token_axes: tuple, ep_axis: str):
+    """(axes, n, idx): the mesh axes of size > 1 the tokens are split
+    over (``ep`` never), their shard count and this rank's shard."""
+    axes = tuple(a for a in token_axes
+                 if mesh.size(a) > 1 and a != ep_axis)
+    n, idx = spec_split(mesh, axes) if axes else (1, 0)
+    return axes, n, idx
+
+
+def _gather_tokens(x, mesh, axes: tuple):
+    """Every rank's token block along dim 0, major axis first."""
+    for a in reversed(axes):
+        x = mesh.all_gather(x, a, 0)
+    return x
+
+
+def _aux_over_blocks(probs, first, E: int, mask, mesh, axes: tuple):
+    """:func:`load_balance_loss` over the tokens of every block: the
+    per-expert sums and the token count psummed over ``axes``."""
+    m = (torch.ones(probs.shape[0], device=probs.device) if mask is None
+         else mask.float())
+    stats = torch.cat([(_one_hot(first, E) * m[:, None]).sum(dim=0),
+                       (probs * m[:, None]).sum(dim=0), m.sum()[None]])
+    for a in axes:
+        stats = mesh.psum(stats, a)
+    n = torch.clamp(stats[-1], min=1.0)
+    return E * ((stats[:E] / n) * (stats[E:2 * E] / n)).sum()
 
 
 def moe_ffn(x, params: dict, *, top_k: int = 2,
             capacity_factor: float = 1.25, mesh=None, ep_axis: str = "ep",
             dispatch_mode: str = "dense", token_mask=None,
-            capacity: int | None = None):
+            capacity: int | None = None, token_axes: tuple = ("dp",)):
     """Mixture-of-experts SwiGLU feed-forward (``expert.py:377``).
 
     x (..., D) -> (same shape, aux scalar fp32).  ``dispatch_mode`` is
@@ -189,11 +297,14 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     counts every row of ``x``, masked or not.  ``capacity`` overrides
     the ``capacity_factor`` formula.  Differentiable in ``x`` and the
     parameters: gradients reach the gates and the router probabilities,
-    never the routing indices."""
+    never the routing indices.
+
+    ``mesh``: ``x`` is this rank's block of the tokens over
+    ``token_axes`` (module docstring); with an ``ep_axis`` in the mesh
+    the experts split over it and one ``psum`` over ``ep`` combines
+    them."""
     if dispatch_mode not in ("dense", "sparse", "dropless"):
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {_MESH_TODO}")
     # The expert products are batched over E: ``qlinear`` takes the
     # plain (E, d_in, d_out) weights and int8 leaves, whose per-(expert,
     # output-channel) scales commute with the product.
@@ -201,42 +312,85 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     orig_shape = x.shape
     D = orig_shape[-1]
     xt = x.reshape(-1, D)
-    T = xt.shape[0]
     E = params["router"].shape[-1]
+    mask_t = None if token_mask is None else token_mask.reshape(-1)
+    axes, _, idx = (_token_block(mesh, token_axes, ep_axis)
+                    if mesh is not None else ((), 1, 0))
+    ep = mesh is not None and ep_axis in mesh.shape
+
+    if dispatch_mode == "dropless" and mesh is not None:
+        # Routing is per token, so each rank routes its own block; the
+        # aux loss needs every block's statistics.
+        logits = xt.float() @ params["router"]
+        probs = torch.softmax(logits, dim=-1)
+        aux = _aux_over_blocks(probs, torch.argmax(probs, dim=-1), E,
+                               mask_t, mesh, axes)
+        if ep:
+            y = _dropless_ffn_ep(xt, params, logits, top_k, E, mesh,
+                                 ep_axis, capacity_factor,
+                                 token_mask=mask_t, capacity=capacity)
+        else:
+            gates, expert_idx, _ = top_k_routing(logits, top_k)
+            y = _dropless_ffn(xt, params, gates, expert_idx, E,
+                              token_mask=mask_t)
+        return y.reshape(orig_shape), aux
+
+    # Capacity and priority are the whole batch's: a token-split batch
+    # is gathered, and each rank keeps its own rows of the result.
+    T_own = xt.shape[0]
+    xg = _gather_tokens(xt, mesh, axes)
+    mg = mask_t
+    if axes and mask_t is not None:
+        mg = _gather_tokens(mask_t.to(torch.uint8), mesh, axes).bool()
+    T = xg.shape[0]
     C = (capacity if capacity is not None
          else compute_capacity(T, E, top_k, capacity_factor))
-    mask_t = None if token_mask is None else token_mask.reshape(-1)
-
-    logits = xt.float() @ params["router"]
+    logits = xg.float() @ params["router"]
     gates, expert_idx, probs = top_k_routing(logits, top_k)
-    aux = load_balance_loss(probs, expert_idx, E, token_mask=mask_t)
+    aux = load_balance_loss(probs, expert_idx, E, token_mask=mg)
 
     if dispatch_mode == "dropless":
         y = _dropless_ffn(xt, params, gates, expert_idx, E,
                           token_mask=mask_t)
         return y.reshape(orig_shape), aux
 
+    # This rank's experts [lo, lo + E_loc): all of them off an ep axis.
+    if ep:
+        wg, wu, wd, lo, E_loc = _local_experts(params, E, mesh, ep_axis)
+    else:
+        wg, wu, wd, lo, E_loc = (params["w_gate"], params["w_up"],
+                                 params["w_down"], 0, E)
+    rows = slice(idx * T_own, (idx + 1) * T_own)
     if dispatch_mode == "sparse":
         slot, tok, keep, order = sparse_slots(expert_idx, E, C,
-                                              token_mask=mask_t)
-        # Row E*C is the trash row of dropped and masked entries.
-        buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-        xe = buf.index_copy(0, slot, xt[tok])[:E * C].reshape(E, C, D)
+                                              token_mask=mg)
+        local = slot - lo * C
+        mine = keep & (local >= 0) & (local < E_loc * C)
+        # Row E_loc*C is the trash row of dropped, masked and other
+        # ranks' entries.
+        local = torch.where(mine, local, E_loc * C)
+        buf = torch.zeros((E_loc * C + 1, D), dtype=x.dtype,
+                          device=x.device)
+        xe = buf.index_copy(0, local, xg[tok])[:E_loc * C].reshape(
+            E_loc, C, D)
     else:
         dispatch, combine = make_dispatch(gates, expert_idx, E, C,
-                                          token_mask=mask_t)
-        xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xt)
-    h = (F.silu(qlinear(xe, params["w_gate"]))
-         * qlinear(xe, params["w_up"]))
-    ye = qlinear(h, params["w_down"])                           # (E, C, D)
+                                          token_mask=mg)
+        xe = torch.einsum("tec,td->ecd",
+                          dispatch[:, lo:lo + E_loc].to(x.dtype), xg)
+    h = F.silu(qlinear(xe, wg)) * qlinear(xe, wu)
+    ye = qlinear(h, wd)                                   # (E_loc, C, D)
     if dispatch_mode == "sparse":
-        g = torch.where(keep, gates.transpose(0, 1).reshape(-1)[order],
+        g = torch.where(mine, gates.transpose(0, 1).reshape(-1)[order],
                         0.0).to(x.dtype)
-        # Dropped entries read the zero row past the buffer.
-        rows = torch.cat([ye.reshape(E * C, D),
-                          ye.new_zeros((1, D))])[slot]
+        # Trash entries read the zero row past the buffer.
+        picked = torch.cat([ye.reshape(E_loc * C, D),
+                            ye.new_zeros((1, D))])[local]
         y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add(
-            0, tok, rows * g[:, None])
+            0, tok, picked * g[:, None])[rows]
     else:
-        y = torch.einsum("tec,ecd->td", combine.to(x.dtype), ye)
+        y = torch.einsum("tec,ecd->td",
+                         combine[rows, lo:lo + E_loc].to(x.dtype), ye)
+    if ep:
+        y = mesh.psum(y, ep_axis)
     return y.reshape(orig_shape), aux

@@ -1,0 +1,279 @@
+"""Named-axis meshes over the ``torch.distributed`` process group
+(counterpart of ``nbdistributed_tpu/parallel/mesh.py``).
+
+JAX runs a mesh from one controller: one program over every device,
+with GSPMD inserting the collectives.  The port runs it SPMD over
+processes, as a user of ``torch.distributed`` writes it cell by cell:
+every rank runs the same code, holds only its own shard, and issues
+the collectives explicitly over one process group per axis slice.
+
+A :class:`Mesh` lays the world's ranks out in the order the axes are
+given (layout-major: the last axis varies fastest, as JAX's
+``np.asarray(devices).reshape(sizes)``), knows this rank's coordinate on
+each axis, and holds, per axis of size > 1, the group of the ranks that
+share every other coordinate with this one.  The groups take the world
+group's backend: NCCL in a GPU worker, gloo on the CPU.  On a gloo
+group the mesh path keeps to the collectives gloo runs on CUDA tensors
+(``all_reduce``, ``all_gather``, ``broadcast``), so one card can host
+several ranks (NCCL refuses two ranks on one device).
+
+:class:`P` is the port's partition spec: one entry per dimension, an
+axis name, a tuple of axis names or ``None``, as JAX's
+``PartitionSpec`` reads.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import math
+
+# A mesh collective that waits longer than this raises instead of
+# hanging (the worker's collective timeout): every rank must issue the
+# same collectives in the same order.
+GROUP_TIMEOUT_S = 120
+
+
+class P(tuple):
+    """A partition spec: ``P(None, "tp")`` splits dimension 1 over the
+    ``tp`` axis and keeps dimension 0 whole; ``P(("dp", "sp"))`` splits
+    dimension 0 over both, ``dp`` major.  Dimensions past the spec's
+    length are whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _world() -> tuple[int, int]:
+    dist = _dist()
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+class Mesh:
+    """This rank's view of a named-axis mesh over the process group.
+
+    ``shape`` maps axis name -> size in layout order (as JAX's
+    ``mesh.shape``); :meth:`index` is this rank's coordinate on an axis
+    and :meth:`size` an axis's size (0 and 1 for an axis the mesh lacks,
+    so code written for a dp x tp x sp mesh runs on any of its
+    sub-meshes).  :meth:`group` is the process group of this rank's
+    slice along an axis; the collectives below run over it."""
+
+    def __init__(self, shape: dict, coords: dict, groups: dict,
+                 slice_ranks: dict):
+        self.shape = dict(shape)
+        self._coords = dict(coords)
+        self._groups = dict(groups)
+        self._slice_ranks = dict(slice_ranks)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    def size(self, axis: str | None) -> int:
+        return self.shape.get(axis, 1) if axis is not None else 1
+
+    def index(self, axis: str | None) -> int:
+        return self._coords.get(axis, 0) if axis is not None else 0
+
+    def group(self, axis: str):
+        return self._groups.get(axis)
+
+    def without(self, *axes: str) -> "Mesh":
+        """The sub-mesh of the ranks that share this rank's coordinates
+        on ``axes``: those axes dropped, every other axis's group kept.
+        A server prefills a row on its dp slice's ranks with
+        ``mesh.without("dp")``."""
+        keep = [a for a in self.shape if a not in axes]
+        return Mesh({a: self.shape[a] for a in keep},
+                    {a: self._coords[a] for a in keep},
+                    {a: g for a, g in self._groups.items() if a in keep},
+                    {a: r for a, r in self._slice_ranks.items()
+                     if a in keep})
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, coords={self._coords})"
+
+    # ---- collectives over one axis (identity on an axis of size 1) --
+
+    def psum(self, x, axis: str):
+        """Sum of ``x`` over ``axis``; every rank of the slice gets it."""
+        if self.size(axis) == 1:
+            return x
+        out = x.contiguous().clone()
+        _dist().all_reduce(out, group=self._groups[axis])
+        return out
+
+    def pmax(self, x, axis: str):
+        """Elementwise max of ``x`` over ``axis``."""
+        if self.size(axis) == 1:
+            return x
+        out = x.contiguous().clone()
+        _dist().all_reduce(out, op=_dist().ReduceOp.MAX,
+                           group=self._groups[axis])
+        return out
+
+    def all_gather(self, x, axis: str, dim: int = 0):
+        """The slice's ``x`` concatenated along ``dim`` in coordinate
+        order (``jax.lax.all_gather(..., tiled=True)``)."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        import torch
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        _dist().all_gather(parts, x, group=self._groups[axis])
+        return torch.cat(parts, dim=dim)
+
+    def broadcast(self, x, axis: str, src: int):
+        """Every rank of the slice returns the value of the rank at
+        coordinate ``src`` on ``axis``."""
+        if self.size(axis) == 1:
+            return x
+        out = x.contiguous().clone()
+        _dist().broadcast(out, src=self._slice_ranks[axis][src],
+                          group=self._groups[axis])
+        return out
+
+
+def make_mesh(axis_sizes: dict[str, int] | None = None, *,
+              timeout_s: float = GROUP_TIMEOUT_S) -> Mesh:
+    """Build a :class:`Mesh` over the world process group (one rank
+    without one).
+
+    ``axis_sizes`` maps axis name -> size in layout-major order, e.g.
+    ``{"dp": 2, "tp": 2}``; a size of -1 means "whatever is left" (at
+    most one axis).  Default: one ``dp`` axis over every rank.  Every
+    rank must call it, with the same sizes: it creates the groups of
+    every axis slice, those this rank is not in included, in one order
+    (``dist.new_group``'s rule)."""
+    n, rank = _world()
+    sizes = dict(axis_sizes) if axis_sizes else {"dp": n}
+    wild = [k for k, v in sizes.items() if v == -1]
+    if len(wild) > 1:
+        raise ValueError("at most one axis may be -1")
+    fixed = math.prod(v for v in sizes.values() if v != -1)
+    if wild:
+        if n % fixed:
+            raise ValueError(f"{n} ranks not divisible by {fixed}")
+        sizes[wild[0]] = n // fixed
+    total = math.prod(sizes.values())
+    if total != n:
+        raise ValueError(
+            f"mesh {sizes} needs {total} ranks but {n} are available")
+    names = list(sizes)
+    dims = [sizes[a] for a in names]
+    # Row-major coordinates of every rank: rank = ravel(coords).
+    coord_of = list(itertools.product(*[range(d) for d in dims]))
+    mine = coord_of[rank]
+    groups, slice_ranks = {}, {}
+    for i, axis in enumerate(names):
+        if dims[i] == 1:
+            continue
+        slices = {}
+        for r, c in enumerate(coord_of):
+            slices.setdefault(c[:i] + c[i + 1:], []).append(r)
+        lists = list(slices.values())
+        own = slices[mine[:i] + mine[i + 1:]]
+        slice_ranks[axis] = own
+        dist = _dist()
+        td = datetime.timedelta(seconds=timeout_s)
+        for ranks in lists:          # every rank creates every group
+            g = dist.new_group(ranks, timeout=td)
+            if ranks == own:
+                groups[axis] = g
+    return Mesh(sizes, dict(zip(names, mine)), groups, slice_ranks)
+
+
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_split(mesh: Mesh, entry) -> tuple[int, int]:
+    """(number of shards, this rank's shard) of a dimension whose spec
+    entry is ``entry``: the product of its axes' sizes, and the
+    row-major index of this rank's coordinates on them.  An axis the
+    mesh lacks raises, as JAX's ``NamedSharding`` does."""
+    n, idx = 1, 0
+    for axis in _spec_axes(entry):
+        if axis not in mesh.shape:
+            raise ValueError(f"axis {axis!r} of the partition spec is not "
+                             f"in the mesh {mesh.shape}")
+        n *= mesh.shape[axis]
+        idx = idx * mesh.shape[axis] + mesh.index(axis)
+    return n, idx
+
+
+def local_slice(x, dim: int, n: int, idx: int, what: str = "dimension"):
+    """Shard ``idx`` of ``n`` equal shards of ``x`` along ``dim`` (a
+    view); an indivisible extent raises."""
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"{what} {dim} of shape {tuple(x.shape)} is not "
+                         f"divisible into {n} shards")
+    step = x.shape[dim] // n
+    return x.narrow(dim, idx * step, step)
+
+
+def shard_batch(batch, mesh: Mesh, axis: str = "dp"):
+    """This rank's slice of a batch that every rank holds whole: each
+    tensor (or array) of the pytree split on its leading dimension over
+    ``axis``, replicated over the other axes.  That is the JAX
+    function's single-process meaning (a host batch placed sharded on
+    the mesh); the port's multi-process world keeps the same contract,
+    so every rank passes the same whole batch."""
+    import torch
+    n, idx = spec_split(mesh, axis)
+
+    def one(x):
+        return local_slice(torch.as_tensor(x), 0, n, idx,
+                           "batch dimension").contiguous()
+
+    return _tree_map(one, batch)
+
+
+def replicate(tree, mesh: Mesh):
+    """A pytree replicated over the mesh: every rank already holds its
+    whole value, so this is the identity on the rank's device."""
+    return tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def axis_index(mesh: Mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (``jax.lax.axis_index``)."""
+    return mesh.index(axis)
+
+
+def psum(x, mesh: Mesh, axis: str):
+    """``jax.lax.psum`` over one mesh axis."""
+    return mesh.psum(x, axis)
+
+
+def pmax(x, mesh: Mesh, axis: str):
+    """``jax.lax.pmax`` over one mesh axis."""
+    return mesh.pmax(x, axis)
+
+
+def all_gather(x, mesh: Mesh, axis: str, dim: int = 0):
+    """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``."""
+    return mesh.all_gather(x, axis, dim)

@@ -26,8 +26,9 @@ Startup order (deliberate, SURVEY §7 "hard parts"):
 
 Not ported yet (ROADMAP A5): the ``checkpoint`` and ``guard`` requests
 (they need ``runtime/checkpoint.py`` and ``resilience/trainguard.py``)
-answer with an error, and ``serve_open`` builds no local
-tensor-parallel mesh (A2).
+answer with an error.  ``serve_open`` builds no local tensor-parallel
+mesh: a rank drives one GPU, and a mesh spans ranks (``make_mesh`` and
+``DecodeServer(mesh=)`` in a cell run on every rank).
 """
 
 from __future__ import annotations
@@ -363,16 +364,18 @@ class DistributedWorker:
     def _seed_namespace(self) -> None:
         """The interactive namespace: the reference's torch names
         (reference: worker.py:160-177), the port's functional
-        collectives by name, and its model entry points.  The JAX
-        package also seeds the mesh families (``Mesh``, ``P``,
-        ``shard_map``, ``make_mesh``, ``shard_batch``, ring / Ulysses /
-        pipeline); they wait for ROADMAP A2 and A5."""
+        collectives by name, its model entry points, and the mesh
+        names the JAX package seeds (``make_mesh``, ``shard_batch``,
+        ``replicate``, ``P``, ``apply_shardings``; its ``Mesh`` is the
+        port's :class:`..parallel.mesh.Mesh`).  ``shard_map`` and the
+        ring / Ulysses / pipeline families wait for ROADMAP A5."""
         import numpy as np
         import torch
         import torch.distributed as dist
 
         from .. import models
-        from ..parallel import collectives, expert
+        from ..parallel import collectives, expert, mesh as mesh_mod
+        from ..parallel.tensor_parallel import apply_shardings
         from ..utils import data as data_mod
 
         ns = {
@@ -392,6 +395,13 @@ class DistributedWorker:
             "scatter": collectives.scatter,
             "gather": collectives.gather,
             "reduce": collectives.reduce,
+            "Mesh": mesh_mod.Mesh,
+            "P": mesh_mod.P,
+            "PartitionSpec": mesh_mod.P,
+            "make_mesh": mesh_mod.make_mesh,
+            "shard_batch": mesh_mod.shard_batch,
+            "replicate": mesh_mod.replicate,
+            "apply_shardings": apply_shardings,
             "moe_ffn": expert.moe_ffn,
             "init_moe_params": expert.init_moe_params,
             "load_hf_pretrained": _load_hf_pretrained_lazy,

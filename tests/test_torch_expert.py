@@ -295,9 +295,31 @@ def test_init_moe_params_layout_and_refusals(params):
     x = torch.zeros(4, D)
     with pytest.raises(ValueError, match="dispatch_mode"):
         te.moe_ffn(x, p, dispatch_mode="scatter")
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        te.moe_ffn(x, p, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        te.moe_param_shardings()
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        te._dropless_ffn_ep()
+    # The three mesh calls raised before expert parallelism was ported;
+    # on a one-rank ep mesh each now gives what JAX gives on one device
+    # (the 4-rank ep meshes are in test_torch_mesh.py).
+    from nbdistributed_tpu.parallel.mesh import make_mesh as jax_mesh
+    from nbdistributed_tpu_torch.parallel import make_mesh
+    jm = jax_mesh({"ep": 1}, devices=jax.devices()[:1])
+    tm = make_mesh({"ep": 1})
+    xs = _x(16)
+    jp = jax.tree.map(jnp.asarray, tree)
+    _, tp = params
+    for mode in ("dense", "sparse", "dropless"):
+        got, aux = te.moe_ffn(torch.from_numpy(xs), tp, top_k=K, mesh=tm,
+                              dispatch_mode=mode)
+        want, jaux = je.moe_ffn(jnp.asarray(xs), jp, top_k=K, mesh=jm,
+                                dispatch_mode=mode)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+        assert float(aux) == pytest.approx(float(jaux), rel=1e-6)
+    assert ({k: tuple(v) for k, v in te.moe_param_shardings().items()}
+            == {k: tuple(v) for k, v in je.moe_param_shardings().items()})
+    logits = xs @ tree["router"]
+    got = te._dropless_ffn_ep(torch.from_numpy(xs), tp,
+                              torch.from_numpy(logits), K, E, tm, "ep",
+                              1.25)
+    want = je._dropless_ffn_ep(jnp.asarray(xs), jp, jnp.asarray(logits), K,
+                               E, jm, "ep", 1.25)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)

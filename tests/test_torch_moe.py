@@ -220,7 +220,20 @@ def test_parallel_arguments_name_their_roadmap_entries(tree):
     tok = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         moe_forward(params, tok, cfg, sp=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        moe_forward(params, tok, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        moe_loss_fn(params, {"tokens": tok}, cfg, mesh=object())
+    # moe_forward on a mesh raised before expert parallelism was ported;
+    # on a one-rank dp x ep mesh it now gives JAX's logits and aux (the
+    # 4-rank meshes are in test_torch_mesh.py).  The loss on a mesh is
+    # training, and keeps its raise.
+    from nbdistributed_tpu.parallel.mesh import make_mesh as jax_mesh
+    from nbdistributed_tpu_torch.parallel import make_mesh
+    tok = np.random.default_rng(3).integers(0, 512, (2, 8))
+    got, aux = moe_forward(params, torch.from_numpy(tok), cfg,
+                           mesh=make_mesh({"dp": 1, "ep": 1}))
+    want, jaux = jmoe.moe_forward(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(tok),
+        jmoe.tiny_moe_config(dtype=jnp.float32),
+        mesh=jax_mesh({"dp": 1, "ep": 1}, devices=jax.devices()[:1]))
+    assert _rel_l2(got.detach().numpy(), want) <= 1e-5
+    assert float(aux) == pytest.approx(float(jaux), rel=1e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        moe_loss_fn(params, {"tokens": tok}, cfg, mesh=make_mesh({"ep": 1}))

@@ -166,12 +166,29 @@ def test_cancel_sampling_and_validation(setup):
     assert all(0 <= t < cfg.vocab_size for t in srv.outputs[r0])
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
+@pytest.mark.parametrize("kwargs", [{"mesh": {"dp": 1, "tp": 1,
+                                                "sp": 1}}])
 def test_later_slice_arguments_raise(setup, kwargs):
-    """A mesh is a later slice (ROADMAP A5, then A2)."""
-    _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP A[25]"):
-        DecodeServer(params, cfg, max_batch=1, max_len=16, **kwargs)
+    """``mesh`` was a later slice and raised; it serves now (the 4-rank
+    meshes are in ``test_torch_mesh_serving.py``).  On a one-rank mesh
+    of every axis the server gives the JAX server's tokens on the same
+    one-device mesh."""
+    from nbdistributed_tpu.parallel.mesh import make_mesh as jax_mesh
+    from nbdistributed_tpu_torch.parallel import make_mesh
+    jcfg, jparams, cfg, params = setup
+    reqs = [([5, 9, 2], 4), ([7, 1, 3, 11], 3)]
+    got = DecodeServer(params, cfg, max_batch=1, max_len=16, pad_to=4,
+                       mesh=make_mesh(kwargs["mesh"]))
+    want = JaxServer(jparams, jcfg, max_batch=1, max_len=16, pad_to=4,
+                     mesh=jax_mesh(kwargs["mesh"],
+                                   devices=jax.devices()[:1]))
+    for srv in (got, want):
+        rids = [srv.submit(*r) for r in reqs]
+        srv.run_until_done(max_steps=20)
+        srv.rids = rids
+    assert [got.outputs[r] for r in got.rids] \
+        == [want.outputs[r] for r in want.rids] \
+        == [solo(params, cfg, p, n) for p, n in reqs]
 
 
 # ----------------------------------------------------------------------
@@ -566,5 +583,14 @@ def test_moe_server_refuses_chunked_prefill_and_prefix_caching(moe):
     with pytest.raises(ValueError) as got:
         DecodeServer(params, cfg, max_batch=1, max_len=32).cache_prefix([1, 2])
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        DecodeServer(params, cfg, max_batch=1, max_len=32, mesh=object())
+    # The same refusal on a mesh (it raised NotImplementedError before
+    # meshes were ported).
+    from nbdistributed_tpu.parallel.mesh import make_mesh as jax_mesh
+    from nbdistributed_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError) as want:
+        JaxServer(jparams, jcfg, max_batch=1, max_len=32, prefill_chunk=4,
+                  mesh=jax_mesh({"ep": 1}, devices=jax.devices()[:1]))
+    with pytest.raises(ValueError) as got:
+        DecodeServer(params, cfg, max_batch=1, max_len=32, prefill_chunk=4,
+                     mesh=make_mesh({"ep": 1}))
+    assert str(got.value) == str(want.value)
