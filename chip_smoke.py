@@ -131,17 +131,37 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ranks time-share the card and every collective crosses the host, so
    no number is a link speed.
 
+19. (run after phase 18) training on a mesh: phase 18's ranks train,
+   each from seed 0 and guarded, SmolLM2-135M (30 layers, fp32, remat)
+   with Megatron rules on ``{"dp": 2, "tp": 2}`` (attention on every
+   head on every tp rank: 9 and 3 heads do not divide 2) and with HSDP
+   rules on the same mesh (3 AdamW steps, B=4 x S=512 packed
+   documents), ZeRO-2 on ``{"dp": 4}`` (accum_steps 2, B=8 x S=512, 3
+   steps and a NaN batch between steps 2 and 3 that must be skipped
+   bitwise), and Mixtral (2 layers, full width, fp32, capacity factor
+   4, dropless) with ``moe_loss_fn`` on ``{"ep": 4}`` (2 steps, B=1 x
+   S=512).  Each is held to the single-process step on the whole tree
+   and batch, run first in this process: every rank's losses equal, the
+   losses within 1e-5 and each step's gradient norm within 1e-4
+   relative, every leaf gathered from the shards within 1e-4 relative
+   L2; per rank per step K1/K2/K3 60/30/30 for SmolLM2 (x2 with
+   accumulation) and 2/2/2 for Mixtral, counts reset just before and
+   read just after; the ZeRO moments a quarter of each leaf.  Rows: ms
+   per step, collectives per step and peak memory per rank, host-bound
+   gloo times.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
 phase 5's in the kernels line (``launches_by_path``), as do the
 worker's K1 and K4 launches (``cluster_serve``), as the MoE
 forward's and MoE training's K1/K2/K3 launches join the SmolLM2
-paths', and the mesh runs' K4 launches on rank 0 (``mesh_*``).
+paths', the mesh runs' K4 launches on rank 0 (``mesh_*``) and the
+mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``).
 
-``python3 chip_smoke.py --mesh-nccl`` runs phase 18 alone on four
-cards, one NCCL rank per card (what one card cannot show: NCCL and the
-links between cards).
+``python3 chip_smoke.py --mesh-nccl`` runs phases 18 and 19 alone on
+four cards, one NCCL rank per card (what one card cannot show: NCCL,
+its ``reduce_scatter_tensor`` and the links between cards).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -2073,10 +2093,12 @@ def seeded_moe_shard(cfg, seed, mesh, rules):
 
 
 def _count_collectives():
-    """Wrap torch.distributed's all_reduce, all_gather and broadcast
-    with call counters (the mesh layer looks them up at each call)."""
+    """Wrap torch.distributed's all_reduce, all_gather, broadcast and
+    reduce_scatter_tensor with call counters (the mesh layer looks them
+    up at each call)."""
     import torch.distributed as dist
-    counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
+              "reduce_scatter_tensor": 0}
     for name in counts:
         fn = getattr(dist, name)
 
@@ -2145,6 +2167,7 @@ def mesh_rank(rank, port, jobs, q, backend):
     import datetime
     import os
     import traceback
+    t_start = time.time()
     try:
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         import torch
@@ -2161,10 +2184,14 @@ def mesh_rank(rank, port, jobs, q, backend):
                if backend == "nccl" else {}))
         from nbdistributed_tpu_torch.ops import _build
         out = {"rebuilt": sorted(_build.build_all())}
+        out["clock"] = {"start": t_start, "ready": time.time()}
         counts = _count_collectives()
         for job in jobs:
-            out[job["name"]] = mesh_job(job, counts)
+            out[job["name"]] = (
+                train_mesh_job(job, counts, lambda item: q.put((rank, item)))
+                if job.get("train") else mesh_job(job, counts))
         dist.barrier()
+        out["clock"]["done"] = time.time()
         q.put((rank, out))
         dist.destroy_process_group()
     except BaseException:
@@ -2191,9 +2218,10 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_mesh_ranks(jobs, backend):
+def run_mesh_ranks(jobs, backend, on_item=None):
     """Spawn the 4 ranks, run ``jobs`` on them, stop them all; returns
-    {rank: {job: row}} (a rank's error raises)."""
+    {rank: {job: row}} (a rank's error raises).  A rank's tuple items
+    before its result go to ``on_item(rank, item)``."""
     import multiprocessing as mp
     import queue
 
@@ -2216,7 +2244,8 @@ def run_mesh_ranks(jobs, backend):
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
-        deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S
+        deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S * (
+            2 if any(j.get("train") for j in jobs) else 1)
         while len(out) < MESH_WORLD:
             try:
                 rank, res = q.get(timeout=5.0)
@@ -2230,6 +2259,9 @@ def run_mesh_ranks(jobs, backend):
                 check(time.monotonic() < deadline, "mesh ranks "
                       f"{sorted(set(range(MESH_WORLD)) - set(out))} did "
                       f"not finish in time")
+                continue
+            if isinstance(res, tuple):
+                on_item(rank, res)
                 continue
             check("error" not in res, f"mesh rank {rank} failed:\n"
                   f"{res.get('error')}")
@@ -2319,6 +2351,358 @@ def phase_mesh(smol_prompts, smol_solo, moe_solo, backend="gloo"):
         say(name, **rows[name])
     rows["seconds"] = time.perf_counter() - ts
     say("mesh_seconds", seconds=rows["seconds"])
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 19: training on a mesh.  Phase 18's four ranks (gloo on the one
+# card; NCCL, one card each, with --mesh-nccl) train each job below from
+# seed 0, held to the single-process step on the whole tree and batch,
+# which this process runs first and keeps on the host.  Every job runs
+# guarded, so each step's gradient norm is held to the reference's too
+# (AdamW alone would not see a gradient off by a constant factor).
+
+TRAIN_MESH_LR = 1e-4
+TRAIN_MESH_S = 512
+TRAIN_MESH_LOSS_RTOL = 1e-5
+TRAIN_MESH_LEAF_RTOL = 1e-4
+TRAIN_MESH_BATCH_SEED = 9
+# Largest first: the Mixtral ranks need the card that the SmolLM2 jobs
+# leave cached.  The ZeRO-2 batch is 8 rows without segments, so that
+# each dp4 rank has one row per microbatch and the mean over the two
+# microbatches is the whole batch's mean (packed documents would weigh
+# the microbatches by their kept targets).
+TRAIN_MESH_JOBS = (
+    dict(name="train_mesh_moe_ep4", model="mixtral", mesh={"ep": 4},
+         rules="moe", B=1, segments=True, steps=2),
+    dict(name="train_mesh_megatron_dp2_tp2", model="smol",
+         mesh={"dp": 2, "tp": 2}, rules="megatron", B=4, segments=True,
+         steps=3),
+    dict(name="train_mesh_hsdp_dp2_tp2", model="smol",
+         mesh={"dp": 2, "tp": 2}, rules="hsdp", B=4, segments=True, steps=3),
+    dict(name="train_mesh_zero2_dp4", model="smol", mesh={"dp": 4},
+         rules=None, zero=True, accum=2, B=8, segments=False, steps=3,
+         nan_after=2),
+)
+
+
+def train_mesh_cfg(job):
+    import torch
+    from nbdistributed_tpu_torch.models import smol_135m_config
+    if job["model"] == "smol":
+        return smol_135m_config(dtype=torch.float32, remat=True)
+    return mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS,
+                       moe_dispatch="dropless")
+
+
+def train_mesh_batch(job, cfg):
+    """The job's whole batch on the card (every rank makes the same one
+    and takes its rows); ``scale`` (ones) is what the NaN step poisons."""
+    import torch
+    batch = dict(packed_batch(cfg, job["B"], TRAIN_MESH_S,
+                              TRAIN_MESH_BATCH_SEED))
+    if not job["segments"]:
+        del batch["segments"]
+    batch["scale"] = torch.ones(job["B"], device="cuda")
+    return batch
+
+
+def train_mesh_reference(job):
+    """The single-process step (the port's ``loss_fn`` or ``moe_loss_fn``
+    and AdamW) on the whole tree and batch: each step's loss and
+    gradient norm, and the final leaves on the host."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_moe_model,
+                                                init_params, loss_fn,
+                                                moe_loss_fn,
+                                                named_param_leaves)
+
+    cfg = train_mesh_cfg(job)
+    smol = job["model"] == "smol"
+    params = init_params(cfg, 0) if smol else init_moe_model(cfg, 0)
+    batch = train_mesh_batch(job, cfg)
+    named = named_param_leaves(params)
+    leaves = [t.requires_grad_() for _, t in named]
+    opt = AdamW(leaves, lr=TRAIN_MESH_LR)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms = [], []
+    for _ in range(job["steps"]):
+        for p in leaves:
+            p.grad = None
+        loss = (loss_fn if smol else moe_loss_fn)(params, batch, cfg)
+        loss.backward()
+        gnorms.append(float(torch.stack([p.grad.float().pow(2).sum()
+                                         for p in leaves]).sum().sqrt()))
+        opt.step()
+        losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = {path: t.detach().cpu() for path, t in named}
+    del params, named, leaves, opt, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gnorms=gnorms, peak_gb=peak), final
+
+
+def train_mesh_job(job, counts, send):
+    """One training job on this rank: the model built from the seed and
+    cut to this rank's shard, the guarded step (ZeRO-2: with the NaN
+    step), counts reset just before the steps and read per step; then
+    each leaf shard this rank is the first holder of goes to the parent
+    (``send``) to be held to the reference."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, fsdp_param_shardings,
+                                                init_params, loss_fn,
+                                                moe_loss_fn,
+                                                moe_model_shardings,
+                                                named_param_leaves,
+                                                param_leaves,
+                                                param_shardings)
+    from nbdistributed_tpu_torch.parallel import (apply_shardings, make_mesh,
+                                                  make_tp_train_step,
+                                                  make_zero2_train_step,
+                                                  shard_batch)
+    from nbdistributed_tpu_torch.parallel.mesh import spec_split
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(job["mesh"])
+    cfg = train_mesh_cfg(job)
+    torch.cuda.reset_peak_memory_stats()
+    if job["model"] == "smol":
+        rules = {"megatron": param_shardings(cfg),
+                 "hsdp": fsdp_param_shardings(cfg, tp_axis="tp"),
+                 None: None}[job["rules"]]
+        params = init_params(cfg, 0)
+        if rules is not None:
+            params = apply_shardings(params, mesh, rules)
+
+        def loss(p, b):
+            return loss_fn(p, b, cfg, mesh=mesh, rules=rules) * \
+                b["scale"].mean()
+    else:
+        rules = moe_model_shardings(cfg, tp_axis=None)
+        params = seeded_moe_shard(cfg, 0, mesh, rules)
+
+        def loss(p, b):
+            return moe_loss_fn(p, b, cfg, mesh=mesh, rules=rules)
+    opt = AdamW(param_leaves(params), lr=TRAIN_MESH_LR)
+    batch = train_mesh_batch(job, cfg)
+    if "dp" in mesh.shape:
+        batch = shard_batch(batch, mesh)
+    zero = None
+    if job.get("zero"):
+        step, init = make_zero2_train_step(loss, opt, mesh, rules, params,
+                                           accum_steps=job["accum"],
+                                           guard=True)
+        zero = init(params)
+    else:
+        step = make_tp_train_step(loss, opt, mesh, rules, guard=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for k in counts:
+        counts[k] = 0
+    losses, vs, secs, per_step, coll = [], [], [], [], []
+    row = {}
+    t_steps = time.perf_counter()
+
+    def one(b):
+        before, c0 = launch_counts(), dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lval, aux = step(params, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        coll.append(sum(counts[k] - c0[k] for k in counts))
+        return float(lval), aux["v"].tolist()
+
+    for i in range(job["steps"]):
+        if i == job.get("nan_after"):
+            bad = dict(batch, scale=batch["scale"].clone())
+            if mesh.index("dp") == 0:
+                bad["scale"][0] = float("nan")
+            state = [zero.moments(t) for t in param_leaves(params)]
+            snap = ([t.clone() for t in param_leaves(params)],
+                    [{k: (v.clone() if torch.is_tensor(v) else v)
+                      for k, v in st.items()} for st in state])
+            _, v_bad = one(bad)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(snap[0], param_leaves(params))) and all(
+                all(torch.equal(a[k], b[k]) if torch.is_tensor(a[k])
+                    else a[k] == b[k] for k in a)
+                for a, b in zip(snap[1], state))
+            row.update(nan_step_v=v_bad, nan_step_skipped_bitwise=same)
+            del snap
+        lval, v = one(batch)
+        losses.append(lval)
+        vs.append(v)
+    if zero is not None:
+        row["moment_fraction"] = sorted({
+            zero.moments(t)["mu"].numel() / t.numel()
+            for t in param_leaves(params)})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_send, sent = time.perf_counter(), 0
+    for path, t in named_param_leaves(params):
+        node = rules
+        for key in path.split("/"):
+            node = node.get(key) if isinstance(node, dict) else None
+        spec = tuple(node or ())
+        used = {a for e in spec for a in
+                ((e,) if isinstance(e, str) else (e or ()))}
+        if any(mesh.index(a) for a in mesh.shape if a not in used):
+            continue                 # another rank holds this slice too
+        split = [spec_split(mesh, spec[d] if d < len(spec) else None)
+                 for d in range(t.ndim)]
+        # Into shared memory: the queue then passes a handle, not bytes.
+        host = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+        host.copy_(t.detach())
+        send(("leaf", job["name"], path, split, host))
+        sent += 1
+    steady = sorted(secs[1:]) or secs
+    t_end = time.perf_counter()
+    row.update(seconds=dict(setup=t_steps - t_start, steps=t_send - t_steps,
+                            send=t_end - t_send),
+               losses=losses, v=vs, launches_per_step=per_step,
+               ms_per_step=[1e3 * x for x in secs],
+               ms_per_step_median=1e3 * steady[len(steady) // 2],
+               collectives_per_step=coll, collectives=dict(counts),
+               peak_gb=peak, leaves_sent=sent,
+               k1=sum(c["k1"] for c in per_step),
+               k2=sum(c["k2"] for c in per_step),
+               k3=sum(c["k3"] for c in per_step))
+    del params, opt, step, batch, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_mesh(backend="gloo"):
+    """Phase 19: the references here, then the four ranks train every
+    job; every rank's losses equal, the losses within 1e-5 and each
+    step's gradient norm within 1e-4 relative of the reference's, every
+    leaf (gathered from the shards) within 1e-4 relative L2 of the
+    reference's final leaf, K1/K2/K3 launches per rank per step as the
+    model and accumulation give them, the ZeRO moments a quarter of each
+    leaf and the NaN step skipped bitwise; no kernel rebuilt."""
+    import torch
+
+    ts = time.perf_counter()
+    refs, finals, key_of = {}, {}, {}
+    for job in TRAIN_MESH_JOBS:
+        key = (job["model"], job["B"], job["segments"], job["steps"])
+        key_of[job["name"]] = key
+        if key not in refs:
+            t0 = time.perf_counter()
+            refs[key], finals[key] = train_mesh_reference(job)
+            refs[key]["seconds"] = time.perf_counter() - t0
+            say("train_mesh_reference", job=job["name"], **refs[key])
+    acc, compare_s = {}, [0.0]
+
+    def on_item(rank, item):
+        t0 = time.perf_counter()
+        _, name, path, split, arr = item
+        ref = finals[key_of[name]][path]
+        for d, (n, idx) in enumerate(split):
+            if n > 1:
+                w = ref.shape[d] // n
+                ref = ref.narrow(d, idx * w, w)
+        got = arr
+        check(got.shape == ref.shape, f"{name} {path}: shard "
+              f"{tuple(got.shape)} against {tuple(ref.shape)}")
+        e = acc.setdefault(name, {}).setdefault(path, [0.0, 0.0, 0])
+        e[0] += float(torch.linalg.vector_norm(got - ref)) ** 2
+        e[1] += float(torch.linalg.vector_norm(ref)) ** 2
+        e[2] += got.numel()
+        compare_s[0] += time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    t_ranks, t_wall = time.perf_counter(), time.time()
+    ranks = run_mesh_ranks([dict(j, train=True) for j in TRAIN_MESH_JOBS],
+                           backend, on_item)
+    t_ranks = time.perf_counter() - t_ranks
+    c0 = ranks[0]["clock"]
+    clock = {"spawn_to_ready_s": c0["ready"] - t_wall,
+             "ready_to_done_s": c0["done"] - c0["ready"],
+             "done_to_joined_s": t_wall + t_ranks - c0["done"]}
+    check(all(r["rebuilt"] == [] for r in ranks.values()),
+          f"a mesh rank rebuilt kernels: "
+          f"{[r['rebuilt'] for r in ranks.values()]}")
+    rows = {}
+    for job in TRAIN_MESH_JOBS:
+        name, ref = job["name"], refs[key_of[job["name"]]]
+        per = [ranks[r][name] for r in range(MESH_WORLD)]
+        first = per[0]
+        cfg = train_mesh_cfg(job)
+        L = cfg.n_layers
+        micro = job.get("accum", 1)
+        want = ({"k1": 2 * L * micro, "k2": L * micro, "k3": L * micro}
+                if job["model"] == "smol" else {"k1": L, "k2": L, "k3": L})
+        check(all(p["losses"] == first["losses"] for p in per),
+              f"{name}: the ranks' losses differ: "
+              f"{[p['losses'] for p in per]}")
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(first["losses"], ref["losses"])]
+        gnorm_rel = [abs(v[2] - g) / g for v, g in zip(first["v"],
+                                                      ref["gnorms"])]
+        leaf = {path: (e[0] / e[1]) ** 0.5 if e[1] else e[0] ** 0.5
+                for path, e in acc.get(name, {}).items()}
+        covered = {path: e[2] for path, e in acc.get(name, {}).items()}
+        whole = {path: t.numel()
+                 for path, t in finals[key_of[name]].items()}
+        worst = max(leaf, key=leaf.get) if leaf else None
+        launches_ok = all(c == want for p in per
+                          for c in p["launches_per_step"])
+        rows[name] = dict(
+            mesh=job["mesh"], rules=job["rules"], layers=L, batch=job["B"],
+            seq=TRAIN_MESH_S, steps=job["steps"], lr=TRAIN_MESH_LR,
+            losses=first["losses"], reference_losses=ref["losses"],
+            loss_rel_err=loss_rel, gnorm=[v[2] for v in first["v"]],
+            reference_gnorm=ref["gnorms"], gnorm_rel_err=gnorm_rel,
+            worst_leaf=worst, worst_leaf_rel_l2=leaf.get(worst),
+            leaves=len(leaf), launches_per_step_rank0=first[
+                "launches_per_step"], want_per_step=want,
+            k1_launches_rank0=first["k1"], k2_launches_rank0=first["k2"],
+            k3_launches_rank0=first["k3"],
+            ms_per_step_median_per_rank=[p["ms_per_step_median"]
+                                         for p in per],
+            ms_per_step_rank0=first["ms_per_step"],
+            collectives_per_step_rank0=first["collectives_per_step"],
+            collectives_rank0=first["collectives"],
+            peak_gb_per_rank=[p["peak_gb"] for p in per],
+            reference_peak_gb=ref["peak_gb"], seconds_rank0=first["seconds"],
+            backend=backend,
+            note=MESH_NOTE[backend],
+            **{k: first[k] for k in ("nan_step_v", "nan_step_skipped_bitwise",
+                                     "moment_fraction") if k in first})
+        say(name, **rows[name])
+        check(all(v[0] == 1.0 for p in per for v in p["v"]),
+              f"{name}: a good step was skipped")
+        check(max(loss_rel) <= TRAIN_MESH_LOSS_RTOL,
+              f"{name}: losses {first['losses']} against {ref['losses']}")
+        check(max(gnorm_rel) <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: gradient norms {rows[name]['gnorm']} against "
+              f"{ref['gnorms']}")
+        check(covered == whole, f"{name}: leaves not covered by the "
+              f"shards: {sorted(set(whole) - set(covered))}")
+        check(leaf[worst] <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: leaf {worst} {leaf[worst]} over "
+              f"{TRAIN_MESH_LEAF_RTOL}")
+        check(launches_ok, f"{name}: launches per step "
+              f"{[p['launches_per_step'] for p in per]}, want {want}")
+        if job.get("zero"):
+            check(all(p["moment_fraction"] == [0.25] for p in per),
+                  f"{name}: moment shards {first['moment_fraction']}")
+            check(all(p["nan_step_v"][0] == 0.0
+                      and p["nan_step_skipped_bitwise"] for p in per),
+                  f"{name}: the NaN step was not skipped bitwise")
+    rows["seconds"] = time.perf_counter() - ts
+    say("train_mesh_seconds", seconds=rows["seconds"], ranks_s=t_ranks,
+        rank0_clock=clock, compare_s=compare_s[0],
+        references_s=sum(r["seconds"] for r in refs.values()))
     return rows
 
 
@@ -2715,8 +3099,8 @@ def gpu_name_and_power():
 
 
 def main_mesh_nccl() -> int:
-    """``--mesh-nccl``: phase 18 alone on four cards, one NCCL rank each,
-    against the solo references it computes first on card 0."""
+    """``--mesh-nccl``: phases 18 and 19 alone on four cards, one NCCL
+    rank each, against the references they compute first on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -2738,9 +3122,10 @@ def main_mesh_nccl() -> int:
     msolo = solo_outputs(init_moe_model(mix, 0), mix,
                          make_requests(mix)[:8])
     mesh = phase_mesh(prompts, solo, msolo, backend="nccl")
+    train_mesh = phase_train_mesh(backend="nccl")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
-        {"cards": cards, "mesh": mesh}, indent=1))
+        {"cards": cards, "mesh": mesh, "train_mesh": train_mesh}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2790,6 +3175,7 @@ def main() -> int:
     moe = phase_moe()
     torch.cuda.empty_cache()
     mesh = phase_mesh(prompts, solo32, moe["fp32"]["solo"])
+    train_mesh = phase_train_mesh()
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2828,6 +3214,11 @@ def main() -> int:
                 "train_moe": moe["train"]["k1"]}
     k2_paths = {"train": train["k2"], "train_moe": moe["train"]["k2"]}
     k3_paths = {"train": train["k3"], "train_moe": moe["train"]["k3"]}
+    for name, row in train_mesh.items():
+        if name != "seconds":
+            k1_paths[name] = row["k1_launches_rank0"]
+            k2_paths[name] = row["k2_launches_rank0"]
+            k3_paths[name] = row["k3_launches_rank0"]
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -2877,7 +3268,8 @@ def main() -> int:
          "lora_losses": lora_losses, "ptxas": ptxas,
          "serving_beyond_dense": beyond,
          "serving_beyond_dense_seconds": seconds, "moe": moe,
-         "cluster": cluster, "hf": hf_row, "mesh": mesh},
+         "cluster": cluster, "hf": hf_row, "mesh": mesh,
+         "train_mesh": train_mesh},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,7 @@ from .generate import (forward_with_cache, generate, init_kv_cache,
 from .hf import (config_from_hf, load_hf_pretrained, moe_config_from_hf,
                  moe_params_from_hf, params_from_hf)
 from .lora import (ALL_TARGETS, ATTN_TARGETS, lora_init, lora_merge,
-                   lora_num_params, make_lora_train_step)
+                   lora_num_params, lora_shardings, make_lora_train_step)
 from .moe import (MoEConfig, init_moe_model, mixtral_8x7b_config,
                   moe_forward, moe_forward_hidden, moe_loss_fn,
                   moe_model_shardings, tiny_moe_config)
@@ -23,7 +23,8 @@ from .quant import (DEFAULT_TARGETS, EXPERT_TARGETS, dequantize_weight,
 from .serving import DecodeServer
 from .speculative import speculative_generate
 from .transformer import (AdamW, TransformerConfig, apply_optimizer_updates,
-                          forward, forward_hidden, init_params,
+                          forward, forward_hidden, fsdp_param_shardings,
+                          init_params,
                           llama2_7b_config, loss_fn, make_layer_fn,
                           make_train_step, mistral_7b_config,
                           named_param_leaves, num_tokens_per_step,
@@ -36,11 +37,13 @@ __all__ = ["ALL_TARGETS", "ATTN_TARGETS", "AdamW", "DEFAULT_TARGETS",
            "DecodeServer", "EXPERT_TARGETS", "MoEConfig",
            "TransformerConfig", "apply_optimizer_updates", "config_from_hf",
            "dequantize_weight", "dequantize_weight4", "forward",
-           "forward_hidden", "forward_with_cache", "generate",
+           "forward_hidden", "forward_with_cache", "fsdp_param_shardings",
+           "generate",
            "init_kv_cache", "init_moe_model", "init_params",
            "kv_cache_shardings",
            "llama2_7b_config", "load_hf_pretrained", "lora_from_jax", "lora_init", "lora_merge",
-           "lora_num_params", "lora_to_numpy", "loss_fn", "make_generate_fn",
+           "lora_num_params", "lora_shardings", "lora_to_numpy", "loss_fn",
+           "make_generate_fn",
            "make_layer_fn", "make_lora_train_step", "make_train_step",
            "mistral_7b_config", "mixtral_8x7b_config", "moe_config_from_hf",
            "moe_forward",

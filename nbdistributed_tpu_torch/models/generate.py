@@ -19,6 +19,9 @@ on its own shard, as SPMD over processes: batch rows over ``dp``, heads
 and FFN columns over ``tp`` (Megatron: one ``psum`` after ``wo`` and one
 after ``w_down``; the column-split embedding and the vocab-split
 lm_head gathered over ``tp``), and the cache's token axis over ``sp``.
+The ``tp`` split is the training forward's (:func:`_decode_layout`
+builds its :class:`.transformer.MeshLayout`): heads that ``tp`` does
+not divide are gathered and attended whole on every ``tp`` rank.
 A decode step runs the flash-decode kernel on each rank's (B/dp,
 Hkv/tp, T/sp) cache slice at positions shifted by the slice's offset,
 and the ``sp`` ranks merge by their lse (:func:`_flash_decode_on_mesh`);
@@ -39,9 +42,10 @@ from ..parallel.mesh import P, local_slice, shard_batch, spec_split
 from ..parallel.tensor_parallel import int4_row_shard
 from .moe import MoEConfig, _moe_mlp_block
 from .quant import dequantize_weight, quantize_weight
-from .transformer import (TransformerConfig, _as_tokens, _mlp_block,
+from .transformer import (MeshLayout, TransformerConfig, _as_tokens,
+                          _attn_out, _embed, _head, _mlp_block, _qkv,
                           _rms_norm, _rope, is_quantized, is_quantized4,
-                          layer_params, qlinear)
+                          layer_params, param_shardings, tp_heads_split)
 
 
 # ----------------------------------------------------------------------
@@ -58,7 +62,8 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
     this rank allocates its own shard at its local shape (never a view
     of a whole buffer: the decode kernel takes contiguous caches), laid
     out by ``rules`` (default: :func:`kv_cache_shardings` on the axes the
-    mesh has).  An extent the rules do not divide raises a ValueError
+    mesh has, the KV heads whole where ``tp`` does not divide the head
+    counts).  An extent the rules do not divide raises a ValueError
     naming the axis."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
@@ -70,7 +75,7 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, *,
         if rules is None:
             rules = kv_cache_shardings(
                 dp_axis="dp" if "dp" in mesh.shape else None,
-                tp_axis="tp" if "tp" in mesh.shape else None,
+                tp_axis=kv_tp_axis(cfg, mesh),
                 sp_axis="sp" if "sp" in mesh.shape else None,
                 quantized=quantized)
         missing = set(shapes) - set(rules)
@@ -238,27 +243,37 @@ def _dp_rows(x, mesh):
     return shard_batch(x, mesh) if "dp" in mesh.shape else x
 
 
-def _can_flash_decode_on_mesh(mesh, B, H, Hkv, T=None) -> bool:
-    """Whether each shard holds whole head groups, whole batch rows and
-    (under ``sp``) equal token slices (``generate.py:221``)."""
-    tp_n, dp_n, sp_n = mesh.size("tp"), mesh.size("dp"), mesh.size("sp")
-    return (H % tp_n == 0 and Hkv % tp_n == 0 and B % dp_n == 0
-            and (T is None or T % sp_n == 0))
+def kv_tp_axis(cfg, mesh) -> str | None:
+    """``"tp"`` where a cache's KV heads split over it: a mesh whose
+    ``tp`` divides both head counts, so each rank holds whole GQA groups
+    (``generate.py:221``); else None, and the heads stay whole."""
+    split = tp_heads_split(cfg, mesh.size("tp"))
+    return "tp" if "tp" in mesh.shape and split else None
 
 
-def _check_mesh_decode(mesh, B, H, Hkv, T=None) -> None:
-    """Raise where :func:`_can_flash_decode_on_mesh` is false, naming
-    the axis and the sizes: the JAX package falls back to a replicated
-    einsum there, which an SPMD rank holding only its shard cannot run
-    (ROADMAP C2)."""
-    if _can_flash_decode_on_mesh(mesh, B, H, Hkv, T):
-        return
-    for axis, what, n in (("tp", "n_heads", H), ("tp", "n_kv_heads", Hkv),
-                          ("dp", "batch", B), ("sp", "max_len", T)):
-        if n is not None and n % mesh.size(axis):
-            raise ValueError(f"{what} {n} does not divide over the "
-                             f"{axis} axis of size {mesh.size(axis)}: each "
-                             f"rank must hold whole shards of it")
+def _decode_mesh(mesh, B: int, T: int | None = None):
+    """The mesh a decode call runs on: ``mesh`` without ``dp`` where it
+    does not divide the batch and without ``sp`` where it does not
+    divide ``max_len`` — those dimensions are then held whole on the
+    axis's ranks and computed replicated, as the JAX package's
+    replicated einsum computes them (``generate.py:345-363``).  Heads
+    that ``tp`` does not divide stay whole in the cache the same way
+    (:func:`init_kv_cache`, :func:`forward_with_cache`)."""
+    drop = [a for a, n in (("dp", B), ("sp", T))
+            if n is not None and n % mesh.size(a)]
+    return mesh.without(*drop) if drop else mesh
+
+
+def _token_blocks(mesh, used) -> int:
+    """How many blocks the dropless ``ep`` layer routes a call's tokens
+    in: JAX splits the flattened tokens over ``dp`` wherever ``dp``
+    divides them, so a call whose rows are whole on this rank
+    (``used`` lacks ``dp``) routes them as ``dp`` blocks
+    (``parallel.expert._dropless_ffn_ep`` keeps one block where they do
+    not divide)."""
+    if mesh is None or "dp" in used.shape:
+        return 1
+    return mesh.size("dp")
 
 
 # The tensor-parallel split of each layer weight: output columns or
@@ -309,26 +324,40 @@ def _tp_local_layer(layer: dict, cfg, mesh) -> dict:
     return out
 
 
+def _decode_layout(params: dict, cfg, mesh, ep_axis: str):
+    """The :class:`.transformer.MeshLayout` the cached forward runs on:
+    Megatron's split of the layer products (a whole layer is cut per
+    layer, :func:`_tp_local_layer`), and the embedding's and lm_head's
+    ``tp`` split read from their shapes (whole, or cut by
+    :func:`.transformer.param_shardings`)."""
+    if mesh is None:
+        return None
+    rules = param_shardings(cfg)
+    if params["embed"].shape[-1] == cfg.d_model:
+        rules["embed"] = None
+    if _weight_dims(params["lm_head"])[1] == cfg.vocab_size:
+        rules["lm_head"] = None
+    return MeshLayout(mesh, rules, ep_axis)
+
+
 def _make_mlp_fn(cfg: TransformerConfig, token_mask=None, mesh=None,
-                 ep_axis: str = "ep"):
+                 ep_axis: str = "ep", token_blocks: int = 1, lay=None):
     """The per-layer feed-forward branch (``generate.py:231``): the
-    dense SwiGLU (its row-split ``w_down`` summed over ``tp``), or the
-    MoE block for a :class:`.moe.MoEConfig`, with ``token_mask``
-    reaching its expert dispatch."""
+    dense SwiGLU (split over ``tp`` by ``lay``), or the MoE block for a
+    :class:`.moe.MoEConfig`, with ``token_mask`` reaching its expert
+    dispatch."""
     if isinstance(cfg, MoEConfig):
-        return lambda x, layer: _moe_mlp_block(x, layer, cfg, mesh, ep_axis,
-                                               token_mask=token_mask)[0]
-    if mesh is not None and mesh.size("tp") > 1:
-        return lambda x, layer: _mlp_block(
-            x, layer, cfg, reduce=lambda y: mesh.psum(y, "tp"))
-    return lambda x, layer: _mlp_block(x, layer, cfg)
+        return lambda x, layer: _moe_mlp_block(
+            x, layer, cfg, mesh, ep_axis, token_mask=token_mask,
+            token_blocks=token_blocks)[0]
+    return lambda x, layer: _mlp_block(x, layer, cfg, lay=lay)
 
 
 @torch.no_grad()
 def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
                        cfg: TransformerConfig, *, last_only: bool = False,
                        last_index=None, mesh=None, ep_axis: str = "ep",
-                       row_mask=None, token_mask=None):
+                       row_mask=None, token_mask=None, token_blocks: int = 1):
     """Run ``tokens`` (B, S) through the model, writing K/V into
     ``cache`` at offset ``cache_len`` (an int or a per-row (B,)
     tensor) and attending everything up to each position.
@@ -350,7 +379,12 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     ``dp`` (``parallel.mesh.shard_batch``), the cache its
     :func:`init_kv_cache` shard; the parameters are split by
     :func:`.transformer.param_shardings` or whole (each rank then cuts
-    its shard per layer).  MoE experts split over ``ep_axis``."""
+    its shard per layer).  Where ``tp`` does not divide the head counts
+    the cache holds every head (:func:`init_kv_cache`): q, k and v are
+    gathered over ``tp``, every head attended on every ``tp`` rank and
+    this rank's columns of the output kept for ``wo``'s row split.
+    MoE experts split over ``ep_axis``; the dropless ``ep`` layer routes
+    the call's tokens as ``token_blocks`` blocks (:func:`_token_blocks`)."""
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
@@ -364,9 +398,8 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     positions = offs + torch.arange(S, device=device).expand(B, S)
     tp = mesh is not None and mesh.size("tp") > 1
     sp = mesh is not None and mesh.size("sp") > 1
-    x = params["embed"][tokens].to(cfg.dtype)
-    if tp and x.shape[-1] != cfg.d_model:        # column-split embedding
-        x = mesh.all_gather(x, "tp", dim=-1)
+    lay = _decode_layout(params, cfg, mesh, ep_axis)
+    x = _embed(params, tokens, cfg, lay)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if token_mask is not None:
         token_mask = torch.as_tensor(token_mask, dtype=torch.bool,
@@ -374,7 +407,7 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
     if row_mask is not None:
         rows = row_mask.to(device)[:, None].expand(B, S)
         token_mask = rows if token_mask is None else token_mask & rows
-    mlp = _make_mlp_fn(cfg, token_mask, mesh, ep_axis)
+    mlp = _make_mlp_fn(cfg, token_mask, mesh, ep_axis, token_blocks, lay)
     quantized = "k_s" in cache
     window = cfg.sliding_window
     decode = S == 1 and cfg.use_flash
@@ -396,11 +429,10 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
         ks = cache["k_s"][i] if quantized else None
         vs = cache["v_s"][i] if quantized else None
         h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _rope(qlinear(h, layer["wq"]).reshape(B, S, -1, Dh), positions,
-                  cfg.rope_theta)
-        k = _rope(qlinear(h, layer["wk"]).reshape(B, S, -1, Dh),
-                  positions, cfg.rope_theta)
-        v = qlinear(h, layer["wv"]).reshape(B, S, -1, Dh)
+        q, k, v, local = _qkv(h, layer, cfg, lay)
+        q = _rope(q.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+        k = _rope(k.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+        v = v.reshape(B, S, -1, Dh)
         kT, vT = k.transpose(1, 2), v.transpose(1, 2)   # heads-major
         if quantized:
             k8, k_sc = _quantize_kv(kT)
@@ -429,19 +461,14 @@ def forward_with_cache(params: dict, tokens, cache: dict, cache_len,
             else:
                 o = _cached_attention(q, kc, vc, positions, scale,
                                       window=window)
-        y = qlinear(o.reshape(B, S, -1), layer["wo"])
-        x = x + (mesh.psum(y, "tp") if tp else y)
-        x = mlp(x, layer)
+        x = mlp(_attn_out(x, o.reshape(B, S, -1), layer, lay, local), layer)
     if last_index is not None:
         idx = torch.as_tensor(last_index, dtype=torch.long, device=device)
         x = x.gather(1, idx.reshape(B, 1, 1).expand(B, 1, x.shape[-1]))
     elif last_only:
         x = x[:, -1:]
     x = _rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = qlinear(x, params["lm_head"]).float()
-    if tp and logits.shape[-1] != cfg.vocab_size:   # vocab-split head
-        logits = mesh.all_gather(logits, "tp", dim=-1)
-    return logits, cache
+    return _head(x, params, lay), cache
 
 
 # ----------------------------------------------------------------------
@@ -497,9 +524,10 @@ def generate(params: dict, prompt, cfg: TransformerConfig,
 
     With ``mesh``, every rank passes the whole prompt and gets the whole
     result: each decodes its ``dp`` rows against its shard of the cache
-    (:func:`init_kv_cache` on the mesh; batch, heads and ``max_len``
-    must divide over ``dp``, ``tp`` and ``sp``), and the rows are
-    gathered over ``dp`` at the end."""
+    (:func:`init_kv_cache` on the mesh), and the rows are gathered over
+    ``dp`` at the end.  A batch, head count or ``max_len`` that ``dp``,
+    ``tp`` or ``sp`` does not divide is held whole on that axis's ranks
+    (:func:`_decode_mesh`)."""
     device = params["embed"].device
     prompt = _as_tokens(prompt, device)
     if max_new_tokens < 0:
@@ -518,23 +546,24 @@ def generate(params: dict, prompt, cfg: TransformerConfig,
     if T < S0 + max_new_tokens:
         raise ValueError(f"max_len {T} < prompt {S0} + new "
                          f"{max_new_tokens}")
+    fwd = {}
     if mesh is not None:
-        _check_mesh_decode(mesh, B, cfg.n_heads, cfg.n_kv_heads, T)
-        prompt = _dp_rows(prompt, mesh)
-    cache = init_kv_cache(cfg, B, T, mesh=mesh, quantized=kv_quantized,
-                          device=device)
+        dmesh = _decode_mesh(mesh, B, T)
+        fwd = dict(mesh=dmesh, ep_axis=ep_axis,
+                   token_blocks=_token_blocks(mesh, dmesh))
+        prompt = _dp_rows(prompt, dmesh)
+    cache = init_kv_cache(cfg, B, T, mesh=fwd.get("mesh"),
+                          quantized=kv_quantized, device=device)
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
-                                       last_only=True, mesh=mesh,
-                                       ep_axis=ep_axis)
+                                       last_only=True, **fwd)
     toks = [_sample(logits[:, -1], temperature, generator, top_k, top_p)]
     for i in range(max_new_tokens - 1):
         logits, cache = forward_with_cache(params, toks[-1][:, None],
-                                           cache, S0 + i, cfg, mesh=mesh,
-                                           ep_axis=ep_axis)
+                                           cache, S0 + i, cfg, **fwd)
         toks.append(_sample(logits[:, -1], temperature, generator, top_k,
                             top_p))
     out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
-    return out if mesh is None else mesh.all_gather(out, "dp")
+    return out if mesh is None else fwd["mesh"].all_gather(out, "dp")
 
 
 def make_generate_fn(cfg: TransformerConfig, max_new_tokens: int, *,

@@ -1,5 +1,5 @@
 """Mixture-of-experts decoder transformer, Mixtral-style (counterpart of
-``nbdistributed_tpu/models/moe.py``, one device).
+``nbdistributed_tpu/models/moe.py``).
 
 The dense family's attention, RMSNorm and rotary stack
 (:mod:`.transformer`; K1 forward, K2/K3 backward) with the SwiGLU MLP
@@ -9,8 +9,9 @@ second (n_experts,) one: ``layers["moe"] = {"router" (L, D, E) fp32,
 "w_gate", "w_up" (L, E, D, F), "w_down" (L, E, F, D)}``.  The forward
 loops over layers and returns the load-balance aux loss averaged over
 them.  On a mesh (:mod:`..parallel.mesh`) the experts split over
-``ep`` (:func:`moe_model_shardings`) and the tokens over ``dp``; the
-training loss on a mesh is ROADMAP A8 and sequence parallelism A5.
+``ep`` (:func:`moe_model_shardings`), the tokens over ``dp`` and the
+attention over ``tp`` as in the dense family (``rules=``); the loss on
+a mesh trains there.  Sequence parallelism is ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from ..parallel.expert import init_moe_params, moe_ffn, moe_param_shardings
 from ..parallel.mesh import P
 from ..utils import fan_in_normal
 from .transformer import (TransformerConfig, _as_tokens, _attention_block,
-                          _rms_norm, is_quantized, is_quantized4,
-                          layer_params, packed_positions, qlinear,
+                          _chunked_tail, _embed, _head, _layout, _rms_norm,
+                          dp_loss_scale, layer_params, packed_positions,
                           shifted_xent)
 
 
@@ -122,40 +123,41 @@ def moe_model_shardings(cfg: MoEConfig, ep_axis: str = "ep",
 
 
 def _moe_mlp_block(x, layer, cfg: MoEConfig, mesh=None, ep_axis: str = "ep",
-                   token_mask=None, token_axes: tuple = ("dp",)):
+                   token_mask=None, token_axes: tuple = ("dp",),
+                   token_blocks: int = 1):
     """The MoE feed-forward residual block, shared by the training
     forward and the cached generation path; returns (x, layer aux).
     Masked tokens pass through the residual untouched.  On a mesh,
-    ``x``'s tokens are this rank's block over ``token_axes``."""
+    ``x``'s tokens are this rank's block over ``token_axes``, routed by
+    the dropless ``ep`` path as ``token_blocks`` blocks."""
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(h, layer["moe"], top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor, mesh=mesh,
                      ep_axis=ep_axis, dispatch_mode=cfg.moe_dispatch,
-                     token_mask=token_mask, token_axes=token_axes)
+                     token_mask=token_mask, token_axes=token_axes,
+                     token_blocks=token_blocks)
     return x + y, aux
 
 
 def _check_parallel(mesh, sp) -> None:
-    if sp is not None:
+    if sp is not None or (mesh is not None and mesh.size("sp") > 1):
         raise NotImplementedError("sp: sequence parallelism needs the "
                                   "port's ring/Ulysses attention "
                                   "(ROADMAP A5)")
-    if mesh is not None and any(mesh.size(a) > 1 for a in mesh.shape
-                                if a not in ("dp", "ep")):
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: the training forward runs on dp and ep "
-            f"axes; attention over tp or sp in training is ROADMAP A8")
 
 
 def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
                        ep_axis: str = "ep", positions=None, sp=None,
-                       segment_ids=None):
+                       segment_ids=None, rules=None, dp_axis: str = "dp"):
     """tokens (B, S) -> (final-norm hidden (B, S, D) in ``cfg.dtype``,
     aux fp32 scalar, the mean of the layers' load-balance losses).
-    ``mesh`` (dp and ep axes): ``tokens`` are this rank's rows over
-    ``dp`` (``parallel.mesh.shard_batch``), the experts split over
-    ``ep_axis``; the aux loss covers every rank's tokens."""
+    ``mesh``: ``tokens`` are this rank's rows over ``dp_axis``
+    (``parallel.mesh.shard_batch``), the experts split over ``ep_axis``
+    (read from the leaves' shapes) and the attention over ``tp`` by
+    ``rules`` (:func:`moe_model_shardings`; None: whole on every rank);
+    the aux loss covers every rank's tokens."""
     _check_parallel(mesh, sp)
+    lay = _layout(mesh, rules, ep_axis)
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
@@ -163,41 +165,47 @@ def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
                  if positions is None else _as_tokens(positions, device))
     if segment_ids is not None:
         segment_ids = _as_tokens(segment_ids, device)
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _embed(params, tokens, cfg, lay)
     aux = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
-        x = _attention_block(x, layer, cfg, positions, segment_ids)
-        x, layer_aux = _moe_mlp_block(x, layer, cfg, mesh, ep_axis)
+        if lay is not None:
+            layer = lay.layer(layer)
+        x = _attention_block(x, layer, cfg, positions, segment_ids, lay)
+        x, layer_aux = _moe_mlp_block(x, layer, cfg, mesh, ep_axis,
+                                      token_axes=(dp_axis,))
         aux = aux + layer_aux
-    return _rms_norm(x, params["final_norm"], cfg.norm_eps), \
-        aux / cfg.n_layers
+    norm = params["final_norm"] if lay is None else \
+        lay.gather(params["final_norm"], lay.spec("final_norm"))
+    return _rms_norm(x, norm, cfg.norm_eps), aux / cfg.n_layers
 
 
 def moe_forward(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
                 ep_axis: str = "ep", positions=None, sp=None,
-                segment_ids=None):
+                segment_ids=None, rules=None):
     """tokens (B, S) -> (logits (B, S, vocab) fp32, aux scalar).
     ``segment_ids``: packed documents for attention; expert dispatch
     routes every token whatever its document."""
     x, aux = moe_forward_hidden(params, tokens, cfg, mesh=mesh,
                                 ep_axis=ep_axis, positions=positions, sp=sp,
-                                segment_ids=segment_ids)
-    return qlinear(x, params["lm_head"]).float(), aux
+                                segment_ids=segment_ids, rules=rules)
+    return _head(x, params, _layout(mesh, rules, ep_axis)), aux
 
 
 def moe_loss_fn(params, batch, cfg: MoEConfig, *, mesh=None,
-                ep_axis: str = "ep", sp=None):
+                ep_axis: str = "ep", sp=None, rules=None,
+                dp_axis: str = "dp"):
     """Next-token cross-entropy (the dense family's logits-shift tail)
     plus ``cfg.lb_coef`` times the aux loss (``moe.py:185``).
     ``batch["segments"]`` packs documents: attention masked across them,
     RoPE restarting in each, boundary targets dropped.  With
     ``cfg.ce_chunk`` and a plain lm_head the chunked-vocab tail runs and
-    the (B, S, V) logits never exist.  ``mesh`` raises: training on a
-    mesh is ROADMAP A8."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: the MoE loss on an ep mesh is "
-                                  "training on a mesh (ROADMAP A8)")
+    the (B, S, V) logits never exist (off a mesh, as in JAX).
+
+    ``mesh``/``rules``: as :func:`moe_forward_hidden` takes them; the
+    result is this rank's loss, as ``transformer.loss_fn``'s on a mesh:
+    its mean over ``dp_axis`` is the whole batch's.  The aux term is the
+    whole batch's on every rank."""
     _check_parallel(mesh, sp)
     device = params["embed"].device
     tokens = _as_tokens(batch["tokens"], device)
@@ -206,14 +214,14 @@ def moe_loss_fn(params, batch, cfg: MoEConfig, *, mesh=None,
     if seg is not None:
         seg = _as_tokens(seg, device)
         positions = packed_positions(seg)
-    head = params["lm_head"]
-    if (cfg.ce_chunk is not None and not is_quantized(head)
-            and not is_quantized4(head)):
-        x, aux = moe_forward_hidden(params, tokens, cfg,
-                                    positions=positions, segment_ids=seg)
-        return (shifted_chunked_xent(x, head, tokens, segment_ids=seg,
-                                     chunk=cfg.ce_chunk)
+    x, aux = moe_forward_hidden(params, tokens, cfg, mesh=mesh,
+                                ep_axis=ep_axis, positions=positions,
+                                segment_ids=seg, rules=rules,
+                                dp_axis=dp_axis)
+    if mesh is None and _chunked_tail(cfg, params, None):
+        return (shifted_chunked_xent(x, params["lm_head"], tokens,
+                                     segment_ids=seg, chunk=cfg.ce_chunk)
                 + cfg.lb_coef * aux)
-    logits, aux = moe_forward(params, tokens, cfg, positions=positions,
-                              segment_ids=seg)
-    return shifted_xent(logits, tokens, segment_ids=seg) + cfg.lb_coef * aux
+    xent = shifted_xent(_head(x, params, _layout(mesh, rules, ep_axis)),
+                        tokens, segment_ids=seg)
+    return dp_loss_scale(seg, mesh, dp_axis) * xent + cfg.lb_coef * aux

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..serving_fast.paging import BlockAllocator, blocks_needed
-from .generate import init_kv_cache, kv_cache_shardings
+from .generate import init_kv_cache, kv_cache_shardings, kv_tp_axis
 
 
 def make_paged_pool(cfg, n_blocks: int, block_tokens: int, *, mesh=None,
@@ -48,8 +48,8 @@ def make_paged_pool(cfg, n_blocks: int, block_tokens: int, *, mesh=None,
     rules = None
     if mesh is not None:
         rules = kv_cache_shardings(
-            dp_axis=None, tp_axis="tp" if "tp" in mesh.shape else None,
-            sp_axis=None, quantized=quantized)
+            dp_axis=None, tp_axis=kv_tp_axis(cfg, mesh), sp_axis=None,
+            quantized=quantized)
     return init_kv_cache(cfg, int(n_blocks) + 1, int(block_tokens),
                          mesh=mesh, rules=rules, quantized=quantized,
                          device=device)

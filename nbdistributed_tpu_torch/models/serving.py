@@ -57,8 +57,9 @@ from __future__ import annotations
 import torch
 
 from ..serving_fast.paging import BlocksExhausted
-from .generate import (_check_mesh_decode, _check_sampling, _sample,
-                       forward_with_cache, init_kv_cache, kv_cache_shardings)
+from .generate import (_check_sampling, _decode_mesh, _sample, _token_blocks,
+                       forward_with_cache, init_kv_cache, kv_cache_shardings,
+                       kv_tp_axis)
 from .moe import MoEConfig
 from .paged_kv import (PagedKVCache, gather_dense, gather_row,
                        make_paged_pool, scatter_row, scatter_step)
@@ -139,20 +140,22 @@ class DecodeServer:
                     "expert capacity is shape-derived, so per-chunk "
                     "capacity would differ from a solo run's and "
                     "change which tokens drop")
-        if mesh is not None:
-            # The dense pool splits rows, heads and tokens; the paged
-            # pool heads only.
-            whole = kv_block_tokens is not None
-            for c in (cfg,) + ((draft_cfg,) if draft_cfg else ()):
-                _check_mesh_decode(
-                    mesh.without("dp", "sp") if whole else mesh,
-                    max_batch, c.n_heads, c.n_kv_heads, max_len)
         self._params = params
         self._cfg = cfg
         self._mesh = mesh
         self._ep_axis = ep_axis
+        # The dense pool splits rows, heads and tokens, the paged pool
+        # heads only; rows (tokens) that dp (sp) does not divide, and
+        # heads that tp does not divide, are held whole on the axis's
+        # ranks (generate._decode_mesh).
+        self._drop = ()
+        if mesh is not None:
+            pool = (mesh.without("dp", "sp") if kv_block_tokens is not None
+                    else _decode_mesh(mesh, max_batch, max_len))
+            self._drop = tuple(a for a in ("dp", "sp")
+                               if a in mesh.shape and a not in pool.shape)
         # A dp rank's slots: [dp_idx * B_loc, (dp_idx + 1) * B_loc).
-        split = mesh is not None and kv_block_tokens is None
+        split = mesh is not None and "dp" not in self._drop
         self._B_loc = max_batch // mesh.size("dp") if split else max_batch
         self._dp_idx = mesh.index("dp") if split else 0
         self._kv_quantized = kv_quantized
@@ -184,7 +187,8 @@ class DecodeServer:
             self._prefill_fn = self._make_prefill_paged()
         else:
             self._paged = None
-            self._cache = init_kv_cache(cfg, max_batch, max_len, mesh=mesh,
+            self._cache = init_kv_cache(cfg, max_batch, max_len,
+                                        mesh=self._pool_mesh(),
                                         quantized=kv_quantized,
                                         device=device)
             self._prefill_fn = self._make_prefill(cfg)
@@ -198,7 +202,8 @@ class DecodeServer:
         self._gamma = gamma
         if draft_cfg is not None:
             self._cache_d = init_kv_cache(draft_cfg, max_batch, max_len,
-                                          mesh=mesh, quantized=kv_quantized,
+                                          mesh=self._pool_mesh(),
+                                          quantized=kv_quantized,
                                           device=device)
             self._lens_d = torch.zeros(max_batch, dtype=torch.long,
                                        device=device)
@@ -229,12 +234,21 @@ class DecodeServer:
         """The dp coordinate of the ranks that hold ``slot``'s rows."""
         return slot // self._B_loc
 
+    def _pool_mesh(self):
+        """The mesh the dense pool splits over: without the axes that do
+        not divide it."""
+        return None if self._mesh is None else self._mesh.without(*self._drop)
+
     def _fwd(self, *drop: str) -> dict:
-        """forward_with_cache's mesh arguments, the mesh without the
-        axes ``drop`` (those the call's rows or cache are not split on)."""
+        """forward_with_cache's mesh arguments: the mesh without the axes
+        ``drop`` and those the pool is not split on (the call's rows or
+        cache are whole on them), the tokens routed as JAX's dp blocks
+        where its rows are whole (``generate._token_blocks``)."""
         if self._mesh is None:
             return {}
-        return dict(mesh=self._mesh.without(*drop), ep_axis=self._ep_axis)
+        used = self._mesh.without(*drop, *self._drop)
+        return dict(mesh=used, ep_axis=self._ep_axis,
+                    token_blocks=_token_blocks(self._mesh, used))
 
     def _make_prefill(self, cfg, whole: bool = False):
         """The prefill of one slot of the pool (``whole=False``) or of a
@@ -288,7 +302,8 @@ class DecodeServer:
 
     def _gather_rows(self, t):
         """This rank's rows of a per-slot result, gathered over ``dp``."""
-        if self._mesh is None or self._paged is not None:
+        if self._mesh is None or self._paged is not None or \
+                "dp" in self._drop:
             return t
         return self._mesh.all_gather(t, "dp")
 
@@ -418,14 +433,10 @@ class DecodeServer:
         # On a mesh the buffer splits over tp only, like the paged pool:
         # a one-row buffer cannot split over dp, and its length need not
         # divide sp.  Every rank prefills it.
-        rules = None
-        if self._mesh is not None:
-            rules = kv_cache_shardings(
-                dp_axis=None,
-                tp_axis="tp" if "tp" in self._mesh.shape else None,
-                sp_axis=None, quantized=self._kv_quantized)
-
         def build(cfg, params):
+            rules = None if self._mesh is None else kv_cache_shardings(
+                dp_axis=None, tp_axis=kv_tp_axis(cfg, self._mesh),
+                sp_axis=None, quantized=self._kv_quantized)
             # Room for the PADDED writes (bucket or whole chunks), so no
             # write is clamped onto earlier rows.
             ck = self._prefill_chunk
@@ -476,7 +487,7 @@ class DecodeServer:
         slot -= self._dp_idx * self._B_loc
         for name, c in cache.items():
             T_loc = c.shape[3]
-            off = self._mesh.index("sp") * T_loc if self._mesh else 0
+            off = self._pool_mesh().index("sp") * T_loc if self._mesh else 0
             lo, hi = max(off, 0), min(off + T_loc, pfx[name].shape[3])
             if lo < hi:
                 c[:, slot:slot + 1, :, lo - off:hi - off] = \
@@ -549,7 +560,8 @@ class DecodeServer:
                         self._top_k, self._top_p)
         else:
             t = torch.zeros(1, dtype=torch.long, device=self._device)
-        if self._mesh is not None and self._paged is None:
+        if (self._mesh is not None and self._paged is None
+                and "dp" not in self._drop):
             t = self._mesh.broadcast(t, "dp", owner)
         tok = int(t[0])
         self.outputs[rid].append(tok)

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from .generate import (_check_mesh_decode, _check_sampling, _dp_rows, _sample,
+from .generate import (_check_sampling, _decode_mesh, _dp_rows, _sample,
+                       _token_blocks,
                        forward_with_cache, init_kv_cache, truncate_logits)
 from .transformer import TransformerConfig, _as_tokens
 
@@ -91,7 +92,7 @@ def spec_round(params, draft_params, cfg, draft_cfg, *, gamma: int,
                temperature: float, cache_t, len_t, cache_d, len_d,
                last_tok, active, generator=None,
                top_k: int | None = None, top_p: float | None = None,
-               mesh=None, ep_axis: str = "ep"):
+               mesh=None, ep_axis: str = "ep", token_blocks: int = 1):
     """ONE draft-propose / target-verify round for B streams
     (``speculative.py:69``), shared by :func:`speculative_generate` and
     the server's speculative mode.  Both caches are written in place.
@@ -104,9 +105,11 @@ def spec_round(params, draft_params, cfg, draft_cfg, *, gamma: int,
     Returns ``(len_t, len_d, cand, n_acc, new_last)``: ``cand`` (B,
     gamma+1) holds each row's accepted prefix and the correction/bonus
     token at index ``n_acc`` (later entries stale); rows with
-    ``active`` False keep their pointers and last token.  ``mesh``: the
-    rows and caches are this rank's (:func:`.generate.forward_with_cache`)."""
-    fwd = dict(row_mask=active, mesh=mesh, ep_axis=ep_axis)
+    ``active`` False keep their pointers and last token.  ``mesh``,
+    ``token_blocks``: the rows and caches are this rank's
+    (:func:`.generate.forward_with_cache`)."""
+    fwd = dict(row_mask=active, mesh=mesh, ep_axis=ep_axis,
+               token_blocks=token_blocks)
     tok, lens, drafts, dlogits = last_tok, len_d, [], []
     for _ in range(gamma):
         lg, _ = forward_with_cache(draft_params, tok[:, None], cache_d, lens,
@@ -156,7 +159,8 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     all streams finished?).  With ``mesh``, every rank passes the whole
     prompt and gets the whole result: each runs its ``dp`` rows against
     its cache shards, the round loop runs until every rank's rows are
-    done, and the rows are gathered over ``dp`` at the end."""
+    done, and the rows are gathered over ``dp`` at the end.  Axes that
+    do not divide are held whole (``generate._decode_mesh``)."""
     device = params["embed"].device
     prompt = _as_tokens(prompt, device)
     if prompt.ndim != 2 or prompt.shape[0] < 1:
@@ -183,11 +187,11 @@ def speculative_generate(params: dict, draft_params: dict, prompt,
     if T < buf_len:
         raise ValueError(f"max_len {T} < required {buf_len} "
                          f"(prompt + max_new_tokens + gamma + 1)")
+    fwd = dict(mesh=None, ep_axis=ep_axis)
     if mesh is not None:
-        _check_mesh_decode(mesh, B, cfg.n_heads, cfg.n_kv_heads, T)
-        _check_mesh_decode(mesh, B, draft_cfg.n_heads,
-                           draft_cfg.n_kv_heads, T)
-    fwd = dict(mesh=mesh, ep_axis=ep_axis)
+        full, mesh = mesh, _decode_mesh(mesh, B, T)
+        fwd = dict(mesh=mesh, ep_axis=ep_axis,
+                   token_blocks=_token_blocks(full, mesh))
     cache_t = init_kv_cache(cfg, B, T, quantized=kv_quantized, device=device,
                             mesh=mesh)
     cache_d = init_kv_cache(draft_cfg, B, T, quantized=kv_quantized,

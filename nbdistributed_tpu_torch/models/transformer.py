@@ -11,6 +11,21 @@ attention goes through the flash kernel (``cfg.use_flash``) or the
 plain reference.  Every product goes through :func:`qlinear`, so a
 tree with int8/int4 weight leaves (:mod:`.quant`) runs the same
 forward.
+
+**On a mesh** (``mesh=``, ``rules=``; :mod:`..parallel.mesh`) every
+rank runs the same forward on its shard of the tree and its rows of the
+batch, issuing the collectives that GSPMD inserts in the JAX package.
+The rules say how each leaf was cut (:func:`param_shardings`,
+:func:`fsdp_param_shardings`): a leaf's ``tp`` entry splits its
+product (columns of wq/wk/wv/w_gate/w_up and rows of wo/w_down, with
+Megatron's ``f`` before and ``g`` after), and any other axis in its
+spec (``dp`` under FSDP) is gathered just before use, inside the remat
+region, so the recompute gathers again.  Attention takes its local
+heads to the kernel when ``tp`` divides both head counts, and otherwise
+gathers q, k and v over ``tp``, attends every head on every ``tp`` rank
+and keeps this rank's columns of the output for ``wo``'s row split.
+The loss on a mesh is this rank's: its mean over ``dp`` is the loss of
+the whole batch, packed documents included (:func:`loss_fn`).
 """
 
 from __future__ import annotations
@@ -24,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import attention_reference, flash_attention
 from ..ops.xent import shifted_chunked_xent
 from ..ops._common import resolve_device
-from ..parallel.mesh import P
+from ..parallel.mesh import P, _spec_axes
 from ..utils import fan_in_normal
 
 
@@ -167,6 +182,34 @@ def param_shardings(cfg: TransformerConfig) -> dict:
     }
 
 
+def fsdp_param_shardings(cfg: TransformerConfig, dp_axis: str = "dp",
+                         tp_axis: str | None = None) -> dict:
+    """FSDP rules (``transformer.py:204``): every large weight split over
+    ``dp_axis`` on the axis opposite to Megatron's (the contraction rows
+    of the column-split weights, the output columns of wo/w_down), the
+    embedding's and lm_head's first axis too; the forward gathers each
+    over ``dp`` just before use and its gradient comes back
+    reduce-scattered.  With ``tp_axis`` the Megatron split applies on
+    the other axis at once (HSDP).  Norms stay whole."""
+    row, col = dp_axis, tp_axis
+    return {
+        "embed": P(dp_axis, col),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, row, col),
+            "wk": P(None, row, col),
+            "wv": P(None, row, col),
+            "wo": P(None, col, row),
+            "mlp_norm": P(None, None),
+            "w_gate": P(None, row, col),
+            "w_up": P(None, row, col),
+            "w_down": P(None, col, row),
+        },
+        "final_norm": P(None),
+        "lm_head": P(dp_axis, col),
+    }
+
+
 def _slice_layer(t, i: int):
     return ({k: _slice_layer(v, i) for k, v in t.items()}
             if isinstance(t, dict) else t[i])
@@ -275,16 +318,144 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+class MeshLayout:
+    """This rank's tree on a mesh, read from its rule tree (module
+    docstring): the ``tp`` split of each layer product, and the axes of
+    each leaf's spec other than ``keep`` (``tp`` and ``ep_axis``, which
+    the model computes split), which the forward gathers over before
+    using the leaf.  ``rules=None`` is a tree held whole on every
+    rank."""
+
+    def __init__(self, mesh, rules, ep_axis: str = "ep"):
+        self.mesh, self.rules = mesh, rules
+        self.keep = ("tp", ep_axis)
+        self.tp = "tp" if mesh.size("tp") > 1 else None
+        layers = (rules or {}).get("layers", {})
+        self.kinds = {name: self._kind(layers.get(name))
+                      for name in LAYER_WEIGHTS}
+
+    def _kind(self, spec):
+        """``"col"`` or ``"row"``: a stacked weight's output columns or
+        contraction rows split over ``tp``; None if neither."""
+        if self.tp is None or spec is None or len(spec) < 3:
+            return None
+        if self.tp in _spec_axes(spec[-1]):
+            return "col"
+        return "row" if self.tp in _spec_axes(spec[-2]) else None
+
+    def spec(self, name: str):
+        return None if self.rules is None else self.rules.get(name)
+
+    def gather(self, x, spec):
+        """``x`` gathered over the axes of ``spec`` it must not stay cut
+        on, differentiably (the backward reduce-scatters)."""
+        if spec is None:
+            return x
+        if isinstance(spec, dict):
+            return {k: self.gather(x[k], spec.get(k)) for k in x}
+        for dim, entry in enumerate(spec):
+            axes = [a for a in _spec_axes(entry) if self.mesh.size(a) > 1]
+            gathered = [a for a in axes if a not in self.keep]
+            if gathered and len(gathered) != len(axes):
+                raise NotImplementedError(
+                    f"spec entry {entry!r} mixes gathered and split axes")
+            for a in reversed(gathered):
+                x = self.mesh.gather_sum(x, a, dim)
+        return x
+
+    def layer(self, layer: dict) -> dict:
+        """Layer slices (views of the stacked leaves) with their gathered
+        axes gathered: the rules' entries past the layer axis."""
+        specs = (self.rules or {}).get("layers")
+        if not specs:
+            return layer
+        return {k: self.gather(v, _drop_layer_axis(specs.get(k)))
+                for k, v in layer.items()}
+
+    def split_by(self, name: str) -> bool:
+        """Whether a top-level leaf's last axis is split over ``tp``
+        (the embedding's ``d_model``, the lm_head's vocabulary)."""
+        spec = self.spec(name)
+        return (self.tp is not None and spec is not None
+                and len(spec) == 2 and self.tp in _spec_axes(spec[-1]))
+
+
+def _drop_layer_axis(spec):
+    if spec is None:
+        return None
+    if isinstance(spec, dict):
+        return {k: _drop_layer_axis(v) for k, v in spec.items()}
+    if spec and _spec_axes(spec[0]):
+        raise NotImplementedError(f"a spec {spec!r} that splits the "
+                                  f"stacked layer axis")
+    return P(*spec[1:])
+
+
+def _tp_linear(x, w, kind, lay, split: bool = False, col_in=None):
+    """``x @ w`` for a product of ``kind`` on the ``tp`` axis: returns
+    (y, whether y is this rank's columns).  ``x`` is replicated, or
+    (``split``) this rank's columns of a column-split product's output;
+    ``col_in`` is ``lay.mesh.copy_to(x)`` when the caller shares one
+    ``f`` between several column-split products of ``x``."""
+    m, tp = lay.mesh, lay.tp
+    if kind == "row":
+        if not split:
+            x = m.scatter_to(x, tp, -1)
+        return m.reduce_from(qlinear(x, w), tp), False
+    if split:
+        x = m.gather_from(x, tp, -1)
+    if kind == "col":
+        return qlinear(m.copy_to(x, tp) if col_in is None else col_in,
+                       w), True
+    return qlinear(x, w), False
+
+
+def tp_heads_split(cfg: TransformerConfig, n_tp: int) -> bool:
+    """Whether ``n_tp`` tensor-parallel ranks take the heads split: it
+    divides both head counts, so each rank holds whole GQA groups."""
+    return cfg.n_heads % n_tp == 0 and cfg.n_kv_heads % n_tp == 0
+
+
+def _qkv(h, layer, cfg: TransformerConfig, lay: MeshLayout | None):
+    """q, k, v (B, S, heads * Dh) of the normed input ``h``, and whether
+    they are this rank's heads.  Over ``tp`` (module docstring) the
+    column-split products give local heads where ``tp`` divides both
+    head counts (:func:`tp_heads_split`); otherwise q, k and v are
+    gathered over ``tp`` and every rank attends every head.  Shared by
+    the training forward and the cached decode path."""
+    if lay is None or lay.tp is None:
+        return (*(qlinear(h, layer[n]) for n in ("wq", "wk", "wv")),
+                False)
+    kinds = [lay.kinds[n] for n in ("wq", "wk", "wv")]
+    col_in = lay.mesh.copy_to(h, lay.tp) if "col" in kinds else None
+    (q, sq), (k, sk), (v, sv) = (
+        _tp_linear(h, layer[n], kd, lay, col_in=col_in)
+        for n, kd in zip(("wq", "wk", "wv"), kinds))
+    if sq and sk and sv and tp_heads_split(cfg, lay.mesh.size(lay.tp)):
+        return q, k, v, True
+    q, k, v = (lay.mesh.gather_from(t, lay.tp, -1) if st else t
+               for t, st in ((q, sq), (k, sk), (v, sv)))
+    return q, k, v, False
+
+
+def _attn_out(x, o, layer, lay: MeshLayout | None, local: bool):
+    """The residual ``x + o @ wo``; over ``tp`` a row-split ``wo`` takes
+    this rank's columns of ``o`` (all of them when ``local``) and its
+    partial products are summed (Megatron's ``g``)."""
+    if lay is None or lay.tp is None:
+        return x + qlinear(o, layer["wo"])
+    return x + _tp_linear(o, layer["wo"], lay.kinds["wo"], lay, local)[0]
+
+
 def _attention_block(x, layer, cfg: TransformerConfig, positions,
-                     segment_ids=None):
+                     segment_ids=None, lay: MeshLayout | None = None):
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
     h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _rope(qlinear(h, layer["wq"]).reshape(B, S, H, Dh), positions,
-              cfg.rope_theta)
-    k = _rope(qlinear(h, layer["wk"]).reshape(B, S, Hkv, Dh), positions,
-              cfg.rope_theta)
-    v = qlinear(h, layer["wv"]).reshape(B, S, Hkv, Dh)
+    q, k, v, local = _qkv(h, layer, cfg, lay)
+    q = _rope(q.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+    k = _rope(k.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
+    v = v.reshape(B, S, -1, Dh)
     if cfg.use_flash:
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             True, None, cfg.sliding_window, segment_ids)
@@ -292,31 +463,52 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions,
         o = attention_reference(q, k, v, causal=True,
                                 window=cfg.sliding_window,
                                 segment_ids=segment_ids)
-    return x + qlinear(o.reshape(B, S, H * Dh), layer["wo"])
+    return _attn_out(x, o.reshape(B, S, -1), layer, lay, local)
 
 
-def _mlp_block(x, layer, cfg: TransformerConfig, reduce=None):
-    """The SwiGLU residual block; ``reduce`` sums a row-split
-    ``w_down``'s partial products over the tensor-parallel ranks."""
+def _mlp_block(x, layer, cfg: TransformerConfig,
+               lay: MeshLayout | None = None):
+    """The SwiGLU residual block; ``lay`` splits it over ``tp`` by the
+    rules (a row-split ``w_down``'s partial products summed)."""
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    if lay is not None and lay.tp is not None:
+        kg, ku, kd = (lay.kinds[n] for n in ("w_gate", "w_up", "w_down"))
+        col_in = lay.mesh.copy_to(h, lay.tp) if "col" in (kg, ku) else None
+        a, split = _tp_linear(h, layer["w_gate"], kg, lay, col_in=col_in)
+        b, _ = _tp_linear(h, layer["w_up"], ku, lay, col_in=col_in)
+        return x + _tp_linear(torch.nn.functional.silu(a) * b,
+                              layer["w_down"], kd, lay, split)[0]
     gated = (torch.nn.functional.silu(qlinear(h, layer["w_gate"]))
              * qlinear(h, layer["w_up"]))
-    y = qlinear(gated, layer["w_down"])
-    return x + (y if reduce is None else reduce(y))
+    return x + qlinear(gated, layer["w_down"])
 
 
 def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
-def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None):
+def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None,
+                  lay: MeshLayout | None = None):
     """The per-layer recipe (attention block + MLP block, optionally
     rematerialized with ``torch.utils.checkpoint(use_reentrant=False)``)
-    — ``transformer.py:438``.  Returns ``one_layer(x, layer) -> x``."""
+    — ``transformer.py:438``.  Returns ``one_layer(x, layer) -> x``.
+    ``lay``: on a mesh, each block gathers its leaves' gathered axes
+    (:meth:`MeshLayout.layer`) inside its remat region."""
+
+    def attn_block(x, layer):
+        if lay is not None:
+            layer = lay.layer({k: layer[k] for k in
+                               ("attn_norm", "wq", "wk", "wv", "wo")})
+        return _attention_block(x, layer, cfg, positions, segment_ids, lay)
+
+    def mlp_block(x, layer):
+        if lay is not None:
+            layer = lay.layer({k: layer[k] for k in
+                               ("mlp_norm", "w_gate", "w_up", "w_down")})
+        return _mlp_block(x, layer, cfg, lay=lay)
 
     def one_layer(x, layer):
-        x = _attention_block(x, layer, cfg, positions, segment_ids)
-        return _mlp_block(x, layer, cfg)
+        return mlp_block(attn_block(x, layer), layer)
 
     # Validate the policy BEFORE the remat gate: a config carrying a
     # policy but remat=False (or an unknown policy string) must fail
@@ -342,21 +534,51 @@ def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None):
     if policy == "attn_only":
         # Recompute the attention block (the flash kernel re-runs off
         # its saved lse); the MLP's d_ff-wide activations stay saved.
-        attn = remat(lambda x, layer: _attention_block(
-            x, layer, cfg, positions, segment_ids))
-        return lambda x, layer: _mlp_block(attn(x, layer), layer, cfg)
+        attn = remat(attn_block)
+        return lambda x, layer: mlp_block(attn(x, layer), layer)
     if policy == "mlp_only":
-        mlp = remat(lambda x, layer: _mlp_block(x, layer, cfg))
-        return lambda x, layer: mlp(_attention_block(
-            x, layer, cfg, positions, segment_ids), layer)
+        mlp = remat(mlp_block)
+        return lambda x, layer: mlp(attn_block(x, layer), layer)
     return remat(one_layer)
 
 
+def _embed(params: dict, tokens, cfg: TransformerConfig,
+           lay: MeshLayout | None = None):
+    """The embedding rows of ``tokens`` in ``cfg.dtype``; on a mesh the
+    table's gathered axes are gathered first and a ``d_model`` split
+    over ``tp`` is gathered after the lookup."""
+    if lay is None:
+        return params["embed"][tokens].to(cfg.dtype)
+    x = lay.gather(params["embed"], lay.spec("embed"))[tokens].to(cfg.dtype)
+    return lay.mesh.gather_from(x, lay.tp, -1) if lay.split_by("embed") \
+        else x
+
+
+def _head(x, params: dict, lay: MeshLayout | None = None):
+    """Logits (..., V) fp32 of final-norm hidden states ``x``; on a mesh
+    a vocabulary split over ``tp`` is gathered (each rank's columns from
+    its ``f``-fed shard)."""
+    if lay is None:
+        return qlinear(x, params["lm_head"]).float()
+    w = lay.gather(params["lm_head"], lay.spec("lm_head"))
+    if not lay.split_by("lm_head"):
+        return qlinear(x, w).float()
+    logits = qlinear(lay.mesh.copy_to(x, lay.tp), w).float()
+    return lay.mesh.gather_from(logits, lay.tp, -1)
+
+
+def _layout(mesh, rules, ep_axis: str = "ep") -> MeshLayout | None:
+    return None if mesh is None else MeshLayout(mesh, rules, ep_axis)
+
+
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
-                   positions=None, *, segment_ids=None):
+                   positions=None, *, segment_ids=None, mesh=None,
+                   rules=None):
     """tokens: (B, S) int -> final-norm hidden states (B, S, D) in
     ``cfg.dtype``, on the parameters' device.  Differentiable in the
-    parameters."""
+    parameters.  ``mesh``/``rules``: this rank's rows of the batch and
+    its shard of a tree cut by ``rules`` (module docstring)."""
+    lay = _layout(mesh, rules)
     device = params["embed"].device
     tokens = _as_tokens(tokens, device)
     B, S = tokens.shape
@@ -366,21 +588,24 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
         positions = _as_tokens(positions, device)
     if segment_ids is not None:
         segment_ids = _as_tokens(segment_ids, device)
-    x = params["embed"][tokens].to(cfg.dtype)
-    one_layer = make_layer_fn(cfg, positions, segment_ids)
+    x = _embed(params, tokens, cfg, lay)
+    one_layer = make_layer_fn(cfg, positions, segment_ids, lay)
     for i in range(cfg.n_layers):
         x = one_layer(x, layer_params(params, i))
-    return _rms_norm(x, params["final_norm"], cfg.norm_eps)
+    norm = params["final_norm"] if lay is None else \
+        lay.gather(params["final_norm"], lay.spec("final_norm"))
+    return _rms_norm(x, norm, cfg.norm_eps)
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig, positions=None,
-            *, segment_ids=None):
+            *, segment_ids=None, mesh=None, rules=None):
     """tokens: (B, S) int -> logits (B, S, vocab) fp32.  Runs where the
     parameters live (:func:`init_params` puts them on the GPU unless
-    asked for the CPU)."""
+    asked for the CPU).  On a mesh: this rank's rows, every vocabulary
+    column."""
     x = forward_hidden(params, tokens, cfg, positions,
-                       segment_ids=segment_ids)
-    return qlinear(x, params["lm_head"]).float()
+                       segment_ids=segment_ids, mesh=mesh, rules=rules)
+    return _head(x, params, _layout(mesh, rules))
 
 
 # ----------------------------------------------------------------------
@@ -412,14 +637,56 @@ def packed_positions(segment_ids):
     return pos - seg_start
 
 
-def loss_fn(params: dict, batch: dict, cfg: TransformerConfig):
+def dp_loss_scale(segment_ids, mesh, dp_axis: str = "dp"):
+    """The factor that turns this rank's mean over its kept targets into
+    its loss on a mesh: ``n_dp · kept / Σ_dp kept``, so the mean of the
+    ranks' losses over ``dp_axis`` is the mean over every kept target of
+    the batch (``shifted_xent``'s, ``transformer.py:532``), however the
+    packed documents fall.  1 (no collective) without segments, where
+    every rank keeps the same count."""
+    n = 1 if mesh is None else mesh.size(dp_axis)
+    if segment_ids is None or n == 1:
+        return 1.0
+    kept = (segment_ids[:, :-1] == segment_ids[:, 1:]).sum().float()
+    total = mesh.psum(kept, dp_axis)
+    return n * kept.clamp(min=1) / total.clamp(min=1)
+
+
+def _chunked_tail(cfg, params, lay: MeshLayout | None) -> bool:
+    """Whether the chunked-vocab tail runs: ``cfg.ce_chunk`` on a plain
+    lm_head, not split over ``tp`` — a vocab-split head takes the
+    standard tail with a warning (``transformer.py:616-631``)."""
+    head = params["lm_head"]
+    if (cfg.ce_chunk is None or is_quantized(head)
+            or is_quantized4(head)):
+        return False
+    if lay is not None and lay.split_by("lm_head"):
+        import warnings
+        warnings.warn(
+            "ce_chunk ignored: lm_head is vocab-sharded (plain tensor "
+            "parallelism); using the standard tp-sharded tail instead",
+            stacklevel=3)
+        return False
+    return True
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *,
+            mesh=None, rules=None, dp_axis: str = "dp"):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the
     forward runs on all S tokens and the logits are shifted
     (``transformer.py:593``).  ``batch["segments"]`` (optional, (B, S)):
     packed documents — attention stays inside each document, RoPE
     positions restart per document, boundary targets drop.  With
     ``cfg.ce_chunk`` the loss takes the chunked-vocab tail and the
-    (B, S, V) logits never exist."""
+    (B, S, V) logits never exist.
+
+    ``mesh``/``rules``: ``batch`` is this rank's rows over ``dp_axis``
+    (``parallel.mesh.shard_batch``) and ``params`` its shard of a tree
+    cut by ``rules``.  The result is this rank's loss, as in DDP: its
+    mean over ``dp_axis`` is the whole batch's loss
+    (:func:`dp_loss_scale`), and the mean of the ranks' gradients the
+    whole batch's; the train step takes the same ``dp_axis``."""
+    lay = _layout(mesh, rules)
     device = params["embed"].device
     tokens = _as_tokens(batch["tokens"], device)
     seg = batch.get("segments")
@@ -427,13 +694,17 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig):
     if seg is not None:
         seg = _as_tokens(seg, device)
         positions = packed_positions(seg)
-    if cfg.ce_chunk is not None:
-        hidden = forward_hidden(params, tokens, cfg, positions,
+    hidden = forward_hidden(params, tokens, cfg, positions, segment_ids=seg,
+                            mesh=mesh, rules=rules)
+    scale = dp_loss_scale(seg, mesh, dp_axis)
+    if _chunked_tail(cfg, params, lay):
+        head = params["lm_head"] if lay is None else \
+            lay.gather(params["lm_head"], lay.spec("lm_head"))
+        return scale * shifted_chunked_xent(hidden, head, tokens,
+                                            segment_ids=seg,
+                                            chunk=cfg.ce_chunk)
+    return scale * shifted_xent(_head(hidden, params, lay), tokens,
                                 segment_ids=seg)
-        return shifted_chunked_xent(hidden, params["lm_head"], tokens,
-                                    segment_ids=seg, chunk=cfg.ce_chunk)
-    logits = forward(params, tokens, cfg, positions, segment_ids=seg)
-    return shifted_xent(logits, tokens, segment_ids=seg)
 
 
 # ----------------------------------------------------------------------
@@ -481,7 +752,12 @@ class AdamW(torch.optim.Optimizer):
     leaf's update is computed in fp32 from its grad and moments, added
     to the fp32 value of the leaf and cast once to the leaf's dtype
     (``apply_optimizer_updates``).  A bf16 leaf is therefore never
-    stepped in bf16 arithmetic.  Leaves are updated in place."""
+    stepped in bf16 arithmetic.  Leaves are updated in place, in slices
+    of ``CHUNK`` elements: every operation is elementwise, so the
+    numbers are the whole leaf's, and the fp32 temporaries stay one
+    slice's size (a Mixtral expert leaf is 0.9 GB in fp32)."""
+
+    CHUNK = 1 << 24
 
     def __init__(self, params, lr: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -506,16 +782,28 @@ class AdamW(torch.optim.Optimizer):
                     st["nu"] = torch.zeros_like(p)
                 st["step"] += 1
                 t = st["step"]
-                g = p.grad.float()
-                mu = st["mu"].float() * b1 + (1 - b1) * g
-                nu = st["nu"].float() * b2 + (1 - b2) * (g * g)
-                # Stored in the leaf's dtype, then used as stored.
-                mu = st["mu"].copy_(mu).float()
-                nu = st["nu"].copy_(nu).float()
-                mu_hat = mu / (1 - b1 ** t)
-                nu_hat = nu / (1 - b2 ** t)
-                u = mu_hat / (nu_hat.sqrt() + eps) + wd * p.float()
-                _apply_update(p, -lr * u)
+                for p_, g_, mu_, nu_ in _slices(
+                        self.CHUNK, p, p.grad, st["mu"], st["nu"]):
+                    g = g_.float()
+                    mu = mu_.float() * b1 + (1 - b1) * g
+                    nu = nu_.float() * b2 + (1 - b2) * (g * g)
+                    # Stored in the leaf's dtype, then used as stored.
+                    mu = mu_.copy_(mu).float()
+                    nu = nu_.copy_(nu).float()
+                    mu_hat = mu / (1 - b1 ** t)
+                    nu_hat = nu / (1 - b2 ** t)
+                    u = mu_hat / (nu_hat.sqrt() + eps) + wd * p_.float()
+                    _apply_update(p_, -lr * u)
+
+
+def _slices(n: int, *ts):
+    """Matching flat slices of ``n`` elements of same-shaped tensors
+    (views, so writes land in the tensors); the tensors whole if any of
+    them is not contiguous."""
+    if not all(t.is_contiguous() for t in ts):
+        return [ts]
+    flat = [t.view(-1) for t in ts]
+    return zip(*(f.split(n) for f in flat))
 
 
 def _trainable(optimizer) -> list:

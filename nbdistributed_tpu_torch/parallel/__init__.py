@@ -2,19 +2,28 @@
 ``nbdistributed_tpu/parallel``): named-axis meshes over the
 ``torch.distributed`` process group (:mod:`.mesh`), placing parameter
 trees on them (:mod:`.tensor_parallel`), the mixture-of-experts layer
-with its ``ep`` axis (:mod:`.expert`), and the functional collectives
-(:mod:`.collectives`).  Ring, Ulysses, pipeline and the data-parallel
-training families are ROADMAP A5 and A8."""
+with its ``ep`` axis (:mod:`.expert`), the functional collectives
+(:mod:`.collectives`), and training on a mesh: the step
+(:func:`.tensor_parallel.make_tp_train_step`), DDP (:mod:`.data_parallel`)
+and ZeRO-1/2 (:mod:`.zero`).  Ring, Ulysses and pipeline are ROADMAP
+A5."""
 
 from .expert import (compute_capacity, init_moe_params, load_balance_loss,
                      make_dispatch, moe_ffn, moe_param_shardings,
                      sparse_slots, top_k_routing)
 from .mesh import (Mesh, P, all_gather, axis_index, make_mesh, pmax, psum,
                    replicate, shard_batch)
-from .tensor_parallel import apply_shardings, sharding_tree
+from .data_parallel import ddp_init, make_ddp_step
+from .tensor_parallel import (apply_shardings, make_tp_train_step,
+                              sharding_tree)
+from .zero import (make_zero1_train_step, make_zero2_train_step,
+                   zero1_state_shardings, zero2_accum_rules)
 
 __all__ = ["Mesh", "P", "all_gather", "apply_shardings", "axis_index",
-           "compute_capacity", "init_moe_params", "load_balance_loss",
-           "make_dispatch", "make_mesh", "moe_ffn", "moe_param_shardings",
+           "compute_capacity", "ddp_init", "init_moe_params",
+           "load_balance_loss", "make_ddp_step", "make_dispatch",
+           "make_mesh", "make_tp_train_step", "make_zero1_train_step",
+           "make_zero2_train_step", "moe_ffn", "moe_param_shardings",
            "pmax", "psum", "replicate", "shard_batch", "sharding_tree",
-           "sparse_slots", "top_k_routing"]
+           "sparse_slots", "top_k_routing", "zero1_state_shardings",
+           "zero2_accum_rules"]

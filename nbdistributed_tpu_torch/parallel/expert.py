@@ -216,7 +216,8 @@ def _local_experts(params: dict, E: int, mesh, ep_axis: str):
 
 def _dropless_ffn_ep(xt, params, logits, top_k: int, E: int, mesh,
                      ep_axis: str, capacity_factor: float,
-                     token_mask=None, capacity: int | None = None):
+                     token_mask=None, capacity: int | None = None,
+                     blocks: int = 1):
     """Expert-parallel dropless (``expert.py:207``): this rank routes its
     own token block ``xt`` (T_loc, D) by its router ``logits``, takes
     the rows routed to its E/ep experts — contiguous in the expert-
@@ -225,34 +226,51 @@ def _dropless_ffn_ep(xt, params, logits, top_k: int, E: int, mesh,
     ``capacity`` pools to ``E_loc * capacity``), capped at ``k *
     T_loc``, runs each local expert over its segment, and one ``psum``
     over ``ep`` combines the shards.  Rows past ``Cs`` are the sorted
-    tail of the shard's segment, and drop.  The segment sizes are read
-    on the host once (``_dropless_ffn.host_reads``)."""
+    tail of the shard's segment, and drop.  ``blocks`` > 1 routes the
+    tokens as that many contiguous blocks, each with its own ``Cs`` (a
+    rank holding the rows of several ``dp`` shards routes them as the
+    JAX layer's token shards).  The segment sizes are read on the host
+    once per block (``_dropless_ffn.host_reads``).
+
+    Differentiable: the gates and the expert inputs enter through
+    Megatron's ``f`` over ``ep`` (each rank's experts give only their
+    share of their cotangents) and the combine is its ``g``."""
     T, D = xt.shape
     k = top_k
     wg, wu, wd, lo, E_loc = _local_experts(params, E, mesh, ep_axis)
     n_ep = mesh.size(ep_axis)
+    if blocks < 1 or T % blocks:
+        blocks = 1
+    Tb = T // blocks
     Cs = (E_loc * capacity if capacity is not None
-          else compute_capacity(T, n_ep, k, capacity_factor))
-    Cs = min(Cs, k * T)
-    gates, expert_idx, _ = top_k_routing(logits, k)
-    order, _, tok, counts = _route_sort(expert_idx, E, token_mask)
-    cnt = counts[:E].tolist()
-    _dropless_ffn.host_reads += 1
-    start = sum(cnt[:lo])
-    sizes, off = [], 0
-    for n_e in cnt[lo:lo + E_loc]:
-        sizes.append(min(off + n_e, Cs) - min(off, Cs))
-        off += n_e
-    n = sum(sizes)
-    tok = tok[start:start + n]
-    xs = xt[tok]
-    h = (F.silu(_segment_linear(xs, wg, sizes))
-         * _segment_linear(xs, wu, sizes))
-    rows = _segment_linear(h, wd, sizes)
-    g = gates.transpose(0, 1).reshape(-1)[order[start:start + n]]
-    y = torch.zeros((T, D), dtype=xt.dtype, device=xt.device).index_add(
-        0, tok, rows * g.to(xt.dtype)[:, None])
-    return mesh.psum(y, ep_axis)
+          else compute_capacity(Tb, n_ep, k, capacity_factor))
+    Cs = min(Cs, k * Tb)
+    xe = mesh.copy_to(xt, ep_axis)
+    ys = []
+    for b in range(blocks):
+        rows = slice(b * Tb, (b + 1) * Tb)
+        gates, expert_idx, _ = top_k_routing(logits[rows], k)
+        gates = mesh.copy_to(gates, ep_axis)
+        mask = None if token_mask is None else token_mask[rows]
+        order, _, tok, counts = _route_sort(expert_idx, E, mask)
+        cnt = counts[:E].tolist()
+        _dropless_ffn.host_reads += 1
+        start = sum(cnt[:lo])
+        sizes, off = [], 0
+        for n_e in cnt[lo:lo + E_loc]:
+            sizes.append(min(off + n_e, Cs) - min(off, Cs))
+            off += n_e
+        n = sum(sizes)
+        tok = tok[start:start + n]
+        xs = xe[rows][tok]
+        h = (F.silu(_segment_linear(xs, wg, sizes))
+             * _segment_linear(xs, wu, sizes))
+        out = _segment_linear(h, wd, sizes)
+        g = gates.transpose(0, 1).reshape(-1)[order[start:start + n]]
+        ys.append(torch.zeros((Tb, D), dtype=xt.dtype,
+                              device=xt.device).index_add(
+            0, tok, out * g.to(xt.dtype)[:, None]))
+    return mesh.reduce_from(torch.cat(ys) if blocks > 1 else ys[0], ep_axis)
 
 
 def _token_block(mesh, token_axes: tuple, ep_axis: str):
@@ -265,21 +283,23 @@ def _token_block(mesh, token_axes: tuple, ep_axis: str):
 
 
 def _gather_tokens(x, mesh, axes: tuple):
-    """Every rank's token block along dim 0, major axis first."""
+    """Every rank's token block along dim 0, major axis first; the
+    backward sums each block's cotangents back to its rank."""
     for a in reversed(axes):
-        x = mesh.all_gather(x, a, 0)
+        x = mesh.gather_sum(x, a, 0)
     return x
 
 
 def _aux_over_blocks(probs, first, E: int, mask, mesh, axes: tuple):
     """:func:`load_balance_loss` over the tokens of every block: the
-    per-expert sums and the token count psummed over ``axes``."""
+    per-expert sums and the token count psummed over ``axes``
+    (differentiably: every rank's loss takes the whole aux term)."""
     m = (torch.ones(probs.shape[0], device=probs.device) if mask is None
          else mask.float())
     stats = torch.cat([(_one_hot(first, E) * m[:, None]).sum(dim=0),
                        (probs * m[:, None]).sum(dim=0), m.sum()[None]])
     for a in axes:
-        stats = mesh.psum(stats, a)
+        stats = mesh.psum_split(stats, a)
     n = torch.clamp(stats[-1], min=1.0)
     return E * ((stats[:E] / n) * (stats[E:2 * E] / n)).sum()
 
@@ -287,7 +307,8 @@ def _aux_over_blocks(probs, first, E: int, mask, mesh, axes: tuple):
 def moe_ffn(x, params: dict, *, top_k: int = 2,
             capacity_factor: float = 1.25, mesh=None, ep_axis: str = "ep",
             dispatch_mode: str = "dense", token_mask=None,
-            capacity: int | None = None, token_axes: tuple = ("dp",)):
+            capacity: int | None = None, token_axes: tuple = ("dp",),
+            token_blocks: int = 1):
     """Mixture-of-experts SwiGLU feed-forward (``expert.py:377``).
 
     x (..., D) -> (same shape, aux scalar fp32).  ``dispatch_mode`` is
@@ -302,7 +323,11 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     ``mesh``: ``x`` is this rank's block of the tokens over
     ``token_axes`` (module docstring); with an ``ep_axis`` in the mesh
     the experts split over it and one ``psum`` over ``ep`` combines
-    them."""
+    them: Megatron's ``g``, with its ``f`` on the expert inputs and the
+    gates, so the router and everything before the block see the whole
+    cotangent on every ``ep`` rank.  ``token_blocks``: the dropless
+    ``ep`` path routes ``x``'s tokens as that many blocks
+    (:func:`_dropless_ffn_ep`)."""
     if dispatch_mode not in ("dense", "sparse", "dropless"):
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
     # The expert products are batched over E: ``qlinear`` takes the
@@ -328,7 +353,8 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
         if ep:
             y = _dropless_ffn_ep(xt, params, logits, top_k, E, mesh,
                                  ep_axis, capacity_factor,
-                                 token_mask=mask_t, capacity=capacity)
+                                 token_mask=mask_t, capacity=capacity,
+                                 blocks=token_blocks)
         else:
             gates, expert_idx, _ = top_k_routing(logits, top_k)
             y = _dropless_ffn(xt, params, gates, expert_idx, E,
@@ -357,6 +383,8 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     # This rank's experts [lo, lo + E_loc): all of them off an ep axis.
     if ep:
         wg, wu, wd, lo, E_loc = _local_experts(params, E, mesh, ep_axis)
+        xg = mesh.copy_to(xg, ep_axis)
+        gates = mesh.copy_to(gates, ep_axis)
     else:
         wg, wu, wd, lo, E_loc = (params["w_gate"], params["w_up"],
                                  params["w_down"], 0, E)
@@ -392,5 +420,5 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
         y = torch.einsum("tec,ecd->td",
                          combine[rows, lo:lo + E_loc].to(x.dtype), ye)
     if ep:
-        y = mesh.psum(y, ep_axis)
+        y = mesh.reduce_from(y, ep_axis)
     return y.reshape(orig_shape), aux

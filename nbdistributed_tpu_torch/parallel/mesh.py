@@ -20,6 +20,27 @@ several ranks (NCCL refuses two ranks on one device).
 :class:`P` is the port's partition spec: one entry per dimension, an
 axis name, a tuple of axis names or ``None``, as JAX's
 ``PartitionSpec`` reads.
+
+**Training on a mesh** differentiates through the collectives.  The
+forward-only :meth:`Mesh.psum`, :meth:`Mesh.all_gather` and
+:meth:`Mesh.pmax` clone and reduce in place, which autograd cannot see
+through; the methods below are ``torch.autograd.Function``s with the
+transposes GSPMD derives in the JAX package:
+
+- over an axis the loss is replicated on (``tp``, ``ep``): Megatron's
+  ``g`` (:meth:`Mesh.reduce_from`: all-reduce, backward identity) after
+  a row-split product, its ``f`` (:meth:`Mesh.copy_to`: identity,
+  backward all-reduce) before a column-split product, a tiled gather
+  whose backward keeps this rank's slice (:meth:`Mesh.gather_from`)
+  and its transpose (:meth:`Mesh.scatter_to`);
+- over an axis that splits the batch (``dp``), where each rank's loss
+  is its own rows': a gather whose backward sums the cotangents over
+  the axis and keeps this rank's slice, a reduce-scatter
+  (:meth:`Mesh.gather_sum`, FSDP's parameter gather), and a psum whose
+  backward psums too (:meth:`Mesh.psum_split`).
+
+A reduce-scatter (:meth:`Mesh.reduce_scatter`) is ``reduce_scatter_
+tensor`` on an NCCL group, and an all-reduce and a slice on gloo.
 """
 
 from __future__ import annotations
@@ -27,6 +48,8 @@ from __future__ import annotations
 import datetime
 import itertools
 import math
+
+import torch
 
 # A mesh collective that waits longer than this raises instead of
 # hanging (the worker's collective timeout): every rank must issue the
@@ -129,7 +152,6 @@ class Mesh:
         n = self.size(axis)
         if n == 1:
             return x
-        import torch
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         _dist().all_gather(parts, x, group=self._groups[axis])
@@ -144,6 +166,143 @@ class Mesh:
         _dist().broadcast(out, src=self._slice_ranks[axis][src],
                           group=self._groups[axis])
         return out
+
+    def reduce_scatter(self, x, axis: str, dim: int = 0):
+        """This rank's slice along ``dim`` of the sum of ``x`` over
+        ``axis`` (``jax.lax.psum_scatter(..., tiled=True)``):
+        ``reduce_scatter_tensor`` on an NCCL group, an all-reduce and a
+        slice on gloo."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        group = self._groups[axis]
+        if _dist().get_backend(group) != "nccl":
+            return local_slice(self.psum(x, axis), dim, n, self.index(axis))
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of shape {tuple(x.shape)} is "
+                             f"not divisible into {n} shards")
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+        _dist().reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+
+    # ---- differentiable collectives (module docstring) -------------
+
+    def reduce_from(self, x, axis: str):
+        """Megatron's ``g``: the sum over ``axis`` (after a row-split
+        product); the backward passes the replicated cotangent on."""
+        return x if self.size(axis) == 1 else _ReduceFrom.apply(x, self, axis)
+
+    def copy_to(self, x, axis: str):
+        """Megatron's ``f``: the identity (before a column-split product
+        on a replicated input); the backward sums each rank's share of
+        the cotangent over ``axis``."""
+        return x if self.size(axis) == 1 else _CopyTo.apply(x, self, axis)
+
+    def gather_from(self, x, axis: str, dim: int = -1):
+        """The tiled all-gather of ``x`` along ``dim`` for a consumer
+        replicated over ``axis``; the backward keeps this rank's slice
+        of the (replicated) cotangent."""
+        if self.size(axis) == 1:
+            return x
+        return _GatherFrom.apply(x, self, axis, dim)
+
+    def scatter_to(self, x, axis: str, dim: int = -1):
+        """This rank's slice of a replicated ``x`` along ``dim``; the
+        backward all-gathers the cotangent (the transpose of
+        :meth:`gather_from`)."""
+        if self.size(axis) == 1:
+            return x
+        return _ScatterTo.apply(x, self, axis, dim)
+
+    def gather_sum(self, x, axis: str, dim: int = 0):
+        """The tiled all-gather of ``x`` along ``dim`` over an axis that
+        splits the batch (FSDP's parameter gather, the MoE layer's token
+        gather); the backward sums the ranks' cotangents and keeps this
+        rank's slice: a reduce-scatter."""
+        if self.size(axis) == 1:
+            return x
+        return _GatherSum.apply(x, self, axis, dim)
+
+    def psum_split(self, x, axis: str):
+        """The sum of ``x`` over an axis that splits the batch, for a
+        term every rank's loss takes whole; the backward sums the
+        cotangents over the axis too."""
+        return x if self.size(axis) == 1 else _PsumSplit.apply(x, self, axis)
+
+
+def _dim(x, dim: int) -> int:
+    return dim % x.ndim
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g, ctx.axis), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, _dim(x, dim)
+        return mesh.all_gather(x, axis, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return (local_slice(g, ctx.dim, m.size(ctx.axis),
+                            m.index(ctx.axis)).contiguous(),
+                None, None, None)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, _dim(x, dim)
+        return local_slice(x, ctx.dim, mesh.size(axis),
+                           mesh.index(axis)).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, _dim(x, dim)
+        return mesh.all_gather(x, axis, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+class _PsumSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g, ctx.axis), None, None
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, *,
@@ -235,7 +394,6 @@ def shard_batch(batch, mesh: Mesh, axis: str = "dp"):
     function's single-process meaning (a host batch placed sharded on
     the mesh); the port's multi-process world keeps the same contract,
     so every rank passes the same whole batch."""
-    import torch
     n, idx = spec_split(mesh, axis)
 
     def one(x):

@@ -409,19 +409,47 @@ def test_replicated_tree_on_tp_matches_sharded(cluster, dense):
             assert rel_l2(a, b) <= 1e-6
 
 
+def jax_replicated_decode(jp, prompt, jcfg, n, jm, cache_rules):
+    """Greedy decoding by the JAX package's ``forward_with_cache`` on
+    ``jm`` with the cache placed by ``cache_rules``: where an axis holds
+    a dimension whole, GSPMD computes it by the replicated einsum
+    (``_can_flash_decode_on_mesh`` false)."""
+    B, S0 = prompt.shape
+    cache = jgen.init_kv_cache(jcfg, B, S0 + n, mesh=jm, rules=cache_rules)
+    logits, cache = jgen.forward_with_cache(jp, prompt, cache, 0, jcfg,
+                                            last_only=True, mesh=jm)
+    toks = [jnp.argmax(logits[:, -1], -1)]
+    for i in range(n - 1):
+        logits, cache = jgen.forward_with_cache(
+            jp, toks[-1][:, None], cache, S0 + i, jcfg, mesh=jm)
+        toks.append(jnp.argmax(logits[:, -1], -1))
+    return np.concatenate([np.asarray(prompt), np.stack(
+        [np.asarray(t) for t in toks], 1)], 1).tolist()
+
+
 def test_indivisible_decode_axis_raises(cluster, dense):
-    """Where the JAX package falls back to a replicated einsum, the port
-    refuses, naming the axis and the sizes (ROADMAP C2)."""
-    out = cell(cluster, """
-m = make_mesh({"tp": 4})
-msg = ""
-try:
-    generate(full, torch.zeros((2, 3), dtype=torch.long), cfg, 2, mesh=m)
-except ValueError as e:
-    msg = str(e)
-msg""")
-    assert all("n_kv_heads 2 does not divide over the tp axis of size 4"
-               in o for o in out.values())
+    """The call that raised before ROADMAP C2 was repaired: ``generate``
+    with ``tiny_config``'s 2 KV heads on ``{"tp": 4}``.  Where tp does
+    not divide the heads, each rank now gathers q, k and v over tp,
+    attends every head against a cache holding them all, and keeps its
+    columns of the output for ``wo``'s row split: the tokens of the JAX
+    package's replicated einsum on the same mesh (its cache's heads held
+    whole; JAX's own ``generate`` cannot place a tp-split cache there),
+    which are its unsharded ``generate``'s."""
+    jcfg, tree = dense
+    prompt = np.random.default_rng(4).integers(0, 512, (2, 3))
+    out = cell(cluster, f"""
+m = make_mesh({{"tp": 4}})
+generate(apply_shardings(full, m, param_shardings(cfg)),
+         torch.tensor({prompt.tolist()}), cfg, 6, mesh=m).tolist()""")
+    jm = jmesh.make_mesh({"tp": 4}, devices=DEVS)
+    params = jax.tree.map(jnp.asarray, tree)
+    want = jax_replicated_decode(
+        jput(params, jm, jtf.param_shardings(jcfg)), jnp.asarray(prompt),
+        jcfg, 6, jm, jgen.kv_cache_shardings(dp_axis=None, tp_axis=None))
+    assert want == np.asarray(jgen.generate(params, jnp.asarray(prompt),
+                                            jcfg, 6)).tolist()
+    assert all(ast.literal_eval(o) == want for o in out.values())
 
 
 # ----------------------------------------------------------------------

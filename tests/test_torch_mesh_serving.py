@@ -15,6 +15,7 @@ replicated tree and a tp-split tree give the same tokens.
 
 import ast
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,8 @@ from nbdistributed_tpu_torch.messaging.coordinator import \
 
 pytestmark = [pytest.mark.integration]
 
+# The module (the package's ``generate`` name is the function).
+jgen_mod = importlib.import_module("nbdistributed_tpu.models.generate")
 WORLD = 4
 DEVS = jax.devices()[:WORLD]
 REQS = [([5, 9, 2], 6), ([7, 1, 3, 11], 5), ([2, 2, 8, 1, 9, 4, 4], 4)]
@@ -329,3 +332,85 @@ out""")
     (einsum, n_einsum), (flash, n_flash) = got
     assert einsum == flash == want
     assert n_einsum == 0 and n_flash == 2 * 9    # layers x decode steps
+
+
+# ----------------------------------------------------------------------
+# ROADMAP C2 and C3: axes that do not divide, and dropless prefill blocks
+
+def test_generate_odd_batch_on_dp_matches_jax(cluster, dense):
+    """C2: 3 rows on dp2 x tp2 — the rows held whole on both dp ranks
+    (tp still splitting the heads): the tokens of the JAX package's
+    replicated einsum on the same mesh (its cache's batch held whole;
+    its own ``generate`` cannot place a dp-split cache of 3 rows)."""
+    jcfg, jparams = dense
+    prompt = np.random.default_rng(9).integers(0, 512, (3, 5))
+    sizes = {"dp": 2, "tp": 2}
+    got = every_rank(cluster, f"""
+m = make_mesh({sizes!r})
+generate(apply_shardings(full, m, param_shardings(cfg)),
+         torch.tensor({prompt.tolist()}), cfg, 6, mesh=m).tolist()""")
+    jm, jp = jax_params(jparams, jcfg, sizes)
+    B, S0 = prompt.shape
+    cache = jgen_mod.init_kv_cache(
+        jcfg, B, S0 + 6, mesh=jm,
+        rules=jgen_mod.kv_cache_shardings(dp_axis=None, tp_axis="tp"))
+    logits, cache = jgen_mod.forward_with_cache(
+        jp, jnp.asarray(prompt), cache, 0, jcfg, last_only=True, mesh=jm)
+    toks = [jnp.argmax(logits[:, -1], -1)]
+    for i in range(5):
+        logits, cache = jgen_mod.forward_with_cache(
+            jp, toks[-1][:, None], cache, S0 + i, jcfg, mesh=jm)
+        toks.append(jnp.argmax(logits[:, -1], -1))
+    want = np.concatenate([prompt, np.stack([np.asarray(t) for t in toks],
+                                            1)], 1).tolist()
+    assert got == want
+    assert want == np.asarray(jgenerate(jparams, jnp.asarray(prompt), jcfg,
+                                        6)).tolist()
+
+
+@pytest.mark.parametrize("sizes,kw", [
+    ({"tp": 4}, dict(max_batch=2, max_len=32)),
+    ({"dp": 2, "sp": 2}, dict(max_batch=3, max_len=31)),
+    ({"dp": 2, "tp": 2}, dict(max_batch=3, max_len=32,
+                              kv_block_tokens=8))],
+    ids=["heads_over_tp4", "batch_and_len_over_dp2_sp2", "paged_dp2_tp2"])
+def test_server_with_indivisible_axes_matches_jax(cluster, dense, sizes,
+                                                   kw):
+    """C2 for the server: 2 KV heads on tp4 (every head on every rank),
+    3 slots on dp2 and 31 positions on sp2 (rows and tokens whole), and
+    the paged pool with 3 slots: the JAX server's tokens (unsharded: its
+    mesh server cannot place such a pool)."""
+    jcfg, jparams = dense
+    got = every_rank(cluster, f"""
+m = make_mesh({sizes!r})
+drive(DecodeServer({port_params(sizes)}, cfg, pad_to=4, mesh=m, **{kw!r}),
+      {REQS!r})""")
+    want = jax_drive(JaxServer(jparams, jcfg, pad_to=4, **kw), REQS)
+    assert got == want
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_moe_dropless_prefill_blocks_on_dp_ep_match_jax(cluster, moe, paged):
+    """C3: Mixtral-style dropless serving on dp2 x ep2 at a tight
+    capacity factor (1.0), where the shard capacity drops rows: a
+    prefill (a whole row on its dp slice's ranks) and a paged decode
+    step (every row on every rank) route their tokens as dp blocks, each
+    with its own shard capacity, as JAX's flattened-token sharding
+    does: the JAX server's tokens on the same mesh."""
+    jcfg, jparams = moe
+    kw = dict(max_batch=2, max_len=32,
+              **(dict(kv_block_tokens=8) if paged else {}))
+    reqs = [([5, 9, 2, 7, 1, 3, 11, 4], 6), ([7, 1, 3, 11, 2, 2], 5),
+            ([2, 2, 8, 1, 9, 4, 4, 6, 1, 3], 4)]
+    got = every_rank(cluster, f"""
+import dataclasses
+m = make_mesh({{"dp": 2, "ep": 2}})
+c = dataclasses.replace(mcfg, moe_dispatch="dropless", capacity_factor=1.0)
+ps = apply_shardings(mfull, m, moe_model_shardings(c, tp_axis=None))
+drive(DecodeServer(ps, c, mesh=m, **{kw!r}), {reqs!r})""")
+    c = dataclasses.replace(jcfg, moe_dispatch="dropless",
+                            capacity_factor=1.0)
+    jm = jax_mesh({"dp": 2, "ep": 2})
+    jp = jput(jparams, jm, jmoe.moe_model_shardings(c, tp_axis=None))
+    want = jax_drive(JaxServer(jp, c, mesh=jm, **kw), reqs)
+    assert got == want
