@@ -150,6 +150,30 @@ Phases (each prints one or more lines; any failure exits non-zero):
    per step, collectives per step and peak memory per rank, host-bound
    gloo times.
 
+20. (run after phase 19) sequence-parallel training.  First K1, K2
+   and K3 at ring-hop geometry for Mistral-7B's attention (H 32, Hkv 8,
+   D 128, chunks of 1024), bf16 and fp32, against their plain versions:
+   the diagonal hop, a fully visible and a fully masked one, window 1536
+   at its edge and past it, zigzag half-pairs, key-side segments unlike
+   the query side's (rows no key reaches must be the same rows on both
+   sides; K2/K3 from a whole-sequence lse and delta; a fully masked
+   hop's gradients exactly zero).  Then phase 18's ranks, each job from
+   seed 0 in fp32 and held to the single-process run here as phase 19
+   holds its jobs: SmolLM2-135M (30 layers, remat, packed documents,
+   B=2 x S=2048 on ``{"sp": 4}`` and B=4 on ``{"dp": 2, "sp": 2}``,
+   the ring, 2 AdamW steps), Mistral-7B (``mistral_7b_config``, 2 of 32
+   layers, window 4096, B=1 x S=8192 on sp4: the pruned plan of 3 hops
+   and one jump home), TinyLlama-1.1B (4 of 22 layers, Ulysses on
+   ``{"sp": 2, "tp": 2}`` with Megatron rules), Mixtral (1 layer,
+   dropless, capacity factor 4, ring on ``{"sp": 2, "ep": 2}``, one
+   forward and backward without an optimizer), and Mistral's attention
+   alone as the zigzag ring on sp4 (S=8192, bf16 and fp32, full and
+   window 1024) against ``flash_attention`` on the whole sequence.
+   K1/K2/K3 per rank per step: hops x layers (K1 twice with remat).
+   Rows: ms per step, collectives per step (ring hops are
+   ``batch_isend_irecv`` calls), peak GB per rank, the phase's seconds;
+   host-bound gloo times.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
@@ -157,11 +181,13 @@ phase 5's in the kernels line (``launches_by_path``), as do the
 worker's K1 and K4 launches (``cluster_serve``), as the MoE
 forward's and MoE training's K1/K2/K3 launches join the SmolLM2
 paths', the mesh runs' K4 launches on rank 0 (``mesh_*``) and the
-mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``).
+mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
+``train_sp_*``, ``grad_sp_*``).
 
-``python3 chip_smoke.py --mesh-nccl`` runs phases 18 and 19 alone on
-four cards, one NCCL rank per card (what one card cannot show: NCCL,
-its ``reduce_scatter_tensor`` and the links between cards).
+``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19 and 20 alone
+on four cards, one NCCL rank per card (what one card cannot show: NCCL,
+its ``reduce_scatter_tensor``, its point-to-point ring hops and
+``all_to_all_single``, and the links between cards).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -2093,12 +2119,14 @@ def seeded_moe_shard(cfg, seed, mesh, rules):
 
 
 def _count_collectives():
-    """Wrap torch.distributed's all_reduce, all_gather, broadcast and
-    reduce_scatter_tensor with call counters (the mesh layer looks them
-    up at each call)."""
+    """Wrap torch.distributed's all_reduce, all_gather, broadcast,
+    reduce_scatter_tensor, batch_isend_irecv (one ring ppermute) and
+    all_to_all_single with call counters (the mesh layer looks them up
+    at each call)."""
     import torch.distributed as dist
     counts = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
-              "reduce_scatter_tensor": 0}
+              "reduce_scatter_tensor": 0, "batch_isend_irecv": 0,
+              "all_to_all_single": 0}
     for name in counts:
         fn = getattr(dist, name)
 
@@ -2159,11 +2187,13 @@ def mesh_job(job, counts):
     return row
 
 
-def mesh_rank(rank, port, jobs, q, backend):
+def mesh_rank(rank, port, jobs, q, backend, done):
     """A rank of the mesh phase (spawned): joins the 4-rank group — gloo,
     every rank on ``cuda:0``; or NCCL, rank r on ``cuda:r`` — loads the
     kernels the parent built, runs ``jobs`` in order and puts ``(rank,
-    {job: row})`` (or the error) on ``q``."""
+    {job: row})`` (or the error) on ``q``; then waits for ``done``, so
+    that the shared-memory tensors it sent stay reachable until the
+    parent has taken every item."""
     import datetime
     import os
     import traceback
@@ -2187,12 +2217,15 @@ def mesh_rank(rank, port, jobs, q, backend):
         out["clock"] = {"start": t_start, "ready": time.time()}
         counts = _count_collectives()
         for job in jobs:
+            send = lambda item: q.put((rank, item))  # noqa: E731
             out[job["name"]] = (
-                train_mesh_job(job, counts, lambda item: q.put((rank, item)))
-                if job.get("train") else mesh_job(job, counts))
+                train_sp_job(job, counts, send) if job.get("train_sp")
+                else train_mesh_job(job, counts, send) if job.get("train")
+                else mesh_job(job, counts))
         dist.barrier()
         out["clock"]["done"] = time.time()
         q.put((rank, out))
+        done.wait(MESH_RUN_S)
         dist.destroy_process_group()
     except BaseException:
         err = traceback.format_exc()
@@ -2228,10 +2261,11 @@ def run_mesh_ranks(jobs, backend, on_item=None):
     import os
 
     ctx = mp.get_context("spawn")
-    q = ctx.Queue()
+    q, done = ctx.Queue(), ctx.Event()
     port = _free_port()
-    procs = [ctx.Process(target=mesh_rank, args=(r, port, jobs, q, backend),
-                         daemon=True) for r in range(MESH_WORLD)]
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, port, jobs, q, backend, done), daemon=True)
+             for r in range(MESH_WORLD)]
     out = {}
     # The ranks' allocators grow segments in place: a job's freed blocks
     # must not strand the next, larger job's memory on a shared card.
@@ -2245,7 +2279,8 @@ def run_mesh_ranks(jobs, backend, on_item=None):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
         deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S * (
-            2 if any(j.get("train") for j in jobs) else 1)
+            2 if any(j.get("train") or j.get("train_sp") for j in jobs)
+            else 1)
         while len(out) < MESH_WORLD:
             try:
                 rank, res = q.get(timeout=5.0)
@@ -2266,6 +2301,7 @@ def run_mesh_ranks(jobs, backend, on_item=None):
             check("error" not in res, f"mesh rank {rank} failed:\n"
                   f"{res.get('error')}")
             out[rank] = res
+        done.set()
         for p in procs:
             p.join(timeout=60)
     finally:
@@ -2445,6 +2481,33 @@ def train_mesh_reference(job):
     return dict(losses=losses, gnorms=gnorms, peak_gb=peak), final
 
 
+def send_shards(name, named, rules, mesh, send):
+    """Send ``(path, tensor)`` shards of a tree cut by ``rules`` to the
+    parent, each from the first rank that holds it (every other axis at
+    coordinate 0), with its (shards, index) per dimension; returns the
+    count sent."""
+    import torch
+    from nbdistributed_tpu_torch.parallel.mesh import spec_split
+    sent = 0
+    for path, t in named:
+        node = rules
+        for key in path.split("/"):
+            node = node.get(key) if isinstance(node, dict) else None
+        spec = tuple(node or ())
+        used = {a for e in spec for a in
+                ((e,) if isinstance(e, str) else (e or ()))}
+        if any(mesh.index(a) for a in mesh.shape if a not in used):
+            continue                 # another rank holds this slice too
+        split = [spec_split(mesh, spec[d] if d < len(spec) else None)
+                 for d in range(t.ndim)]
+        # Into shared memory: the queue then passes a handle, not bytes.
+        host = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+        host.copy_(t.detach())
+        send(("leaf", name, path, split, host))
+        sent += 1
+    return sent
+
+
 def train_mesh_job(job, counts, send):
     """One training job on this rank: the model built from the seed and
     cut to this rank's shard, the guarded step (ZeRO-2: with the NaN
@@ -2465,7 +2528,6 @@ def train_mesh_job(job, counts, send):
                                                   make_tp_train_step,
                                                   make_zero2_train_step,
                                                   shard_batch)
-    from nbdistributed_tpu_torch.parallel.mesh import spec_split
 
     t_start = time.perf_counter()
     mesh = make_mesh(job["mesh"])
@@ -2545,23 +2607,9 @@ def train_mesh_job(job, counts, send):
             zero.moments(t)["mu"].numel() / t.numel()
             for t in param_leaves(params)})
     peak = torch.cuda.max_memory_allocated() / 1e9
-    t_send, sent = time.perf_counter(), 0
-    for path, t in named_param_leaves(params):
-        node = rules
-        for key in path.split("/"):
-            node = node.get(key) if isinstance(node, dict) else None
-        spec = tuple(node or ())
-        used = {a for e in spec for a in
-                ((e,) if isinstance(e, str) else (e or ()))}
-        if any(mesh.index(a) for a in mesh.shape if a not in used):
-            continue                 # another rank holds this slice too
-        split = [spec_split(mesh, spec[d] if d < len(spec) else None)
-                 for d in range(t.ndim)]
-        # Into shared memory: the queue then passes a handle, not bytes.
-        host = torch.empty(t.shape, dtype=t.dtype).share_memory_()
-        host.copy_(t.detach())
-        send(("leaf", job["name"], path, split, host))
-        sent += 1
+    t_send = time.perf_counter()
+    sent = send_shards(job["name"], named_param_leaves(params), rules, mesh,
+                       send)
     steady = sorted(secs[1:]) or secs
     t_end = time.perf_counter()
     row.update(seconds=dict(setup=t_steps - t_start, steps=t_send - t_steps,
@@ -2702,6 +2750,545 @@ def phase_train_mesh(backend="gloo"):
     rows["seconds"] = time.perf_counter() - ts
     say("train_mesh_seconds", seconds=rows["seconds"], ranks_s=t_ranks,
         rank0_clock=clock, compare_s=compare_s[0],
+        references_s=sum(r["seconds"] for r in refs.values()))
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 20: sequence-parallel training.  K1, K2 and K3 first at a ring
+# hop's geometry, here; then phase 18's four ranks (gloo on the one
+# card; NCCL, one card each, with --mesh-nccl) train each job below from
+# seed 0 with attention as the ring (or Ulysses) over sp, held to the
+# single-process step on the whole tree and batch, run first here, as
+# phase 19 holds its jobs.  Every ring hop is one K1 launch at the hop's
+# global offsets, and one K2 and one K3 in the backward.
+
+TRAIN_SP_S = 2048
+ZIGZAG_S = 8192
+ZIGZAG_WINDOW = 1024
+ZIGZAG_SEED = 13
+# The zigzag ring against one launch on the whole sequence: in fp32
+# element by element at K1's and K2/K3's fp32 limits; in bf16 each hop's
+# output (and dQ/dK/dV) is rounded to bf16 before the fp32 fold, as the
+# JAX ring folds them, so a result carries up to one rounding a hop
+# where one launch carries one: relative L2 per tensor, 2.5 bf16 ulps.
+ZIGZAG_BF16_REL_L2 = 1e-2
+# Largest first, as in phase 19.  K1/K2/K3 per rank per step: the
+# plan's hops times the layers, K1 twice with remat (the MoE family runs
+# without it); the zigzag job's four half-pair launches a hop, per run.
+TRAIN_SP_JOBS = (
+    dict(name="train_sp_ring_window_mistral_sp4", model="mistral",
+         mesh={"sp": 4}, method="ring", B=1, S=8192, segments=False,
+         steps=2),
+    dict(name="grad_sp_moe_mixtral_sp2_ep2", model="mixtral",
+         mesh={"sp": 2, "ep": 2}, method="ring", B=1, S=1024,
+         segments=False, steps=1, grad_only=True),
+    dict(name="train_sp_ulysses_tinyllama_sp2_tp2", model="tinyllama",
+         mesh={"sp": 2, "tp": 2}, method="ulysses", rules="megatron", B=2,
+         S=TRAIN_SP_S, segments=True, steps=2),
+    dict(name="train_sp_ring_smol_sp4", model="smol", mesh={"sp": 4},
+         method="ring", B=2, S=TRAIN_SP_S, segments=True, steps=2),
+    dict(name="train_sp_ring_smol_dp2_sp2", model="smol",
+         mesh={"dp": 2, "sp": 2}, method="ring", B=4, S=TRAIN_SP_S,
+         segments=True, steps=2),
+    dict(name="train_sp_zigzag_mistral_sp4", model="attention",
+         mesh={"sp": 4}, B=1, S=ZIGZAG_S),
+)
+# Depth cut to fit four ranks of fp32 weights, gradients and AdamW
+# moments on one card beside the reference (PERF.md, phase 20).
+SP_LAYERS = {"mistral": 2, "tinyllama": 4, "mixtral": 1}
+
+
+def phase_hop_kernels():
+    """K1, K2 and K3 at the geometry of ring hops of Mistral-7B's
+    attention (H 32, Hkv 8, D 128, chunks of 1024, zigzag halves of
+    512), bf16 and fp32, each through the wrapper the ring calls against
+    its plain version: the diagonal hop, a fully visible and a fully
+    masked one, window 1536 at its edge and past it, zigzag half-pairs
+    and key-side segments unlike the query side's.  Rows no key reaches
+    are undefined on both sides (K1: lse ~ -6.9e29, the plain version
+    -1e30 + log Sk): they must agree on which rows those are, and only
+    the others are compared.  K2/K3 run from a whole-sequence lse and
+    delta (this hop folded with the diagonal one), as the ring runs
+    them; a fully masked hop's dK/dV must be exactly zero.  Returns the
+    worst bf16 errors of K1, K2 and K3."""
+    import torch
+    from nbdistributed_tpu_torch.ops import attention as A
+
+    H, Hkv, D, C, Z = 32, 8, 128, 1024, 512
+    # name, chunk length, (q_off, k_off), window, key-side segments
+    cases = [
+        ("hop_diagonal", C, (C, C), None, False),
+        ("hop_fully_visible", C, (2 * C, 0), None, False),
+        ("hop_fully_masked", C, (0, C), None, False),
+        ("hop_window1536_edge", C, (2 * C, C), 1536, False),
+        ("hop_window1536_rows_past", C, (3 * C, C), 1536, False),
+        ("zigzag_half_diagonal", Z, (Z, Z), None, False),
+        ("zigzag_half_masked", Z, (Z, 5 * Z), None, False),
+        ("zigzag_half_visible", Z, (6 * Z, 2 * Z), None, False),
+        ("zigzag_half_window768", Z, (6 * Z, 5 * Z), 768, False),
+        ("hop_kv_segments_differ", C, (2 * C, C), None, True),
+    ]
+    worst = {"k1": 0.0, "dq": 0.0, "dkv": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, L, offs, window, segs in cases:
+            g = torch.Generator(device="cuda").manual_seed(len(name))
+            q, do = (torch.randn(1, L, H, D, generator=g, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v, kd, vd = (torch.randn(1, L, Hkv, D, generator=g,
+                                        device="cuda").to(dtype)
+                            for _ in range(4))
+            qseg = kseg = None
+            if segs:
+                pos = torch.arange(L, device="cuda")
+                qseg = (5 + torch.bucketize(pos, torch.tensor(
+                    [200, 600], device="cuda"), right=True))[None]
+                kseg = (4 + torch.bucketize(pos, torch.tensor(
+                    [300, 900], device="cuda"), right=True))[None]
+                qseg, kseg = (t.to(torch.int32).contiguous()
+                              for t in (qseg, kseg))
+            args = dict(causal=True, scale=D ** -0.5, offsets=offs,
+                        window=window, segment_ids=qseg,
+                        kv_segment_ids=kseg)
+            label = f"{name}_{str(dtype).split('.')[-1]}"
+            out, lse = A._flash_forward(q, k, v, **args)
+            ref, ref_lse = A._flash_forward_plain(q, k, v, **args)
+            undef = ref_lse <= -1e29                      # (B, H, Sq)
+            check(torch.equal(lse <= -1e29, undef),
+                  f"K1 {label}: rows without keys differ from the plain "
+                  f"version's")
+            rows = undef.transpose(1, 2)[..., None]       # (B, Sq, H, 1)
+            e_k1 = check_k1(label, out.masked_fill(rows, 0),
+                            lse.masked_fill(undef, 0),
+                            ref.masked_fill(rows, 0),
+                            ref_lse.masked_fill(undef, 0), dtype)
+            # The whole sequence's lse: this hop folded with the
+            # diagonal one (finite on every row: each query sees
+            # itself), and delta from this hop's output.
+            _, lse_d = A._flash_forward_plain(
+                q, kd, vd, **dict(args, offsets=(offs[0], offs[0]),
+                                  kv_segment_ids=qseg))
+            L_all = torch.logaddexp(ref_lse, lse_d)
+            delta = A._flash_bwd_prep(ref, do)
+            got = A._flash_backward_hop(q, k, v, do, L_all, delta, **args)
+            want = A._flash_backward_plain(q, k, v, None, L_all, do,
+                                           delta=delta, **args)
+            torch.cuda.synchronize()
+            row = check_k23(label, got, want, dtype)
+            if bool(undef.all()):
+                check(all(bool((t == 0).all()) for t in got),
+                      f"K2/K3 {label}: a hop no query sees must give "
+                      f"zero gradients")
+            say("hop_kernel_case", case=label, offsets=offs, window=window,
+                undefined_rows=int(undef.sum()), rows=undef.numel())
+            if dtype == torch.bfloat16:
+                worst["k1"] = max(worst["k1"], e_k1)
+                worst["dq"] = max(worst["dq"], row["dq"]["max_abs_err"])
+                worst["dkv"] = max(worst["dkv"], row["dk"]["max_abs_err"],
+                                   row["dv"]["max_abs_err"])
+    return worst
+
+
+def train_sp_cfg(job):
+    import torch
+    from nbdistributed_tpu_torch.models import (mistral_7b_config,
+                                                mixtral_8x7b_config,
+                                                smol_135m_config,
+                                                tinyllama_1b_config)
+    model = job["model"]
+    if model == "mixtral":
+        return mixtral_8x7b_config(
+            dtype=torch.float32, n_layers=SP_LAYERS[model],
+            capacity_factor=MOE_LOSSLESS, moe_dispatch="dropless")
+    make = {"smol": smol_135m_config, "tinyllama": tinyllama_1b_config,
+            "mistral": mistral_7b_config}[model]
+    kw = {"n_layers": SP_LAYERS[model]} if model in SP_LAYERS else {}
+    return make(dtype=torch.float32, remat=True, **kw)
+
+
+def train_sp_want(job, cfg):
+    """K1/K2/K3 per rank per step: one of each per hop per layer, K1
+    again in the remat recompute."""
+    from nbdistributed_tpu_torch.parallel import hop_plan
+    n = job["mesh"]["sp"]
+    C = job["S"] // n
+    hops = (1 if job["method"] == "ulysses" else
+            len(hop_plan(n, C, cfg.sliding_window)))
+    L = cfg.n_layers
+    return {"k1": hops * L * (2 if cfg.remat else 1), "k2": hops * L,
+            "k3": hops * L}
+
+
+def train_sp_batch(job, cfg):
+    batch = dict(packed_batch(cfg, job["B"], job["S"],
+                              TRAIN_MESH_BATCH_SEED))
+    if not job["segments"]:
+        del batch["segments"]
+    return batch
+
+
+def zigzag_inputs(dtype):
+    """q, k, v and the output cotangent of Mistral-7B's attention over
+    the whole sequence (B 1, S 8192, H 32, Hkv 8, D 128) from
+    ``ZIGZAG_SEED``: the same numbers in the parent and in every rank."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(ZIGZAG_SEED)
+    shapes = [(1, ZIGZAG_S, 32, 128), (1, ZIGZAG_S, 8, 128),
+              (1, ZIGZAG_S, 8, 128), (1, ZIGZAG_S, 32, 128)]
+    return [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in shapes]
+
+
+ZIGZAG_RUNS = tuple((d, w) for d in ("bfloat16", "float32")
+                    for w in (None, ZIGZAG_WINDOW))
+
+
+def train_sp_reference(job):
+    """The single-process reference: for a training job the step
+    (``loss_fn`` or ``moe_loss_fn`` and AdamW; for a gradient job the
+    gradients alone) on the whole tree and batch, with each step's loss
+    and gradient norm and the final leaves (or the gradients) on the
+    host; for the zigzag job ``flash_attention`` on the whole sequence
+    in natural order, its output and gradients on the host."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_moe_model,
+                                                init_params, loss_fn,
+                                                moe_loss_fn,
+                                                named_param_leaves)
+    from nbdistributed_tpu_torch.ops import flash_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    if job["model"] == "attention":
+        final = {}
+        for dname, window in ZIGZAG_RUNS:
+            q, k, v, do = zigzag_inputs(getattr(torch, dname))
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            out = flash_attention(q, k, v, True, None, window)
+            out.backward(do)
+            final[(dname, window)] = [t.detach().cpu() for t in
+                                      (out, q.grad, k.grad, v.grad)]
+            del q, k, v, do, out
+        return dict(peak_gb=torch.cuda.max_memory_allocated() / 1e9), final
+    cfg = train_sp_cfg(job)
+    moe = job["model"] == "mixtral"
+    params = init_moe_model(cfg, 0) if moe else init_params(cfg, 0)
+    batch = train_sp_batch(job, cfg)
+    named = named_param_leaves(params)
+    leaves = [t.requires_grad_() for _, t in named]
+    opt = None if job.get("grad_only") else AdamW(leaves, lr=TRAIN_MESH_LR)
+    losses, gnorms = [], []
+    for _ in range(job["steps"]):
+        for p in leaves:
+            p.grad = None
+        loss = (moe_loss_fn if moe else loss_fn)(params, batch, cfg)
+        loss.backward()
+        gnorms.append(float(torch.stack([p.grad.float().pow(2).sum()
+                                         for p in leaves]).sum().sqrt()))
+        if opt is not None:
+            opt.step()
+        losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = {path: (t.grad if opt is None else t).detach().cpu()
+             for path, t in named}
+    del params, named, leaves, opt, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gnorms=gnorms, peak_gb=peak), final
+
+
+class KeepGrads:
+    """An optimizer for a gradient-only job: keeps the gradients the step
+    gives it, by id of their leaf, and updates nothing."""
+
+    def __init__(self, leaves):
+        self.param_groups = [{"params": list(leaves)}]
+        self.grads = {}
+
+    def step(self):
+        self.grads = {id(p): p.grad.detach().clone()
+                      for p in self.param_groups[0]["params"]}
+
+
+def zigzag_sp_job(job, counts, send, mesh):
+    """The zigzag ring on this rank: each run of ``ZIGZAG_RUNS`` on its
+    two half-chunks of the zigzag-ordered sequence, forward and
+    backward, launches and collectives counted from just before to just
+    after; rank 0 sends the gathered output and gradients."""
+    import torch
+    from nbdistributed_tpu_torch.parallel import (hop_plan, ring_attention,
+                                                  zigzag_shard)
+    from nbdistributed_tpu_torch.parallel.mesh import local_slice
+
+    n, me = mesh.size("sp"), mesh.index("sp")
+    row = {}
+    for dname, window in ZIGZAG_RUNS:
+        dtype = getattr(torch, dname)
+        chunks = [local_slice(zigzag_shard(t, n), 1, n, me).contiguous()
+                  for t in zigzag_inputs(dtype)]
+        q, k, v = (t.requires_grad_() for t in chunks[:3])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        c0 = dict(counts)
+        t0 = time.perf_counter()
+        out = ring_attention(q, k, v, mesh, use_flash=True,
+                             schedule="zigzag", window=window)
+        out.backward(chunks[3])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        hops = len(hop_plan(n, q.shape[1], window, "zigzag"))
+        key = f"{dname}_window{window}"
+        row[key] = dict(launches=launch_counts(), hops=hops,
+                        want={k_: 4 * hops for k_ in ("k1", "k2", "k3")},
+                        ms=1e3 * secs,
+                        collectives=sum(counts[c] - c0[c] for c in counts))
+        whole = [mesh.all_gather(t.detach().contiguous(), "sp", 1)
+                 for t in (out, q.grad, k.grad, v.grad)]
+        if me == 0:
+            host = []
+            for t in whole:
+                h = torch.empty(t.shape, dtype=t.dtype).share_memory_()
+                h.copy_(t)
+                host.append(h)
+            send(("zigzag", job["name"], (dname, window), host))
+        del q, k, v, out, chunks, whole
+    row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return row
+
+
+def train_sp_job(job, counts, send):
+    """One sequence-parallel job on this rank: the model from the seed cut
+    to this rank's shard, its rows of the batch (whole rows: the loss
+    cuts its chunk), the guarded step over dp and sp (for a gradient
+    job, gradients and no update), counts reset just before the steps
+    and read per step; then each leaf (or gradient) shard this rank is
+    the first holder of goes to the parent."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, SeqParallel,
+                                                init_params, loss_fn,
+                                                moe_loss_fn,
+                                                moe_model_shardings,
+                                                named_param_leaves,
+                                                param_leaves,
+                                                param_shardings)
+    from nbdistributed_tpu_torch.parallel import (apply_shardings, make_mesh,
+                                                  make_tp_train_step,
+                                                  shard_batch)
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(job["mesh"])
+    torch.cuda.reset_peak_memory_stats()
+    if job["model"] == "attention":
+        return zigzag_sp_job(job, counts, send, mesh)
+    cfg = train_sp_cfg(job)
+    sp = SeqParallel(mesh, method=job["method"])
+    moe = job["model"] == "mixtral"
+    if moe:
+        rules = moe_model_shardings(cfg, tp_axis=None)
+        params = seeded_moe_shard(cfg, 0, mesh, rules)
+    else:
+        rules = param_shardings(cfg) if job.get("rules") else None
+        params = init_params(cfg, 0)
+        if rules is not None:
+            params = apply_shardings(params, mesh, rules)
+
+    def loss(p, b):
+        fn = moe_loss_fn if moe else loss_fn
+        return fn(p, b, cfg, rules=rules, sp=sp)
+
+    leaves = param_leaves(params)
+    opt = (KeepGrads(leaves) if job.get("grad_only")
+           else AdamW(leaves, lr=TRAIN_MESH_LR))
+    batch = train_sp_batch(job, cfg)
+    if "dp" in mesh.shape:
+        batch = shard_batch(batch, mesh)
+    step = make_tp_train_step(loss, opt, mesh, rules, guard=True,
+                              sp_axis="sp")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for k in counts:
+        counts[k] = 0
+    losses, vs, secs, per_step, coll = [], [], [], [], []
+    t_steps = time.perf_counter()
+    for _ in range(job["steps"]):
+        before, c0 = launch_counts(), dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lval, aux = step(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        coll.append(sum(counts[k] - c0[k] for k in counts))
+        losses.append(float(lval))
+        vs.append(aux["v"].tolist())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_send = time.perf_counter()
+    named = named_param_leaves(params)
+    if job.get("grad_only"):
+        named = [(path, opt.grads[id(t)]) for path, t in named]
+    sent = send_shards(job["name"], named, rules, mesh, send)
+    t_end = time.perf_counter()
+    row = dict(seconds=dict(setup=t_steps - t_start, steps=t_send - t_steps,
+                            send=t_end - t_send),
+               losses=losses, v=vs, launches_per_step=per_step,
+               want_per_step=train_sp_want(job, cfg),
+               ms_per_step=[1e3 * x for x in secs],
+               collectives_per_step=coll, collectives=dict(counts),
+               peak_gb=peak, leaves_sent=sent,
+               k1=sum(c["k1"] for c in per_step),
+               k2=sum(c["k2"] for c in per_step),
+               k3=sum(c["k3"] for c in per_step))
+    del params, opt, step, batch, named, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_sp(backend="gloo"):
+    """Phase 20: the references here, then the four ranks run every job;
+    every rank's losses equal, the losses within 1e-5 and each step's
+    gradient norm within 1e-4 relative of the reference's, every leaf
+    (or gradient) within 1e-4 relative L2, K1/K2/K3 launches per rank per
+    step the plan's; the zigzag ring's output and gradients within K1's
+    and K2/K3's fp32 limits of ``flash_attention`` on the whole sequence
+    (bf16: ``ZIGZAG_BF16_REL_L2``); no kernel rebuilt."""
+    import torch
+    from nbdistributed_tpu_torch.parallel import zigzag_unshard
+
+    ts = time.perf_counter()
+    refs, finals = {}, {}
+    for job in TRAIN_SP_JOBS:
+        t0 = time.perf_counter()
+        refs[job["name"]], finals[job["name"]] = train_sp_reference(job)
+        refs[job["name"]]["seconds"] = time.perf_counter() - t0
+        say("train_sp_reference", job=job["name"], **refs[job["name"]])
+    acc, zz, compare_s = {}, {}, [0.0]
+
+    def on_item(rank, item):
+        t0 = time.perf_counter()
+        if item[0] == "zigzag":
+            _, name, key, tensors = item
+            n = MESH_WORLD
+            dname = key[0]
+            want = finals[name][key]
+            tols = [K1_TOL[dname]] + [K23_TOL[dname]] * 3
+            zz[key] = {}
+            for label, got, w, (atol, rtol) in zip(
+                    ("out", "dq", "dk", "dv"), tensors, want, tols):
+                got = zigzag_unshard(got, n)
+                r = dict(max_abs_err=max_err(got, w), rel_l2=rel_l2(got, w),
+                         tol_ratio=tol_ratio(got, w, atol, rtol))
+                r["ok"] = (r["rel_l2"] <= ZIGZAG_BF16_REL_L2
+                           if dname == "bfloat16" else r["tol_ratio"] <= 1)
+                zz[key][label] = r
+        else:
+            _, name, path, split, arr = item
+            ref = finals[name][path]
+            for d, (n, idx) in enumerate(split):
+                if n > 1:
+                    w = ref.shape[d] // n
+                    ref = ref.narrow(d, idx * w, w)
+            check(arr.shape == ref.shape, f"{name} {path}: shard "
+                  f"{tuple(arr.shape)} against {tuple(ref.shape)}")
+            e = acc.setdefault(name, {}).setdefault(path, [0.0, 0.0, 0])
+            e[0] += float(torch.linalg.vector_norm(arr - ref)) ** 2
+            e[1] += float(torch.linalg.vector_norm(ref)) ** 2
+            e[2] += arr.numel()
+        compare_s[0] += time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    ranks = run_mesh_ranks([dict(j, train_sp=True) for j in TRAIN_SP_JOBS],
+                           backend, on_item)
+    t_ranks = time.perf_counter() - t_ranks
+    check(all(r["rebuilt"] == [] for r in ranks.values()),
+          f"a mesh rank rebuilt kernels: "
+          f"{[r['rebuilt'] for r in ranks.values()]}")
+    rows = {}
+    for job in TRAIN_SP_JOBS:
+        name, ref = job["name"], refs[job["name"]]
+        per = [ranks[r][name] for r in range(MESH_WORLD)]
+        first = per[0]
+        if job["model"] == "attention":
+            runs = {f"{d}_window{w}": dict(first[f"{d}_window{w}"],
+                                           errors=zz.get((d, w)))
+                    for d, w in ZIGZAG_RUNS}
+            rows[name] = dict(mesh=job["mesh"], seq=job["S"], runs=runs,
+                              peak_gb_per_rank=[p["peak_gb"] for p in per],
+                              reference_peak_gb=ref["peak_gb"],
+                              k1_launches_rank0=sum(
+                                  r["launches"]["k1"] for r in runs.values()),
+                              k2_launches_rank0=sum(
+                                  r["launches"]["k2"] for r in runs.values()),
+                              k3_launches_rank0=sum(
+                                  r["launches"]["k3"] for r in runs.values()),
+                              backend=backend, note=MESH_NOTE[backend])
+            say(name, **rows[name])
+            for key, r in runs.items():
+                check(all(p[key]["launches"] == r["want"] for p in per),
+                      f"{name} {key}: launches "
+                      f"{[p[key]['launches'] for p in per]}, want "
+                      f"{r['want']}")
+                check(r["errors"] is not None and all(
+                    e["ok"] for e in r["errors"].values()),
+                      f"{name} {key}: {r['errors']} over tolerance")
+            continue
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(first["losses"], ref["losses"])]
+        gnorm_rel = [abs(v[2] - g) / g for v, g in zip(first["v"],
+                                                      ref["gnorms"])]
+        leaf = {path: (e[0] / e[1]) ** 0.5 if e[1] else e[0] ** 0.5
+                for path, e in acc.get(name, {}).items()}
+        covered = {path: e[2] for path, e in acc.get(name, {}).items()}
+        whole = {path: t.numel() for path, t in finals[name].items()}
+        worst = max(leaf, key=leaf.get) if leaf else None
+        want = first["want_per_step"]
+        rows[name] = dict(
+            mesh=job["mesh"], method=job["method"],
+            rules=job.get("rules"), layers=train_sp_cfg(job).n_layers,
+            batch=job["B"], seq=job["S"], steps=job["steps"],
+            grad_only=bool(job.get("grad_only")),
+            losses=first["losses"], reference_losses=ref["losses"],
+            loss_rel_err=loss_rel, gnorm=[v[2] for v in first["v"]],
+            reference_gnorm=ref["gnorms"], gnorm_rel_err=gnorm_rel,
+            worst_leaf=worst, worst_leaf_rel_l2=leaf.get(worst),
+            leaves=len(leaf),
+            launches_per_step_rank0=first["launches_per_step"],
+            want_per_step=want, k1_launches_rank0=first["k1"],
+            k2_launches_rank0=first["k2"], k3_launches_rank0=first["k3"],
+            ms_per_step_rank0=first["ms_per_step"],
+            ms_per_step_per_rank=[p["ms_per_step"] for p in per],
+            collectives_per_step_rank0=first["collectives_per_step"],
+            collectives_rank0=first["collectives"],
+            peak_gb_per_rank=[p["peak_gb"] for p in per],
+            reference_peak_gb=ref["peak_gb"], seconds_rank0=first["seconds"],
+            backend=backend, note=MESH_NOTE[backend])
+        say(name, **rows[name])
+        check(all(p["losses"] == first["losses"] for p in per),
+              f"{name}: the ranks' losses differ: "
+              f"{[p['losses'] for p in per]}")
+        check(all(v[0] == 1.0 for p in per for v in p["v"]),
+              f"{name}: a good step was skipped")
+        check(max(loss_rel) <= TRAIN_MESH_LOSS_RTOL,
+              f"{name}: losses {first['losses']} against {ref['losses']}")
+        check(max(gnorm_rel) <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: gradient norms {rows[name]['gnorm']} against "
+              f"{ref['gnorms']}")
+        check(covered == whole, f"{name}: leaves not covered by the "
+              f"shards: {sorted(set(whole) - set(covered))}")
+        check(leaf[worst] <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: leaf {worst} {leaf[worst]} over "
+              f"{TRAIN_MESH_LEAF_RTOL}")
+        check(all(c == want for p in per for c in p["launches_per_step"]),
+              f"{name}: launches per step "
+              f"{[p['launches_per_step'] for p in per]}, want {want}")
+    rows["seconds"] = time.perf_counter() - ts
+    say("train_sp_seconds", seconds=rows["seconds"], ranks_s=t_ranks,
+        compare_s=compare_s[0],
         references_s=sum(r["seconds"] for r in refs.values()))
     return rows
 
@@ -3099,8 +3686,9 @@ def gpu_name_and_power():
 
 
 def main_mesh_nccl() -> int:
-    """``--mesh-nccl``: phases 18 and 19 alone on four cards, one NCCL
-    rank each, against the references they compute first on card 0."""
+    """``--mesh-nccl``: phases 18, 19 and 20 alone on four cards, one
+    NCCL rank each, against the references they compute first on card
+    0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -3123,9 +3711,11 @@ def main_mesh_nccl() -> int:
                          make_requests(mix)[:8])
     mesh = phase_mesh(prompts, solo, msolo, backend="nccl")
     train_mesh = phase_train_mesh(backend="nccl")
+    train_sp = phase_train_sp(backend="nccl")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
-        {"cards": cards, "mesh": mesh, "train_mesh": train_mesh}, indent=1))
+        {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
+         "train_sp": train_sp}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3176,6 +3766,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = phase_mesh(prompts, solo32, moe["fp32"]["solo"])
     train_mesh = phase_train_mesh()
+    hop_err = phase_hop_kernels()
+    train_sp = phase_train_sp()
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3214,7 +3806,7 @@ def main() -> int:
                 "train_moe": moe["train"]["k1"]}
     k2_paths = {"train": train["k2"], "train_moe": moe["train"]["k2"]}
     k3_paths = {"train": train["k3"], "train_moe": moe["train"]["k3"]}
-    for name, row in train_mesh.items():
+    for name, row in {**train_mesh, **train_sp}.items():
         if name != "seconds":
             k1_paths[name] = row["k1_launches_rank0"]
             k2_paths[name] = row["k2_launches_rank0"]
@@ -3225,7 +3817,8 @@ def main() -> int:
         kernel("flash_attention_fwd", "flash_attention.cu",
                "nbdistributed_tpu/ops/attention.py:405",
                sum(k1_paths.values()),
-               max(k1_err, k23_err["k1"], timing["K1_train"]["max_abs_err"]),
+               max(k1_err, k23_err["k1"], hop_err["k1"],
+                   timing["K1_train"]["max_abs_err"]),
                "K1", tensor_cores,
                ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
                launches_by_path=k1_paths,
@@ -3234,14 +3827,16 @@ def main() -> int:
         kernel("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:688",
                sum(k2_paths.values()),
-               max(k23_err["dq"], timing["K2"]["max_abs_err"]), "K2",
+               max(k23_err["dq"], hop_err["dq"], timing["K2"]["max_abs_err"]),
+               "K2",
                f"{tensor_cores} (dS as a {split})",
                ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dq_kernel"),
                launches_by_path=k2_paths),
         kernel("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                "nbdistributed_tpu/ops/attention.py:747",
                sum(k3_paths.values()),
-               max(k23_err["dkv"], timing["K3"]["max_abs_err"]), "K3",
+               max(k23_err["dkv"], hop_err["dkv"],
+                   timing["K3"]["max_abs_err"]), "K3",
                f"{tensor_cores} (P and dS each as a {split})",
                ("flash_bwd_dkv_wgmma_kernel", "flash_bwd_dkv_kernel"),
                launches_by_path=k3_paths),
@@ -3269,7 +3864,8 @@ def main() -> int:
          "serving_beyond_dense": beyond,
          "serving_beyond_dense_seconds": seconds, "moe": moe,
          "cluster": cluster, "hf": hf_row, "mesh": mesh,
-         "train_mesh": train_mesh},
+         "train_mesh": train_mesh, "hop_kernels": hop_err,
+         "train_sp": train_sp},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,7 +22,8 @@ from .quant import (DEFAULT_TARGETS, EXPERT_TARGETS, dequantize_weight,
                     quantized_shardings4)
 from .serving import DecodeServer
 from .speculative import speculative_generate
-from .transformer import (AdamW, TransformerConfig, apply_optimizer_updates,
+from .transformer import (AdamW, SeqParallel, TransformerConfig,
+                          apply_optimizer_updates,
                           forward, forward_hidden, fsdp_param_shardings,
                           init_params,
                           llama2_7b_config, loss_fn, make_layer_fn,
@@ -34,7 +35,7 @@ from .transformer import (AdamW, TransformerConfig, apply_optimizer_updates,
                           tinyllama_1b_config)
 
 __all__ = ["ALL_TARGETS", "ATTN_TARGETS", "AdamW", "DEFAULT_TARGETS",
-           "DecodeServer", "EXPERT_TARGETS", "MoEConfig",
+           "DecodeServer", "EXPERT_TARGETS", "MoEConfig", "SeqParallel",
            "TransformerConfig", "apply_optimizer_updates", "config_from_hf",
            "dequantize_weight", "dequantize_weight4", "forward",
            "forward_hidden", "forward_with_cache", "fsdp_param_shardings",

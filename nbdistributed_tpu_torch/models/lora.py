@@ -130,7 +130,8 @@ def lora_num_params(lora: dict) -> int:
 
 
 def make_lora_train_step(cfg: TransformerConfig, optimizer, *,
-                         alpha: float = 16.0, mesh=None, ep_axis: str = "ep"):
+                         alpha: float = 16.0, sp=None, mesh=None,
+                         ep_axis: str = "ep"):
     """Returns ``step(base_params, lora, batch) -> loss``: only the
     adapters are differentiated and updated (in place), by
     ``optimizer``, which holds the adapter leaves (e.g.
@@ -144,8 +145,16 @@ def make_lora_train_step(cfg: TransformerConfig, optimizer, *,
     ``param_shardings`` (``moe_model_shardings``) and
     :func:`lora_shardings` (whole without ``tp``; experts split over
     ``ep`` either way).  The adapters' gradients are averaged over
-    ``dp`` (:func:`..parallel.tensor_parallel.make_tp_train_step`)."""
+    ``dp`` (:func:`..parallel.tensor_parallel.make_tp_train_step`).
+
+    ``sp`` (a ``transformer.SeqParallel``; ``lora.py:138``): attention
+    runs sequence-parallel on ``sp.mesh`` (``mesh`` defaults to it),
+    ``batch`` holds whole rows, and the gradients are averaged over
+    ``sp``'s axis too — long-context adapter training, the merge
+    happening before the forward as in JAX."""
     moe = isinstance(cfg, MoEConfig)
+    if sp is not None and mesh is None:
+        mesh = sp.mesh
     if mesh is None:
         base_loss = moe_loss_fn if moe else loss_fn
         return _optimizer_step(
@@ -161,14 +170,15 @@ def make_lora_train_step(cfg: TransformerConfig, optimizer, *,
     def base_loss(params, batch):
         if moe:
             return moe_loss_fn(params, batch, cfg, mesh=mesh,
-                               ep_axis=ep_axis, rules=rules)
-        return loss_fn(params, batch, cfg, mesh=mesh, rules=rules)
+                               ep_axis=ep_axis, rules=rules, sp=sp)
+        return loss_fn(params, batch, cfg, mesh=mesh, rules=rules, sp=sp)
 
     def step(base_params, lora, batch):
         lrules = lora_shardings(cfg, lora) if tp else None
         return make_tp_train_step(
             lambda ad, b: base_loss(lora_merge(base_params, ad, alpha=alpha,
                                                mesh=mesh, rules=lrules), b),
-            optimizer, mesh, lrules)(lora, batch)
+            optimizer, mesh, lrules,
+            sp_axis=None if sp is None else sp.axis)(lora, batch)
 
     return step

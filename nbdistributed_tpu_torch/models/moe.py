@@ -11,7 +11,10 @@ loops over layers and returns the load-balance aux loss averaged over
 them.  On a mesh (:mod:`..parallel.mesh`) the experts split over
 ``ep`` (:func:`moe_model_shardings`), the tokens over ``dp`` and the
 attention over ``tp`` as in the dense family (``rules=``); the loss on
-a mesh trains there.  Sequence parallelism is ROADMAP A5.
+a mesh trains there.  With ``sp`` (:class:`.transformer.SeqParallel`)
+each rank holds its chunk of the sequence, attention runs as the ring
+or Ulysses and the expert layer routes the tokens JAX routes together
+(:func:`..parallel.expert.moe_ffn`'s ``seq_axis``).
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ from ..parallel.expert import init_moe_params, moe_ffn, moe_param_shardings
 from ..parallel.mesh import P
 from ..utils import fan_in_normal
 from .transformer import (TransformerConfig, _as_tokens, _attention_block,
-                          _chunked_tail, _embed, _head, _layout, _rms_norm,
-                          dp_loss_scale, layer_params, packed_positions,
-                          shifted_xent)
+                          _chunked_tail, _embed, _head, _layout,
+                          _model_inputs, _rms_norm, _sp_inputs, _sp_mesh,
+                          _sp_nll_sum, _sp_xent, dp_loss_scale, layer_params,
+                          packed_positions, shifted_xent)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,26 +128,20 @@ def moe_model_shardings(cfg: MoEConfig, ep_axis: str = "ep",
 
 def _moe_mlp_block(x, layer, cfg: MoEConfig, mesh=None, ep_axis: str = "ep",
                    token_mask=None, token_axes: tuple = ("dp",),
-                   token_blocks: int = 1):
+                   token_blocks: int = 1, seq_axis: str | None = None):
     """The MoE feed-forward residual block, shared by the training
     forward and the cached generation path; returns (x, layer aux).
     Masked tokens pass through the residual untouched.  On a mesh,
-    ``x``'s tokens are this rank's block over ``token_axes``, routed by
-    the dropless ``ep`` path as ``token_blocks`` blocks."""
+    ``x``'s tokens are this rank's block over ``token_axes`` (and its
+    sequence chunk over ``seq_axis``), routed by the dropless ``ep``
+    path as ``token_blocks`` blocks."""
     h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(h, layer["moe"], top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor, mesh=mesh,
                      ep_axis=ep_axis, dispatch_mode=cfg.moe_dispatch,
                      token_mask=token_mask, token_axes=token_axes,
-                     token_blocks=token_blocks)
+                     token_blocks=token_blocks, seq_axis=seq_axis)
     return x + y, aux
-
-
-def _check_parallel(mesh, sp) -> None:
-    if sp is not None or (mesh is not None and mesh.size("sp") > 1):
-        raise NotImplementedError("sp: sequence parallelism needs the "
-                                  "port's ring/Ulysses attention "
-                                  "(ROADMAP A5)")
 
 
 def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
@@ -155,25 +153,24 @@ def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
     (``parallel.mesh.shard_batch``), the experts split over ``ep_axis``
     (read from the leaves' shapes) and the attention over ``tp`` by
     ``rules`` (:func:`moe_model_shardings`; None: whole on every rank);
-    the aux loss covers every rank's tokens."""
-    _check_parallel(mesh, sp)
+    the aux loss covers every rank's tokens.  ``sp``: ``tokens`` (and
+    ``positions``, ``segment_ids``) are this rank's chunk of the
+    sequence (``mesh`` defaults to ``sp.mesh``)."""
+    mesh = _sp_mesh(mesh, sp)
     lay = _layout(mesh, rules, ep_axis)
     device = params["embed"].device
-    tokens = _as_tokens(tokens, device)
-    B, S = tokens.shape
-    positions = (torch.arange(S, device=device).expand(B, S)
-                 if positions is None else _as_tokens(positions, device))
-    if segment_ids is not None:
-        segment_ids = _as_tokens(segment_ids, device)
+    tokens, positions, segment_ids = _model_inputs(tokens, positions,
+                                                   segment_ids, device, sp)
     x = _embed(params, tokens, cfg, lay)
     aux = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(cfg.n_layers):
         layer = layer_params(params, i)
         if lay is not None:
             layer = lay.layer(layer)
-        x = _attention_block(x, layer, cfg, positions, segment_ids, lay)
-        x, layer_aux = _moe_mlp_block(x, layer, cfg, mesh, ep_axis,
-                                      token_axes=(dp_axis,))
+        x = _attention_block(x, layer, cfg, positions, segment_ids, lay, sp)
+        x, layer_aux = _moe_mlp_block(
+            x, layer, cfg, mesh, ep_axis, token_axes=(dp_axis,),
+            seq_axis=None if sp is None else sp.axis)
         aux = aux + layer_aux
     norm = params["final_norm"] if lay is None else \
         lay.gather(params["final_norm"], lay.spec("final_norm"))
@@ -189,7 +186,7 @@ def moe_forward(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
     x, aux = moe_forward_hidden(params, tokens, cfg, mesh=mesh,
                                 ep_axis=ep_axis, positions=positions, sp=sp,
                                 segment_ids=segment_ids, rules=rules)
-    return _head(x, params, _layout(mesh, rules, ep_axis)), aux
+    return _head(x, params, _layout(_sp_mesh(mesh, sp), rules, ep_axis)), aux
 
 
 def moe_loss_fn(params, batch, cfg: MoEConfig, *, mesh=None,
@@ -205,9 +202,22 @@ def moe_loss_fn(params, batch, cfg: MoEConfig, *, mesh=None,
     ``mesh``/``rules``: as :func:`moe_forward_hidden` takes them; the
     result is this rank's loss, as ``transformer.loss_fn``'s on a mesh:
     its mean over ``dp_axis`` is the whole batch's.  The aux term is the
-    whole batch's on every rank."""
-    _check_parallel(mesh, sp)
+    whole batch's on every rank.  ``sp``: ``batch`` holds whole rows and
+    the xent term is ``transformer.loss_fn(sp=)``'s (this rank's share
+    times the ranks over ``dp_axis`` and ``sp``)."""
     device = params["embed"].device
+    if sp is not None:
+        mesh = _sp_mesh(mesh, sp)
+        inp = _sp_inputs(batch, sp, device)
+        x, aux = moe_forward_hidden(params, inp["tokens"], cfg, mesh=mesh,
+                                    ep_axis=ep_axis,
+                                    positions=inp["positions"], sp=sp,
+                                    segment_ids=inp["segments"], rules=rules,
+                                    dp_axis=dp_axis)
+        # The standard tail under sp, as in JAX (``moe.py:214``).
+        nll_sum = _sp_nll_sum(x, params, _layout(mesh, rules, ep_axis), inp)
+        return (_sp_xent(nll_sum, inp["kept"], sp, mesh, dp_axis)
+                + cfg.lb_coef * aux)
     tokens = _as_tokens(batch["tokens"], device)
     seg = batch.get("segments") if isinstance(batch, dict) else None
     positions = None

@@ -26,20 +26,32 @@ gathers q, k and v over ``tp``, attends every head on every ``tp`` rank
 and keeps this rank's columns of the output for ``wo``'s row split.
 The loss on a mesh is this rank's: its mean over ``dp`` is the loss of
 the whole batch, packed documents included (:func:`loss_fn`).
+
+**Sequence parallelism** (``sp=``, :class:`SeqParallel`): each rank of
+the ``sp`` axis holds one chunk of every row's sequence, and attention,
+the one operation that mixes positions, runs as the ring
+(:mod:`..parallel.ring`) or Ulysses (:mod:`..parallel.ulysses`) over
+that axis; everything else is position-wise on the chunk.  It composes
+with ``mesh=``/``rules=`` (dp rows, tp heads).  ``sp`` splits the batch
+as ``dp`` does: the loss on a rank is its share of the whole batch's
+mean times the number of ranks that split it, so its mean over ``dp``
+and ``sp`` is the whole batch's loss, and the train step takes the mean
+of the gradients over both.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention_reference, flash_attention
-from ..ops.xent import shifted_chunked_xent
+from ..ops.xent import chunked_softmax_xent, shifted_chunked_xent
 from ..ops._common import resolve_device
-from ..parallel.mesh import P, _spec_axes
+from ..parallel.mesh import P, _spec_axes, local_slice
 from ..utils import fan_in_normal
 
 
@@ -447,8 +459,71 @@ def _attn_out(x, o, layer, lay: MeshLayout | None, local: bool):
     return x + _tp_linear(o, layer["wo"], lay.kinds["wo"], lay, local)[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqParallel:
+    """Route the model's attention through sequence parallelism
+    (``transformer.py:347``): the ring (``method="ring"``, any head
+    count) or Ulysses (``method="ulysses"``, per-``tp``-shard head
+    counts divisible by the axis size) over ``mesh``'s ``axis``.
+    ``dp_axis`` / ``tp_axis`` name the axes the rows and heads ride,
+    each used only if the mesh has it.  ``use_flash=None`` follows
+    ``cfg.use_flash``.  Zigzag ring training stays a library-level tool
+    (it would permute the loss's next-token shift too).
+
+    In the port the model takes this rank's chunk of the sequence
+    (:meth:`chunk`): rank ``i`` of the axis holds positions ``[i*C,
+    (i+1)*C)`` of every row."""
+    mesh: Any
+    axis: str = "sp"
+    method: str = "ring"
+    use_flash: bool | None = None
+    dp_axis: str | None = "dp"
+    tp_axis: str | None = "tp"
+
+    def __post_init__(self):
+        if self.method not in ("ring", "ulysses"):
+            raise ValueError(f"unknown SeqParallel method "
+                             f"{self.method!r}; use 'ring' or 'ulysses'")
+
+    def _resolved_axes(self):
+        """(batch_axis, head_axis), dropping names absent from mesh."""
+        names = set(self.mesh.shape)
+        return (self.dp_axis if self.dp_axis in names else None,
+                self.tp_axis if self.tp_axis in names else None)
+
+    def chunk(self, x, dim: int = 1):
+        """This rank's chunk of ``x``'s sequence dimension ``dim``."""
+        return local_slice(x, dim, self.mesh.size(self.axis),
+                           self.mesh.index(self.axis), "sequence dimension")
+
+    def positions(self, B: int, C: int, device):
+        """The global positions (B, C) of this rank's chunk of C."""
+        p = self.mesh.index(self.axis) * C + torch.arange(C, device=device)
+        return p.expand(B, C)
+
+    def tp_head(self) -> bool:
+        """Whether the mesh has a tp axis of size > 1: the lm_head is
+        then vocab-split and the loss keeps the standard tail
+        (``transformer.py:612-631``)."""
+        return self.tp_axis is not None and self.mesh.size(self.tp_axis) > 1
+
+
+def _sp_attention(q, k, v, cfg, sp: SeqParallel, segment_ids, local: bool):
+    """The ring or Ulysses over ``sp``'s axis on this rank's chunk (and
+    its tp heads when ``local``)."""
+    from ..parallel.ring import ring_attention
+    from ..parallel.ulysses import ulysses_attention
+    flash = cfg.use_flash if sp.use_flash is None else sp.use_flash
+    batch_axis, head_axis = sp._resolved_axes()
+    fn = ulysses_attention if sp.method == "ulysses" else ring_attention
+    return fn(q, k, v, sp.mesh, axis=sp.axis, causal=True, use_flash=flash,
+              batch_axis=batch_axis, head_axis=head_axis if local else None,
+              window=cfg.sliding_window, segment_ids=segment_ids)
+
+
 def _attention_block(x, layer, cfg: TransformerConfig, positions,
-                     segment_ids=None, lay: MeshLayout | None = None):
+                     segment_ids=None, lay: MeshLayout | None = None,
+                     sp: SeqParallel | None = None):
     B, S, _ = x.shape
     Dh = cfg.head_dim
     h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
@@ -456,7 +531,9 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions,
     q = _rope(q.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
     k = _rope(k.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
     v = v.reshape(B, S, -1, Dh)
-    if cfg.use_flash:
+    if sp is not None:
+        o = _sp_attention(q, k, v, cfg, sp, segment_ids, local)
+    elif cfg.use_flash:
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             True, None, cfg.sliding_window, segment_ids)
     else:
@@ -488,18 +565,22 @@ def _as_tokens(tokens, device) -> torch.Tensor:
 
 
 def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None,
-                  lay: MeshLayout | None = None):
+                  lay: MeshLayout | None = None,
+                  sp: SeqParallel | None = None):
     """The per-layer recipe (attention block + MLP block, optionally
     rematerialized with ``torch.utils.checkpoint(use_reentrant=False)``)
     — ``transformer.py:438``.  Returns ``one_layer(x, layer) -> x``.
     ``lay``: on a mesh, each block gathers its leaves' gathered axes
-    (:meth:`MeshLayout.layer`) inside its remat region."""
+    (:meth:`MeshLayout.layer`) inside its remat region.  ``sp``:
+    attention runs sequence-parallel (the recompute runs the ring
+    again)."""
 
     def attn_block(x, layer):
         if lay is not None:
             layer = lay.layer({k: layer[k] for k in
                                ("attn_norm", "wq", "wk", "wv", "wo")})
-        return _attention_block(x, layer, cfg, positions, segment_ids, lay)
+        return _attention_block(x, layer, cfg, positions, segment_ids, lay,
+                                sp)
 
     def mlp_block(x, layer):
         if lay is not None:
@@ -571,25 +652,49 @@ def _layout(mesh, rules, ep_axis: str = "ep") -> MeshLayout | None:
     return None if mesh is None else MeshLayout(mesh, rules, ep_axis)
 
 
+def _sp_mesh(mesh, sp: SeqParallel | None):
+    """The mesh a forward runs on: ``sp``'s when no other is given."""
+    if sp is None or mesh is None:
+        return mesh if sp is None else sp.mesh
+    if mesh is not sp.mesh:
+        raise ValueError("mesh= and sp.mesh must be the same mesh")
+    return mesh
+
+
+def _model_inputs(tokens, positions, segment_ids, device, sp):
+    """tokens, positions and segment ids as long tensors on ``device``;
+    positions default to ``arange(S)``, or under ``sp`` to the chunk's
+    global positions."""
+    tokens = _as_tokens(tokens, device)
+    B, S = tokens.shape
+    if positions is not None:
+        positions = _as_tokens(positions, device)
+    elif sp is not None:
+        positions = sp.positions(B, S, device)
+    else:
+        positions = torch.arange(S, device=device).expand(B, S)
+    if segment_ids is not None:
+        segment_ids = _as_tokens(segment_ids, device)
+    return tokens, positions, segment_ids
+
+
 def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
                    positions=None, *, segment_ids=None, mesh=None,
-                   rules=None):
+                   rules=None, sp: SeqParallel | None = None):
     """tokens: (B, S) int -> final-norm hidden states (B, S, D) in
     ``cfg.dtype``, on the parameters' device.  Differentiable in the
     parameters.  ``mesh``/``rules``: this rank's rows of the batch and
-    its shard of a tree cut by ``rules`` (module docstring)."""
+    its shard of a tree cut by ``rules`` (module docstring).  ``sp``:
+    ``tokens`` (and ``positions``, ``segment_ids``) are this rank's
+    chunk of the sequence; positions default to the chunk's global
+    ones."""
+    mesh = _sp_mesh(mesh, sp)
     lay = _layout(mesh, rules)
     device = params["embed"].device
-    tokens = _as_tokens(tokens, device)
-    B, S = tokens.shape
-    if positions is None:
-        positions = torch.arange(S, device=device).expand(B, S)
-    else:
-        positions = _as_tokens(positions, device)
-    if segment_ids is not None:
-        segment_ids = _as_tokens(segment_ids, device)
+    tokens, positions, segment_ids = _model_inputs(tokens, positions,
+                                                   segment_ids, device, sp)
     x = _embed(params, tokens, cfg, lay)
-    one_layer = make_layer_fn(cfg, positions, segment_ids, lay)
+    one_layer = make_layer_fn(cfg, positions, segment_ids, lay, sp)
     for i in range(cfg.n_layers):
         x = one_layer(x, layer_params(params, i))
     norm = params["final_norm"] if lay is None else \
@@ -598,14 +703,15 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
 
 
 def forward(params: dict, tokens, cfg: TransformerConfig, positions=None,
-            *, segment_ids=None, mesh=None, rules=None):
+            *, segment_ids=None, mesh=None, rules=None,
+            sp: SeqParallel | None = None):
     """tokens: (B, S) int -> logits (B, S, vocab) fp32.  Runs where the
     parameters live (:func:`init_params` puts them on the GPU unless
     asked for the CPU).  On a mesh: this rank's rows, every vocabulary
-    column."""
+    column; with ``sp``, this rank's chunk of the sequence."""
     x = forward_hidden(params, tokens, cfg, positions,
-                       segment_ids=segment_ids, mesh=mesh, rules=rules)
-    return _head(x, params, _layout(mesh, rules))
+                       segment_ids=segment_ids, mesh=mesh, rules=rules, sp=sp)
+    return _head(x, params, _layout(_sp_mesh(mesh, sp), rules))
 
 
 # ----------------------------------------------------------------------
@@ -652,13 +758,15 @@ def dp_loss_scale(segment_ids, mesh, dp_axis: str = "dp"):
     return n * kept.clamp(min=1) / total.clamp(min=1)
 
 
-def _chunked_tail(cfg, params, lay: MeshLayout | None) -> bool:
+def _chunked_tail(cfg, params, lay: MeshLayout | None,
+                  sp: SeqParallel | None = None) -> bool:
     """Whether the chunked-vocab tail runs: ``cfg.ce_chunk`` on a plain
     lm_head, not split over ``tp`` — a vocab-split head takes the
-    standard tail with a warning (``transformer.py:616-631``)."""
+    standard tail with a warning, or silently under an ``sp`` whose mesh
+    has a tp axis (``transformer.py:612-631``)."""
     head = params["lm_head"]
     if (cfg.ce_chunk is None or is_quantized(head)
-            or is_quantized4(head)):
+            or is_quantized4(head) or (sp is not None and sp.tp_head())):
         return False
     if lay is not None and lay.split_by("lm_head"):
         import warnings
@@ -670,8 +778,64 @@ def _chunked_tail(cfg, params, lay: MeshLayout | None) -> bool:
     return True
 
 
+def _sp_inputs(batch: dict, sp: SeqParallel, device) -> dict:
+    """This rank's chunk of a batch of whole rows under ``sp``: the
+    packed positions and the next-token targets are computed on the whole
+    row, then cut — so a document that starts on an earlier rank
+    restarts RoPE there, and a chunk's last position predicts the next
+    chunk's first token.  Returns tokens, positions, segments (or None),
+    targets and keep (the targets that count: not the row's last
+    position, not a document boundary), each (B, C), and ``kept``, the
+    count of kept targets of the whole rows."""
+    tokens = _as_tokens(batch["tokens"], device)
+    seg = batch.get("segments") if isinstance(batch, dict) else None
+    B, S = tokens.shape
+    keep = torch.ones((B, S), dtype=torch.bool, device=device)
+    keep[:, -1] = False
+    if seg is not None:
+        seg = _as_tokens(seg, device)
+        positions = packed_positions(seg)
+        keep[:, :-1] = seg[:, :-1] == seg[:, 1:]
+    else:
+        positions = torch.arange(S, device=device).expand(B, S)
+    targets = torch.roll(tokens, -1, dims=1)
+    return dict(tokens=sp.chunk(tokens), positions=sp.chunk(positions),
+                segments=None if seg is None else sp.chunk(seg),
+                targets=sp.chunk(targets), keep=sp.chunk(keep),
+                kept=keep.sum())
+
+
+def _sp_xent(nll_sum, kept, sp: SeqParallel, mesh, dp_axis: str):
+    """This rank's loss under ``sp`` (module docstring): its chunk's
+    summed NLL over the kept targets of every rank's rows, times the
+    number of ranks splitting the batch (``dp_axis`` and ``sp``), so the
+    mean over those ranks is the whole batch's mean however the
+    documents fall."""
+    total = mesh.psum(kept.float(), dp_axis)
+    n = mesh.size(dp_axis) * mesh.size(sp.axis)
+    return n * nll_sum / total.clamp(min=1)
+
+
+def _sp_nll_sum(hidden, params, lay, inp, chunk=None) -> torch.Tensor:
+    """Σ NLL over the chunk's kept targets: by the chunked-vocab tail
+    in blocks of ``chunk`` columns, or (None) by the standard one."""
+    keep = inp["keep"]
+    if chunk is not None:
+        head = params["lm_head"] if lay is None else \
+            lay.gather(params["lm_head"], lay.spec("lm_head"))
+        D = hidden.shape[-1]
+        mean = chunked_softmax_xent(hidden.reshape(-1, D), head,
+                                    inp["targets"].reshape(-1),
+                                    keep.reshape(-1), chunk)
+        return mean * keep.sum().clamp(min=1)
+    logp = torch.log_softmax(_head(hidden, params, lay), dim=-1)
+    nll = -logp.gather(-1, inp["targets"][..., None])[..., 0]
+    return torch.where(keep, nll, 0.0).sum()
+
+
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *,
-            mesh=None, rules=None, dp_axis: str = "dp"):
+            mesh=None, rules=None, dp_axis: str = "dp",
+            sp: SeqParallel | None = None):
     """Next-token cross-entropy of ``batch["tokens"]`` (B, S): the
     forward runs on all S tokens and the logits are shifted
     (``transformer.py:593``).  ``batch["segments"]`` (optional, (B, S)):
@@ -685,9 +849,24 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *,
     cut by ``rules``.  The result is this rank's loss, as in DDP: its
     mean over ``dp_axis`` is the whole batch's loss
     (:func:`dp_loss_scale`), and the mean of the ranks' gradients the
-    whole batch's; the train step takes the same ``dp_axis``."""
+    whole batch's; the train step takes the same ``dp_axis``.
+
+    ``sp`` (:class:`SeqParallel`): ``batch`` holds whole rows (this
+    rank's over ``dp_axis``); this rank forwards its chunk of them
+    (:func:`_sp_inputs`) and returns its share of the batch's mean times
+    the ranks over ``dp_axis`` and ``sp`` (:func:`_sp_xent`)."""
+    mesh = _sp_mesh(mesh, sp)
     lay = _layout(mesh, rules)
     device = params["embed"].device
+    if sp is not None:
+        inp = _sp_inputs(batch, sp, device)
+        hidden = forward_hidden(params, inp["tokens"], cfg, inp["positions"],
+                                segment_ids=inp["segments"], mesh=mesh,
+                                rules=rules, sp=sp)
+        chunk = (cfg.ce_chunk if _chunked_tail(cfg, params, lay, sp)
+                 else None)
+        return _sp_xent(_sp_nll_sum(hidden, params, lay, inp, chunk),
+                       inp["kept"], sp, mesh, dp_axis)
     tokens = _as_tokens(batch["tokens"], device)
     seg = batch.get("segments")
     positions = None
@@ -833,16 +1012,35 @@ def _optimizer_step(optimizer, loss_of):
     return step
 
 
-def make_train_step(cfg: TransformerConfig, optimizer):
+def make_train_step(cfg: TransformerConfig, optimizer,
+                    sp: SeqParallel | None = None, *, rules=None):
     """Returns ``step(params, batch) -> loss``: :func:`loss_fn`, its
     gradients by autograd (through K2/K3 when ``cfg.use_flash``) and
     one ``optimizer`` step, which updates ``params`` in place (the
     counterpart of ``transformer.py:665``, whose step returns new
     params and optimizer state instead).  ``optimizer`` holds the
     leaves of ``params`` (e.g. ``AdamW(param_leaves(params), lr)``);
-    they are made to require grad.  The loss comes back detached."""
-    return _optimizer_step(optimizer,
-                           lambda params, batch: loss_fn(params, batch, cfg))
+    they are made to require grad.  The loss comes back detached.
+
+    ``sp``: attention runs sequence-parallel on ``sp.mesh``; ``params``
+    is this rank's shard of a tree cut by ``rules`` (None: whole),
+    ``batch`` its rows over ``sp``'s dp axis, whole rows
+    (``parallel.mesh.shard_batch``), and the step is
+    :func:`..parallel.tensor_parallel.make_tp_train_step` reducing over
+    that dp axis and ``sp.axis``; the loss returned is the batch's."""
+    if sp is None:
+        if rules is not None:
+            raise ValueError("rules= cuts a tree over a mesh: give sp=, or "
+                             "use parallel.tensor_parallel."
+                             "make_tp_train_step")
+        return _optimizer_step(
+            optimizer, lambda params, batch: loss_fn(params, batch, cfg))
+    from ..parallel.tensor_parallel import make_tp_train_step
+    dp = sp._resolved_axes()[0] or "dp"
+    return make_tp_train_step(
+        lambda params, batch: loss_fn(params, batch, cfg, rules=rules,
+                                      dp_axis=dp, sp=sp),
+        optimizer, sp.mesh, rules, dp_axis=dp, sp_axis=sp.axis)
 
 
 def num_tokens_per_step(batch_shape) -> int:

@@ -226,12 +226,14 @@ def _flash_bwd_prep(out, g):
 
 def _flash_backward_plain(q, k, v, out, lse, g, *, causal: bool,
                           scale: float, offsets=(0, 0), window=None,
-                          segment_ids=None, kv_segment_ids=None):
+                          segment_ids=None, kv_segment_ids=None,
+                          delta=None):
     """The kernels' function in plain PyTorch, from the saved lse
     (``attention.py:430-440``): p = exp(s - lse) (0 where masked),
     dS = p * (dO.V - delta), dQ = scale * dS K, dK = scale * dS^T Q,
     dV = p^T dO, dK/dV summed over the GQA group, all in fp32 and cast
-    once to q's / k's / v's dtype.  Not autograd of the reference."""
+    once to q's / k's / v's dtype.  Not autograd of the reference.
+    ``delta``: given (a ring hop's global one), ``out`` is not read."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -245,7 +247,9 @@ def _flash_backward_plain(q, k, v, out, lse, g, *, causal: bool,
     gf = g.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", gf,
                       v.float().repeat_interleave(group, dim=2))
-    ds = p * (dp - _flash_bwd_prep(out, g)[..., None])
+    if delta is None:
+        delta = _flash_bwd_prep(out, g)
+    ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds,
                       k.float().repeat_interleave(group, dim=2)) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -316,12 +320,37 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
 
 
-def _flash_backward_cuda(q, k, v, out, lse, g, **args):
-    """delta, then K2, then K3, all on q's current stream."""
-    delta = _flash_bwd_prep(out, g)
+def _flash_backward_cuda(q, k, v, out, lse, g, *, delta=None, **args):
+    """delta (unless given: then ``out`` is not read), then K2, then K3,
+    all on q's current stream."""
+    if delta is None:
+        delta = _flash_bwd_prep(out, g)
     dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, **args)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, **args)
     return dq, dk, dv
+
+
+def _flash_backward_hop(q, k, v, g, lse, delta, *, causal: bool,
+                        scale: float, offsets=(0, 0),
+                        window: int | None = None, segment_ids=None,
+                        kv_segment_ids=None):
+    """(dq, dk, dv) of the keys ``k``/``v`` alone, from a saved lse and
+    delta (B, H, Sq) that cover more keys than these: a ring hop's, whose
+    lse and delta are the whole sequence's (the hops are independent
+    given them, as the kernels' key tiles are).  CUDA tensors launch K2
+    and K3; CPU tensors take :func:`_flash_backward_plain`; anything
+    else raises."""
+    _check_qkv(q, k, v, causal, window)
+    segment_ids, kv_segment_ids = _seg_pair(segment_ids, kv_segment_ids,
+                                            q.shape[1], k.shape[1])
+    args = dict(causal=causal, scale=scale, offsets=offsets,
+                window=window, segment_ids=segment_ids,
+                kv_segment_ids=kv_segment_ids)
+    if kernel_route(q, k, v, g, lse, delta, segment_ids,
+                    kv_segment_ids) == "cpu":
+        return _flash_backward_plain(q, k, v, None, lse, g, delta=delta,
+                                     **args)
+    return _flash_backward_cuda(q, k, v, None, lse, g, delta=delta, **args)
 
 
 def _flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,

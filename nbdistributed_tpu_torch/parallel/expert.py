@@ -34,6 +34,15 @@ is gathered first and each rank keeps its own rows of the result.
 ``dropless`` over ``ep`` is the hierarchical shard-capacity path
 (:func:`_dropless_ffn_ep`): routing on each rank's own token block,
 its experts' rows cut at a pooled shard capacity.
+
+Under sequence parallelism (``seq_axis``) ``x`` is this rank's chunk
+(B, C, D) of its rows' sequences.  The tokens JAX routes together are
+those of the flattened ``b*S + s`` order, which a chunk is not part of
+contiguously: ``dense`` and ``sparse`` gather the whole rows over the
+axis (capacity and priority stay the batch's), and dropless over
+``ep`` routes JAX's token blocks, the flattened rows cut over the axis
+(a rank's chunk when it holds one row; otherwise the rows are gathered,
+the block routed and the output gathered back).
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import fan_in_normal
-from .mesh import P, spec_split
+from .mesh import P, local_slice, spec_split
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
@@ -304,11 +313,28 @@ def _aux_over_blocks(probs, first, E: int, mask, mesh, axes: tuple):
     return E * ((stats[:E] / n) * (stats[E:2 * E] / n)).sum()
 
 
+def _seq_block(x, mesh, axis: str):
+    """JAX's token block of this rank's rows (B, C, D) under sequence
+    parallelism: the rows gathered whole over ``axis``, flattened in
+    ``b*S + s`` order and cut into the axis's shards."""
+    n, idx = mesh.size(axis), mesh.index(axis)
+    rows = mesh.gather_sum(x, axis, 1)
+    return local_slice(rows.reshape(-1, x.shape[-1]), 0, n, idx)
+
+
+def _seq_unblock(y, mesh, axis: str, shape):
+    """Inverse of :func:`_seq_block`: this rank's chunk ``shape`` of
+    the blocks' outputs."""
+    n, idx = mesh.size(axis), mesh.index(axis)
+    rows = mesh.gather_sum(y, axis, 0).reshape(shape[0], -1, shape[-1])
+    return local_slice(rows, 1, n, idx)
+
+
 def moe_ffn(x, params: dict, *, top_k: int = 2,
             capacity_factor: float = 1.25, mesh=None, ep_axis: str = "ep",
             dispatch_mode: str = "dense", token_mask=None,
             capacity: int | None = None, token_axes: tuple = ("dp",),
-            token_blocks: int = 1):
+            token_blocks: int = 1, seq_axis: str | None = None):
     """Mixture-of-experts SwiGLU feed-forward (``expert.py:377``).
 
     x (..., D) -> (same shape, aux scalar fp32).  ``dispatch_mode`` is
@@ -327,7 +353,8 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     gates, so the router and everything before the block see the whole
     cotangent on every ``ep`` rank.  ``token_blocks``: the dropless
     ``ep`` path routes ``x``'s tokens as that many blocks
-    (:func:`_dropless_ffn_ep`)."""
+    (:func:`_dropless_ffn_ep`).  ``seq_axis``: ``x`` (B, C, D) is this
+    rank's sequence chunk over that axis (module docstring)."""
     if dispatch_mode not in ("dense", "sparse", "dropless"):
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
     # The expert products are batched over E: ``qlinear`` takes the
@@ -342,6 +369,9 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
     axes, _, idx = (_token_block(mesh, token_axes, ep_axis)
                     if mesh is not None else ((), 1, 0))
     ep = mesh is not None and ep_axis in mesh.shape
+    seq = mesh is not None and mesh.size(seq_axis) > 1
+    if seq and (x.ndim != 3 or token_mask is not None):
+        raise ValueError("seq_axis takes x (B, C, D) without a token_mask")
 
     if dispatch_mode == "dropless" and mesh is not None:
         # Routing is per token, so each rank routes its own block; the
@@ -349,12 +379,18 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
         logits = xt.float() @ params["router"]
         probs = torch.softmax(logits, dim=-1)
         aux = _aux_over_blocks(probs, torch.argmax(probs, dim=-1), E,
-                               mask_t, mesh, axes)
+                               mask_t, mesh, axes + ((seq_axis,) if seq
+                                                     else ()))
         if ep:
-            y = _dropless_ffn_ep(xt, params, logits, top_k, E, mesh,
+            regather = seq and x.shape[0] > 1
+            xb = _seq_block(x, mesh, seq_axis) if regather else xt
+            lb = xb.float() @ params["router"] if regather else logits
+            y = _dropless_ffn_ep(xb, params, lb, top_k, E, mesh,
                                  ep_axis, capacity_factor,
                                  token_mask=mask_t, capacity=capacity,
                                  blocks=token_blocks)
+            if regather:
+                y = _seq_unblock(y, mesh, seq_axis, orig_shape)
         else:
             gates, expert_idx, _ = top_k_routing(logits, top_k)
             y = _dropless_ffn(xt, params, gates, expert_idx, E,
@@ -363,6 +399,10 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
 
     # Capacity and priority are the whole batch's: a token-split batch
     # is gathered, and each rank keeps its own rows of the result.
+    chunk_shape = orig_shape
+    if seq:
+        x = mesh.gather_sum(x, seq_axis, 1)
+        orig_shape, xt = x.shape, x.reshape(-1, D)
     T_own = xt.shape[0]
     xg = _gather_tokens(xt, mesh, axes)
     mg = mask_t
@@ -421,4 +461,7 @@ def moe_ffn(x, params: dict, *, top_k: int = 2,
                          combine[rows, lo:lo + E_loc].to(x.dtype), ye)
     if ep:
         y = mesh.reduce_from(y, ep_axis)
-    return y.reshape(orig_shape), aux
+    y = y.reshape(orig_shape)
+    if seq:
+        y = local_slice(y, 1, mesh.size(seq_axis), mesh.index(seq_axis))
+    return y.reshape(chunk_shape), aux

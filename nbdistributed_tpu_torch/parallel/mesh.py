@@ -15,7 +15,13 @@ share every other coordinate with this one.  The groups take the world
 group's backend: NCCL in a GPU worker, gloo on the CPU.  On a gloo
 group the mesh path keeps to the collectives gloo runs on CUDA tensors
 (``all_reduce``, ``all_gather``, ``broadcast``), so one card can host
-several ranks (NCCL refuses two ranks on one device).
+several ranks (NCCL refuses two ranks on one device).  The two
+collectives gloo does not run on CUDA tensors, the ring's
+:meth:`Mesh.ppermute` (``send``/``recv`` take a raw pointer) and
+Ulysses' :meth:`Mesh.all_to_all`, go through host memory there: the
+tensor is copied to the CPU, moved by gloo's CPU ``batch_isend_irecv``
+or ``all_to_all_single`` and copied back, so each rank moves only its
+own bytes (an all-gather would move n times as many).
 
 :class:`P` is the port's partition spec: one entry per dimension, an
 axis name, a tuple of axis names or ``None``, as JAX's
@@ -41,6 +47,11 @@ transposes GSPMD derives in the JAX package:
 
 A reduce-scatter (:meth:`Mesh.reduce_scatter`) is ``reduce_scatter_
 tensor`` on an NCCL group, and an all-reduce and a slice on gloo.
+
+Two more are linear maps whose transpose is another of their kind, so
+they hold on any axis: :meth:`Mesh.ppermute` (a ring shift; the
+backward shifts back) and the tiled :meth:`Mesh.all_to_all` (the
+backward is the reverse all-to-all).
 """
 
 from __future__ import annotations
@@ -186,6 +197,63 @@ class Mesh:
         _dist().reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, dim)
 
+    def _staged(self, x, axis: str):
+        """(x as the group's backend takes it, the device to copy the
+        result back to or None): gloo moves a CUDA tensor through host
+        memory."""
+        if x.is_cuda and _dist().get_backend(self._groups[axis]) != "nccl":
+            return x.detach().to("cpu").contiguous(), x.device
+        return x.contiguous(), None
+
+    def ppermute(self, x, axis: str, shift: int = 1):
+        """Rank ``i`` of ``axis`` sends ``x`` to rank ``(i + shift) %
+        n`` and returns what rank ``(i - shift) % n`` sent
+        (``jax.lax.ppermute`` with a cyclic permutation); the send and
+        the receive are posted together, so the ring cannot deadlock.
+        Differentiable: the backward shifts the cotangent back."""
+        n = self.size(axis)
+        if n == 1 or shift % n == 0:
+            return x
+        return _Ppermute.apply(x, self, axis, shift % n)
+
+    def _ppermute(self, x, axis: str, shift: int):
+        n, me = self.size(axis), self.index(axis)
+        ranks = self._slice_ranks[axis]
+        src, dev = self._staged(x, axis)
+        out = torch.empty_like(src)
+        dist, group = _dist(), self._groups[axis]
+        ops = [dist.P2POp(dist.isend, src, ranks[(me + shift) % n], group),
+               dist.P2POp(dist.irecv, out, ranks[(me - shift) % n], group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out if dev is None else out.to(dev)
+
+    def all_to_all(self, x, axis: str, split_dim: int, concat_dim: int):
+        """``jax.lax.all_to_all(x, axis, split_dim, concat_dim,
+        tiled=True)``: ``x`` cut into n blocks along ``split_dim``, block
+        j sent to rank j of ``axis``, the blocks received concatenated
+        along ``concat_dim`` in rank order.  Differentiable: the
+        backward is the reverse all-to-all."""
+        if self.size(axis) == 1:
+            return x
+        return _AllToAll.apply(x, self, axis, _dim(x, split_dim),
+                               _dim(x, concat_dim))
+
+    def _all_to_all(self, x, axis: str, split_dim: int, concat_dim: int):
+        n = self.size(axis)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"dimension {split_dim} of shape "
+                             f"{tuple(x.shape)} is not divisible into {n} "
+                             f"blocks")
+        blocks = x.movedim(split_dim, 0)
+        blocks = blocks.reshape((n, blocks.shape[0] // n) + blocks.shape[1:])
+        src, dev = self._staged(blocks, axis)
+        out = torch.empty_like(src)
+        _dist().all_to_all_single(out, src, group=self._groups[axis])
+        out = out if dev is None else out.to(dev)
+        return torch.cat([b.movedim(0, split_dim) for b in out.unbind(0)],
+                         dim=concat_dim)
+
     # ---- differentiable collectives (module docstring) -------------
 
     def reduce_from(self, x, axis: str):
@@ -303,6 +371,32 @@ class _PsumSplit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.psum(g, ctx.axis), None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return mesh._ppermute(x, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.mesh.size(ctx.axis)
+        return (ctx.mesh._ppermute(g, ctx.axis, n - ctx.shift),
+                None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = mesh, axis, split_dim, concat_dim
+        return mesh._all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return (mesh._all_to_all(g, axis, concat_dim, split_dim),
+                None, None, None, None)
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, *,

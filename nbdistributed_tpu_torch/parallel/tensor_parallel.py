@@ -17,7 +17,10 @@ function returns this rank's loss (DDP's convention: the models' losses
 on a mesh, ``models.transformer.loss_fn(mesh=, rules=)``), and the step
 takes the mean over ``dp`` of the losses and of the gradients — a leaf
 split over ``dp`` (FSDP) gets its gradient already summed by the
-gather's reduce-scatter.  The JAX step returns new params and optimizer
+gather's reduce-scatter.  A sequence-parallel axis (``sp_axis``) splits
+the batch too (each rank its chunk of every row): the step takes the
+mean over it as well, so every replicated leaf is reduced once over
+each axis that splits the batch.  The JAX step returns new params and optimizer
 state; the port's updates them in place, as
 ``models.transformer.make_train_step`` does.
 """
@@ -172,7 +175,7 @@ def _grad_norm_sq(grads: list, axes: list, mesh):
 
 def _train_step(loss_fn, params, batch, optimizer, mesh, rules, *,
                 dp_axis: str, accum_steps: int, accum_rules, guard: bool,
-                zero=None):
+                zero=None, sp_axis: str | None = None):
     """One step on this rank (module docstring); returns the loss, or
     (loss, {"v": [ok, loss, gnorm]}) with ``guard``.  ``zero``: ZeRO's
     sharded optimizer state (:class:`.zero._Zero`), which then takes
@@ -207,7 +210,9 @@ def _train_step(loss_fn, params, batch, optimizer, mesh, rules, *,
         acc = parts if acc is None else [a + b for a, b in zip(acc, parts)]
     for p in leaves:
         p.grad = None
-    loss = mesh.psum(torch.stack(losses), dp_axis).mean() / n_dp
+    n_sp = mesh.size(sp_axis)
+    loss = mesh.psum(mesh.psum(torch.stack(losses), dp_axis),
+                     sp_axis).mean() / (n_dp * n_sp)
     grads, split = [], []
     for p, g, spec, f, ad in zip(leaves, acc, specs, fsdp, acc_dims):
         zd = None if zero is None else zero.dims[id(p)]
@@ -220,8 +225,9 @@ def _train_step(loss_fn, params, batch, optimizer, mesh, rules, *,
             g = mesh.reduce_scatter(g, dp_axis, zd)
         else:
             g = mesh.psum(g, dp_axis)
-        if n_dp * accum_steps > 1:
-            g = g / (n_dp * accum_steps)
+        g = mesh.psum(g, sp_axis)
+        if n_dp * n_sp * accum_steps > 1:
+            g = g / (n_dp * n_sp * accum_steps)
         grads.append(g if zero is not None else g.to(p.dtype))
         axes = _split_axes(spec, mesh)
         if zd is not None and n_dp > 1:
@@ -247,7 +253,8 @@ def _train_step(loss_fn, params, batch, optimizer, mesh, rules, *,
 
 def make_tp_train_step(loss_fn, optimizer, mesh, param_rules, *,
                        dp_axis: str = "dp", accum_steps: int = 1,
-                       accum_rules=None, guard: bool = False):
+                       accum_rules=None, guard: bool = False,
+                       sp_axis: str | None = None):
     """The train step on a dp x tp mesh (``tensor_parallel.py:35``):
     ``step(params, batch) -> loss`` updates ``params`` in place.
 
@@ -269,7 +276,13 @@ def make_tp_train_step(loss_fn, optimizer, mesh, param_rules, *,
     only over the axes it is split on) and the loss must be finite, or
     the step leaves the params, the optimizer's moments and its step
     count untouched; the step returns ``(loss, {"v": [ok, loss,
-    gnorm]})``.  The verdict is read on the host once per step."""
+    gnorm]})``.  The verdict is read on the host once per step.
+
+    ``sp_axis``: the batch's rows are also split into sequence chunks
+    over this axis (``models.transformer.SeqParallel``); ``loss_fn``
+    returns this rank's share times the ranks splitting the batch
+    (``loss_fn(sp=)``), and the step reduces losses and gradients over
+    ``sp_axis`` as over ``dp_axis``."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -277,6 +290,6 @@ def make_tp_train_step(loss_fn, optimizer, mesh, param_rules, *,
         return _train_step(loss_fn, params, batch, optimizer, mesh,
                            param_rules, dp_axis=dp_axis,
                            accum_steps=accum_steps, accum_rules=accum_rules,
-                           guard=guard)
+                           guard=guard, sp_axis=sp_axis)
 
     return step

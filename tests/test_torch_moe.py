@@ -217,17 +217,18 @@ def test_model_loss_equal_across_dispatch_modes(tree):
 def test_parallel_arguments_name_their_roadmap_entries(tree):
     cfg = tiny_moe_config(dtype=torch.float32)
     params = _port(tree, cfg)
-    tok = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        moe_forward(params, tok, cfg, sp=object())
     # moe_forward on a mesh raised before expert parallelism was ported;
     # on a one-rank dp x ep mesh it now gives JAX's logits and aux (the
     # 4-rank meshes are in test_torch_mesh.py).  The loss on a mesh
     # raised before training on a mesh was ported; on a one-rank ep mesh
     # it now gives JAX's loss (the 4-rank meshes are in
-    # test_torch_mesh_train_moe.py).  A sequence-parallel axis keeps its
-    # raise naming A5.
+    # test_torch_mesh_train_moe.py).  A sequence-parallel axis raised
+    # before sequence parallelism was ported; on a one-rank sp x ep mesh
+    # it now gives JAX's loss (the 4-rank meshes are in
+    # test_torch_mesh_train_sp.py).
+    from nbdistributed_tpu.models.transformer import SeqParallel as JSP
     from nbdistributed_tpu.parallel.mesh import make_mesh as jax_mesh
+    from nbdistributed_tpu_torch.models import SeqParallel
     from nbdistributed_tpu_torch.parallel import make_mesh
     tok = np.random.default_rng(3).integers(0, 512, (2, 8))
     got, aux = moe_forward(params, torch.from_numpy(tok), cfg,
@@ -245,6 +246,12 @@ def test_parallel_arguments_name_their_roadmap_entries(tree):
         jmoe.tiny_moe_config(dtype=jnp.float32),
         mesh=jax_mesh({"ep": 1}, devices=jax.devices()[:1]))
     assert float(got) == pytest.approx(float(want), rel=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        moe_loss_fn(params, {"tokens": tok}, cfg,
-                    mesh=make_mesh({"sp": 1, "ep": 1}), sp=object())
+    m = make_mesh({"sp": 1, "ep": 1})
+    got = moe_loss_fn(params, {"tokens": torch.from_numpy(tok)}, cfg,
+                      mesh=m, sp=SeqParallel(m))
+    jm = jax_mesh({"sp": 1, "ep": 1}, devices=jax.devices()[:1])
+    want = jmoe.moe_loss_fn(
+        jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(tok)},
+        jmoe.tiny_moe_config(dtype=jnp.float32), mesh=jm,
+        sp=JSP(jm, use_flash=False))
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
