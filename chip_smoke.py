@@ -174,6 +174,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``batch_isend_irecv`` calls), peak GB per rank, the phase's seconds;
    host-bound gloo times.
 
+21. (run after phase 20) pipeline-parallel training.  First
+   ``remat_policy="dots"`` on phase 11's shape (bf16, B=4 x S=2048,
+   one step, this process) against full remat and none: the loss within
+   1e-6 of full remat's, K1 60 (attention recomputed), K2 and K3 30;
+   peak GB and ms of each.  Then phase 18's ranks, each job from seed 0
+   in fp32, AdamW lr 1e-4, 2 steps, held to the single-process step as
+   phase 19 holds its jobs (each step's gradient norm from an AdamW that
+   records it): Mistral-7B (``mistral_7b_config``, 4 of 32 layers, one a
+   stage, B=16 x S=512, 16 microbatches) on ``{"pp": 4}`` by GPipe
+   (``make_pp_train_step``) and by 1F1B (``make_pp_1f1b_train_step``,
+   its losses within 1e-5 of GPipe's), and SmolLM2-135M (30 layers, 15 a
+   stage) by 1F1B on ``{"dp": 2, "pp": 2}`` (``batch_axis="dp"``, B=8,
+   4 microbatches).  K1/K2/K3 per rank per step: the stage's layers per
+   microbatch, K1 twice under 1F1B but on the last stage.  And
+   ``allgather_matmul`` against ``all_gather`` and one product at a
+   Megatron shape on ``{"tp": 4}`` (bf16, x 2048 x 4096 a rank, w
+   4096 x 3584): C4's overlap, reported.  Rows: ms per step per rank,
+   collectives per step, peak GB per rank, the phase's seconds.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
@@ -182,12 +201,14 @@ worker's K1 and K4 launches (``cluster_serve``), as the MoE
 forward's and MoE training's K1/K2/K3 launches join the SmolLM2
 paths', the mesh runs' K4 launches on rank 0 (``mesh_*``) and the
 mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
-``train_sp_*``, ``grad_sp_*``).
+``train_sp_*``, ``grad_sp_*``, ``train_pp_*``) and the dots step's
+(``train_remat_dots``).
 
-``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19 and 20 alone
-on four cards, one NCCL rank per card (what one card cannot show: NCCL,
-its ``reduce_scatter_tensor``, its point-to-point ring hops and
-``all_to_all_single``, and the links between cards).
+``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
+ranks alone on four cards, one NCCL rank per card (what one card cannot
+show: NCCL, its ``reduce_scatter_tensor``, its point-to-point ring and
+pipeline hops overlapping compute, ``all_to_all_single``, and the links
+between cards).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -2219,7 +2240,9 @@ def mesh_rank(rank, port, jobs, q, backend, done):
         for job in jobs:
             send = lambda item: q.put((rank, item))  # noqa: E731
             out[job["name"]] = (
-                train_sp_job(job, counts, send) if job.get("train_sp")
+                train_pp_job(job, counts, send) if job.get("train_pp")
+                else overlap_job(job, counts, send) if job.get("overlap")
+                else train_sp_job(job, counts, send) if job.get("train_sp")
                 else train_mesh_job(job, counts, send) if job.get("train")
                 else mesh_job(job, counts))
         dist.barrier()
@@ -2279,7 +2302,8 @@ def run_mesh_ranks(jobs, backend, on_item=None):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
         deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S * (
-            2 if any(j.get("train") or j.get("train_sp") for j in jobs)
+            2 if any(j.get("train") or j.get("train_sp") or j.get("train_pp")
+                     for j in jobs)
             else 1)
         while len(out) < MESH_WORLD:
             try:
@@ -3293,6 +3317,401 @@ def phase_train_sp(backend="gloo"):
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 21: pipeline-parallel training.  First the remat "dots" policy
+# on the training shape here (single process).  Then phase 18's four
+# ranks (gloo on the one card; NCCL, one card each, with --mesh-nccl)
+# train each job below from seed 0 with the layer stack pipelined over
+# pp, held to the single-process step on the whole tree and batch, run
+# first here, as phase 19 holds its jobs; and time the ring-decomposed
+# all-gather matmul against an all-gather and one product.  Every stage
+# runs its layers' K1 forward and K2 + K3 backward per microbatch.
+
+TRAIN_PP_S = 512
+TRAIN_PP_LR = 1e-4
+# Depth cut 32 -> 4 (one layer a stage) so that four ranks' fp32
+# weights, gradients and AdamW moments fit one card beside the rest
+# (PERF.md, phase 21); widths are the published ones.  SmolLM2 at full
+# depth, 15 layers a stage.  Largest first, as in phase 19.
+TRAIN_PP_JOBS = (
+    dict(name="train_pp_gpipe_mistral_pp4", model="mistral",
+         mesh={"pp": 4}, schedule="gpipe", B=16, M=16, steps=2),
+    dict(name="train_pp_1f1b_mistral_pp4", model="mistral",
+         mesh={"pp": 4}, schedule="1f1b", B=16, M=16, steps=2),
+    dict(name="train_pp_1f1b_smol_dp2_pp2", model="smol",
+         mesh={"dp": 2, "pp": 2}, schedule="1f1b", B=8, M=4, steps=2,
+         batch_axis="dp"),
+)
+PP_LAYERS = {"mistral": 4}
+# C4's yardstick: a Megatron column product of Mistral's MLP on tp4,
+# each rank's 2048 rows of x (8192 in all) against its 14336/4 columns.
+OVERLAP_JOB = dict(name="overlap_allgather_matmul_tp4", mesh={"tp": 4},
+                   rows=2048, d_model=4096, cols=14336 // 4, iters=10)
+DOTS_REL = 1e-6
+
+
+def train_pp_cfg(job):
+    import torch
+    from nbdistributed_tpu_torch.models import (mistral_7b_config,
+                                                smol_135m_config)
+    if job["model"] == "mistral":
+        return mistral_7b_config(dtype=torch.float32,
+                                 n_layers=PP_LAYERS["mistral"])
+    return smol_135m_config(dtype=torch.float32)
+
+
+def train_pp_batch(job, cfg):
+    """The job's tokens (the pipelined losses take no segments), the
+    same in the parent and in every rank."""
+    return {"tokens": packed_batch(cfg, job["B"], TRAIN_PP_S,
+                                   TRAIN_MESH_BATCH_SEED)["tokens"]}
+
+
+def train_pp_want(job, cfg, stage):
+    """K1/K2/K3 a step on the rank of ``stage``: the stage's layers per
+    microbatch; under 1F1B K1 twice (the forward sub-step and the
+    backward's recompute) but on the last stage, whose forward and
+    backward of a microbatch share one forward."""
+    n = job["mesh"]["pp"]
+    per = cfg.n_layers // n * job["M"]
+    twice = job["schedule"] == "1f1b" and stage < n - 1
+    return {"k1": per * (2 if twice else 1), "k2": per, "k3": per}
+
+
+def train_pp_reference(job):
+    """The single-process step (``loss_fn`` and AdamW) on the whole tree
+    and batch: each step's loss and gradient norm, the final leaves on
+    the host."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params, loss_fn,
+                                                named_param_leaves)
+
+    cfg = train_pp_cfg(job)
+    params = init_params(cfg, 0)
+    batch = train_pp_batch(job, cfg)
+    named = named_param_leaves(params)
+    leaves = [t.requires_grad_() for _, t in named]
+    opt = AdamW(leaves, lr=TRAIN_PP_LR)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms = [], []
+    for _ in range(job["steps"]):
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(params, batch, cfg)
+        loss.backward()
+        gnorms.append(float(torch.stack([p.grad.float().pow(2).sum()
+                                         for p in leaves]).sum().sqrt()))
+        opt.step()
+        losses.append(float(loss.detach()))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    final = {path: t.detach().cpu() for path, t in named}
+    del params, named, leaves, opt, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gnorms=gnorms, peak_gb=peak), final
+
+
+def train_pp_job(job, counts, send):
+    """One pipelined job on this rank: the model from the seed, staged
+    and cut to this rank's stage slice, the GPipe or 1F1B step through
+    an AdamW that records each step's gradient norm (the stage leaves'
+    squares summed over pp, the replicated leaves' once), counts reset
+    just before the steps and read per step; then each leaf this rank is
+    the first holder of goes to the parent, a stage slice as its rows of
+    the ``(L, ...)`` stack."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                make_pp_1f1b_train_step,
+                                                make_pp_train_step,
+                                                named_param_leaves,
+                                                param_leaves,
+                                                pp_apply_shardings,
+                                                pp_stage_params)
+    from nbdistributed_tpu_torch.parallel import P, make_mesh
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(job["mesh"])
+    cfg = train_pp_cfg(job)
+    n, stage = mesh.size("pp"), mesh.index("pp")
+    params = pp_apply_shardings(pp_stage_params(init_params(cfg, 0), n),
+                                mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    staged = {id(t) for path, t in named_param_leaves(params)
+              if path.startswith("layers_pp/")}
+
+    class NormAdamW(AdamW):
+        def step(self):
+            ps = [p for g in self.param_groups for p in g["params"]]
+            sq = [torch.stack([p.grad.float().pow(2).sum() for p in ps
+                               if (id(p) in staged) == s]).sum()
+                  for s in (True, False)]
+            self.gnorms.append(float((mesh.psum(sq[0], "pp")
+                                      + sq[1]).sqrt()))
+            return super().step()
+
+    opt = NormAdamW(param_leaves(params), lr=TRAIN_PP_LR)
+    opt.gnorms = []
+    if job["schedule"] == "gpipe":
+        step = make_pp_train_step(cfg, opt, mesh, n_microbatches=job["M"])
+    else:
+        step = make_pp_1f1b_train_step(cfg, opt, mesh,
+                                       n_microbatches=job["M"],
+                                       batch_axis=job.get("batch_axis"))
+    batch = train_pp_batch(job, cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for k in counts:
+        counts[k] = 0
+    losses, secs, per_step, coll = [], [], [], []
+    t_steps = time.perf_counter()
+    for _ in range(job["steps"]):
+        before, c0 = launch_counts(), dict(counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, batch)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        coll.append(sum(counts[k] - c0[k] for k in counts))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_send = time.perf_counter()
+    named = []
+    for path, t in named_param_leaves(params):
+        if path.startswith("layers_pp/"):
+            path, t = "layers/" + path[len("layers_pp/"):], t[0]
+        named.append((path, t))
+    rules = {"layers": {path[len("layers/"):]: P("pp") for path, _ in named
+                        if path.startswith("layers/")}}
+    sent = send_shards(job["name"], named, rules, mesh, send)
+    t_end = time.perf_counter()
+    row = dict(seconds=dict(setup=t_steps - t_start, steps=t_send - t_steps,
+                            send=t_end - t_send),
+               stage=stage, losses=losses, gnorms=opt.gnorms,
+               launches_per_step=per_step,
+               want_per_step=train_pp_want(job, cfg, stage),
+               ms_per_step=[1e3 * x for x in secs],
+               collectives_per_step=coll, collectives=dict(counts),
+               peak_gb=peak, leaves_sent=sent,
+               k1=sum(c["k1"] for c in per_step),
+               k2=sum(c["k2"] for c in per_step),
+               k3=sum(c["k3"] for c in per_step))
+    del params, opt, step, batch, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def overlap_job(job, counts, send):
+    """C4's yardstick on this rank: ``allgather_matmul`` (each hop posted
+    before the product of the rows it carries on) against
+    ``all_gather`` then one ``torch.matmul``, bf16, timed in the order
+    ring, gather, gather, ring (``iters`` calls each, between barriers),
+    and the two results' relative L2."""
+    import torch
+    from nbdistributed_tpu_torch.parallel import allgather_matmul, make_mesh
+
+    mesh = make_mesh(job["mesh"])
+    g = torch.Generator(device="cuda").manual_seed(17 + mesh.index("tp"))
+    x = torch.randn(job["rows"], job["d_model"], generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn(job["d_model"], job["cols"], generator=g, device="cuda",
+                    dtype=torch.bfloat16) / job["d_model"] ** 0.5
+    fns = {"ring": lambda: allgather_matmul(x, w, mesh, "tp"),
+           "gather_then_matmul": lambda: mesh.all_gather(x, "tp", 0) @ w}
+    ms = {k: [] for k in fns}
+    for name in ("ring", "gather_then_matmul", "gather_then_matmul",
+                 "ring"):
+        fns[name]()
+        torch.cuda.synchronize()
+        mesh.psum(torch.zeros(1, device="cuda"), "tp")
+        t0 = time.perf_counter()
+        for _ in range(job["iters"]):
+            fns[name]()
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / job["iters"])
+    a, b = fns["ring"]().float(), fns["gather_then_matmul"]().float()
+    return dict(ms=ms, rel_l2=float((a - b).norm() / b.norm()),
+                shape=dict(x=[job["rows"], job["d_model"]],
+                           w=[job["d_model"], job["cols"]]))
+
+
+def phase_remat_dots(seed=0):
+    """``remat_policy="dots"`` on the SmolLM2 training shape (bf16, B=4 x
+    S=2048 packed documents, one AdamW step, one process) against full
+    remat and none: the loss within ``DOTS_REL`` of full remat's, K1 60
+    (the forward and the recompute of attention), K2 and K3 30; peak GB
+    and ms of the step for each."""
+    import gc
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                make_train_step,
+                                                param_leaves,
+                                                smol_135m_config)
+
+    rows = {}
+    for name, kw in (("none", {}), ("full", {"remat": True}),
+                     ("dots", {"remat": True, "remat_policy": "dots"})):
+        cfg = smol_135m_config(**kw)
+        params = init_params(cfg, seed)
+        batch = packed_batch(cfg, TRAIN_B, cfg.max_seq_len, TRAIN_BATCH_SEED)
+        step = make_train_step(cfg, AdamW(param_leaves(params), lr=1e-3))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = float(step(params, batch))
+        torch.cuda.synchronize()
+        rows[name] = dict(loss=loss, ms=1e3 * (time.perf_counter() - t0),
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=launch_counts())
+        del params, batch, step
+    L = N_LAYERS_SMOL
+    want = {"k1": 2 * L, "k2": L, "k3": L}
+    rel = abs(rows["dots"]["loss"] - rows["full"]["loss"]) / abs(
+        rows["full"]["loss"])
+    say("train_remat_dots_bf16", **rows, loss_rel_dots_vs_full=rel,
+        want_dots=want)
+    check(rel <= DOTS_REL, f"dots loss {rows['dots']['loss']} against full "
+          f"remat's {rows['full']['loss']}")
+    check(rows["dots"]["launches"] == want, f"dots launched "
+          f"{rows['dots']['launches']}, want {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows, loss_rel_dots_vs_full=rel)
+
+
+def phase_train_pp(backend="gloo"):
+    """Phase 21: the references here, then the four ranks run every job
+    and the overlap yardstick; every rank's losses equal, the losses
+    within 1e-5 and each step's gradient norm within 1e-4 relative of the
+    reference's, every leaf (the stage slices as rows of the stack)
+    within 1e-4 relative L2, the 1F1B losses within 1e-5 of GPipe's, and
+    K1/K2/K3 launches per rank per step the schedule's; no kernel
+    rebuilt."""
+    import torch
+
+    ts = time.perf_counter()
+    refs, finals, key_of = {}, {}, {}
+    for job in TRAIN_PP_JOBS:
+        key = (job["model"], job["B"], job["steps"])
+        key_of[job["name"]] = key
+        if key not in refs:
+            t0 = time.perf_counter()
+            refs[key], finals[key] = train_pp_reference(job)
+            refs[key]["seconds"] = time.perf_counter() - t0
+            say("train_pp_reference", job=job["name"], **refs[key])
+    acc, compare_s = {}, [0.0]
+
+    def on_item(rank, item):
+        t0 = time.perf_counter()
+        _, name, path, split, arr = item
+        ref = finals[key_of[name]][path]
+        for d, (n, idx) in enumerate(split):
+            if n > 1:
+                w = ref.shape[d] // n
+                ref = ref.narrow(d, idx * w, w)
+        check(arr.shape == ref.shape, f"{name} {path}: shard "
+              f"{tuple(arr.shape)} against {tuple(ref.shape)}")
+        e = acc.setdefault(name, {}).setdefault(path, [0.0, 0.0, 0])
+        e[0] += float(torch.linalg.vector_norm(arr - ref)) ** 2
+        e[1] += float(torch.linalg.vector_norm(ref)) ** 2
+        e[2] += arr.numel()
+        compare_s[0] += time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    jobs = [dict(j, train_pp=True) for j in TRAIN_PP_JOBS]
+    ranks = run_mesh_ranks(jobs + [dict(OVERLAP_JOB, overlap=True)],
+                           backend, on_item)
+    t_ranks = time.perf_counter() - t_ranks
+    check(all(r["rebuilt"] == [] for r in ranks.values()),
+          f"a mesh rank rebuilt kernels: "
+          f"{[r['rebuilt'] for r in ranks.values()]}")
+    rows = {}
+    for job in TRAIN_PP_JOBS:
+        name, ref = job["name"], refs[key_of[job["name"]]]
+        per = [ranks[r][name] for r in range(MESH_WORLD)]
+        first = per[0]
+        loss_rel = [abs(a - b) / abs(b)
+                    for a, b in zip(first["losses"], ref["losses"])]
+        gnorm_rel = [abs(a - b) / b
+                     for a, b in zip(first["gnorms"], ref["gnorms"])]
+        leaf = {path: (e[0] / e[1]) ** 0.5 if e[1] else e[0] ** 0.5
+                for path, e in acc.get(name, {}).items()}
+        covered = {path: e[2] for path, e in acc.get(name, {}).items()}
+        whole = {path: t.numel()
+                 for path, t in finals[key_of[name]].items()}
+        worst = max(leaf, key=leaf.get) if leaf else None
+        rows[name] = dict(
+            mesh=job["mesh"], schedule=job["schedule"],
+            layers=train_pp_cfg(job).n_layers, batch=job["B"],
+            seq=TRAIN_PP_S, microbatches=job["M"], steps=job["steps"],
+            lr=TRAIN_PP_LR, losses=first["losses"],
+            reference_losses=ref["losses"], loss_rel_err=loss_rel,
+            gnorm=first["gnorms"], reference_gnorm=ref["gnorms"],
+            gnorm_rel_err=gnorm_rel, worst_leaf=worst,
+            worst_leaf_rel_l2=leaf.get(worst), leaves=len(leaf),
+            stage_per_rank=[p["stage"] for p in per],
+            launches_per_step_per_rank=[p["launches_per_step"]
+                                        for p in per],
+            want_per_step_per_rank=[p["want_per_step"] for p in per],
+            k1_launches_rank0=first["k1"], k2_launches_rank0=first["k2"],
+            k3_launches_rank0=first["k3"],
+            ms_per_step_per_rank=[p["ms_per_step"] for p in per],
+            collectives_per_step_rank0=first["collectives_per_step"],
+            collectives_rank0=first["collectives"],
+            peak_gb_per_rank=[p["peak_gb"] for p in per],
+            reference_peak_gb=ref["peak_gb"], seconds_rank0=first["seconds"],
+            backend=backend, note=MESH_NOTE[backend])
+        say(name, **rows[name])
+        check(all(p["losses"] == first["losses"] for p in per),
+              f"{name}: the ranks' losses differ: "
+              f"{[p['losses'] for p in per]}")
+        check(all(p["gnorms"] == first["gnorms"] for p in per),
+              f"{name}: the ranks' gradient norms differ")
+        check(max(loss_rel) <= TRAIN_MESH_LOSS_RTOL,
+              f"{name}: losses {first['losses']} against {ref['losses']}")
+        check(max(gnorm_rel) <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: gradient norms {first['gnorms']} against "
+              f"{ref['gnorms']}")
+        check(covered == whole, f"{name}: leaves not covered by the "
+              f"shards: {sorted(set(whole) - set(covered))}")
+        check(leaf[worst] <= TRAIN_MESH_LEAF_RTOL,
+              f"{name}: leaf {worst} {leaf[worst]} over "
+              f"{TRAIN_MESH_LEAF_RTOL}")
+        check(all(c == p["want_per_step"] for p in per
+                  for c in p["launches_per_step"]),
+              f"{name}: launches per step "
+              f"{[p['launches_per_step'] for p in per]}, want "
+              f"{[p['want_per_step'] for p in per]}")
+    g, f = (rows[n]["losses"] for n in ("train_pp_gpipe_mistral_pp4",
+                                        "train_pp_1f1b_mistral_pp4"))
+    gpipe_rel = max(abs(a - b) / abs(b) for a, b in zip(f, g))
+    check(gpipe_rel <= TRAIN_MESH_LOSS_RTOL,
+          f"1F1B losses {f} against GPipe's {g}")
+    ov = {r: ranks[r][OVERLAP_JOB["name"]] for r in range(MESH_WORLD)}
+    rows[OVERLAP_JOB["name"]] = dict(
+        ms_per_rank={r: o["ms"] for r, o in ov.items()},
+        rel_l2=max(o["rel_l2"] for o in ov.values()), shape=ov[0]["shape"],
+        backend=backend, note=MESH_NOTE[backend])
+    say(OVERLAP_JOB["name"], **rows[OVERLAP_JOB["name"]])
+    rows["seconds"] = time.perf_counter() - ts
+    say("train_pp_seconds", seconds=rows["seconds"], ranks_s=t_ranks,
+        compare_s=compare_s[0], gpipe_vs_1f1b_loss_rel=gpipe_rel,
+        references_s=sum(r["seconds"] for r in refs.values()))
+    return rows
+
+
 def smol_135m_config_fp32():
     import torch
     from nbdistributed_tpu_torch.models import smol_135m_config
@@ -3686,9 +4105,9 @@ def gpu_name_and_power():
 
 
 def main_mesh_nccl() -> int:
-    """``--mesh-nccl``: phases 18, 19 and 20 alone on four cards, one
-    NCCL rank each, against the references they compute first on card
-    0."""
+    """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks alone on four
+    cards, one NCCL rank each, against the references they compute first
+    on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -3712,10 +4131,11 @@ def main_mesh_nccl() -> int:
     mesh = phase_mesh(prompts, solo, msolo, backend="nccl")
     train_mesh = phase_train_mesh(backend="nccl")
     train_sp = phase_train_sp(backend="nccl")
+    train_pp = phase_train_pp(backend="nccl")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
-         "train_sp": train_sp}, indent=1))
+         "train_sp": train_sp, "train_pp": train_pp}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3768,6 +4188,8 @@ def main() -> int:
     train_mesh = phase_train_mesh()
     hop_err = phase_hop_kernels()
     train_sp = phase_train_sp()
+    remat_dots = phase_remat_dots()
+    train_pp = phase_train_pp()
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3806,8 +4228,10 @@ def main() -> int:
                 "train_moe": moe["train"]["k1"]}
     k2_paths = {"train": train["k2"], "train_moe": moe["train"]["k2"]}
     k3_paths = {"train": train["k3"], "train_moe": moe["train"]["k3"]}
-    for name, row in {**train_mesh, **train_sp}.items():
-        if name != "seconds":
+    for k, paths in (("k1", k1_paths), ("k2", k2_paths), ("k3", k3_paths)):
+        paths["train_remat_dots"] = remat_dots["dots"]["launches"][k]
+    for name, row in {**train_mesh, **train_sp, **train_pp}.items():
+        if name != "seconds" and not name.startswith("overlap"):
             k1_paths[name] = row["k1_launches_rank0"]
             k2_paths[name] = row["k2_launches_rank0"]
             k3_paths[name] = row["k3_launches_rank0"]
@@ -3865,7 +4289,8 @@ def main() -> int:
          "serving_beyond_dense_seconds": seconds, "moe": moe,
          "cluster": cluster, "hf": hf_row, "mesh": mesh,
          "train_mesh": train_mesh, "hop_kernels": hop_err,
-         "train_sp": train_sp},
+         "train_sp": train_sp, "remat_dots": remat_dots,
+         "train_pp": train_pp},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """The model stack of the serving and training slices: the Llama family
-and the Mixtral-style MoE family (counterpart of
-``nbdistributed_tpu/models``)."""
+and the Mixtral-style MoE family, and pipeline-parallel training of the
+Llama family (counterpart of ``nbdistributed_tpu/models``)."""
 
 from .convert import (lora_from_jax, lora_to_numpy, params_from_jax,
                       params_to_numpy)
@@ -20,6 +20,9 @@ from .quant import (DEFAULT_TARGETS, EXPERT_TARGETS, dequantize_weight,
                     quantize_weight, quantize_weight4,
                     quantized_moe_shardings, quantized_shardings,
                     quantized_shardings4)
+from .pp import (make_pp_1f1b_train_step, make_pp_train_step,
+                 pp_apply_shardings, pp_gather_params, pp_loss_fn,
+                 pp_stage_params, pp_unstage_params)
 from .serving import DecodeServer
 from .speculative import speculative_generate
 from .transformer import (AdamW, SeqParallel, TransformerConfig,
@@ -54,7 +57,9 @@ __all__ = ["ALL_TARGETS", "ATTN_TARGETS", "AdamW", "DEFAULT_TARGETS",
            "num_tokens_per_step", "packed_positions", "param_leaves",
            "param_shardings",
            "params_from_hf", "params_from_jax", "params_to_numpy",
-           "prefill_chunked",
+           "make_pp_1f1b_train_step", "make_pp_train_step",
+           "pp_apply_shardings", "pp_gather_params", "pp_loss_fn",
+           "pp_stage_params", "pp_unstage_params", "prefill_chunked",
            "qlinear", "quantization_error", "quantize_moe_params",
            "quantize_params", "quantize_params4", "quantize_weight",
            "quantize_weight4", "quantized_moe_shardings",

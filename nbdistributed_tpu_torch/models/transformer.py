@@ -41,12 +41,16 @@ of the gradients over both.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import threading
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import attention_reference, flash_attention
 from ..ops.xent import chunked_softmax_xent, shifted_chunked_xent
@@ -77,7 +81,7 @@ class TransformerConfig:
     remat: bool = False
     # What a rematerialized layer keeps: None (recompute the whole
     # layer), "attn_only" / "mlp_only" (recompute that block only),
-    # "dots" (save matmul outputs; later slice, ROADMAP A5).
+    # "dots" (save the layer's matrix products, recompute the rest).
     remat_policy: str | None = None
     # Chunked-vocab cross-entropy (ops/xent.py): the loss walks the
     # lm_head in blocks of this many vocab columns and never holds the
@@ -531,15 +535,17 @@ def _attention_block(x, layer, cfg: TransformerConfig, positions,
     q = _rope(q.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
     k = _rope(k.reshape(B, S, -1, Dh), positions, cfg.rope_theta)
     v = v.reshape(B, S, -1, Dh)
-    if sp is not None:
-        o = _sp_attention(q, k, v, cfg, sp, segment_ids, local)
-    elif cfg.use_flash:
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            True, None, cfg.sliding_window, segment_ids)
-    else:
-        o = attention_reference(q, k, v, causal=True,
-                                window=cfg.sliding_window,
-                                segment_ids=segment_ids)
+    with _unsaved():
+        if sp is not None:
+            o = _sp_attention(q, k, v, cfg, sp, segment_ids, local)
+        elif cfg.use_flash:
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), True, None,
+                                cfg.sliding_window, segment_ids)
+        else:
+            o = attention_reference(q, k, v, causal=True,
+                                    window=cfg.sliding_window,
+                                    segment_ids=segment_ids)
     return _attn_out(x, o.reshape(B, S, -1), layer, lay, local)
 
 
@@ -560,6 +566,34 @@ def _mlp_block(x, layer, cfg: TransformerConfig,
     return x + qlinear(gated, layer["w_down"])
 
 
+# remat_policy="dots" (``transformer.py:462``, ``checkpoint_dots``): a
+# layer's matrix products are saved and everything else recomputed.
+# JAX saves every dot_general, and its flash kernel, a pallas_call, is
+# no dot, so attention re-runs; here the products of attention's plain
+# version are einsums too, so attention runs in a scope whose products
+# are recomputed, and the CPU and the card keep the same residuals.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def _unsaved():
+    """Products inside are recomputed under ``"dots"``."""
+    depth = getattr(_scope, "depth", 0)
+    _scope.depth = depth + 1
+    try:
+        yield
+    finally:
+        _scope.depth = depth
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS and not getattr(_scope, "depth", 0):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _as_tokens(tokens, device) -> torch.Tensor:
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
@@ -570,10 +604,12 @@ def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None,
     """The per-layer recipe (attention block + MLP block, optionally
     rematerialized with ``torch.utils.checkpoint(use_reentrant=False)``)
     — ``transformer.py:438``.  Returns ``one_layer(x, layer) -> x``.
-    ``lay``: on a mesh, each block gathers its leaves' gathered axes
-    (:meth:`MeshLayout.layer`) inside its remat region.  ``sp``:
-    attention runs sequence-parallel (the recompute runs the ring
-    again)."""
+    ``cfg.remat_policy="dots"`` keeps the outputs of the layer's matrix
+    products and recomputes the rest, attention included
+    (:func:`_dots_policy`).  ``lay``: on a mesh, each block gathers its
+    leaves' gathered axes (:meth:`MeshLayout.layer`) inside its remat
+    region.  ``sp``: attention runs sequence-parallel (the recompute
+    runs the ring again)."""
 
     def attn_block(x, layer):
         if lay is not None:
@@ -605,9 +641,11 @@ def make_layer_fn(cfg: TransformerConfig, positions, segment_ids=None,
     if not cfg.remat:
         return one_layer
     if policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save matmul outputs, recompute the "
-            "rest) is not ported yet: ROADMAP A5")
+        saved = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+        return lambda *args: checkpoint(one_layer, *args,
+                                        use_reentrant=False,
+                                        context_fn=saved)
 
     def remat(fn):
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)

@@ -49,9 +49,15 @@ A reduce-scatter (:meth:`Mesh.reduce_scatter`) is ``reduce_scatter_
 tensor`` on an NCCL group, and an all-reduce and a slice on gloo.
 
 Two more are linear maps whose transpose is another of their kind, so
-they hold on any axis: :meth:`Mesh.ppermute` (a ring shift; the
-backward shifts back) and the tiled :meth:`Mesh.all_to_all` (the
-backward is the reverse all-to-all).
+they hold on any axis: :meth:`Mesh.ppermute` (a ring shift or JAX's
+partial ``(src, dst)`` pairs; the backward runs the inverted pairs) and
+the tiled :meth:`Mesh.all_to_all` (the backward is the reverse
+all-to-all).  :meth:`Mesh.ppermute_start` posts a ppermute and returns
+a :class:`Posted` handle, so that a ring can queue the product or fold
+that does not need the hop before it waits for the hop.
+
+:func:`shard_map` runs a function on this rank's blocks of whole
+inputs, as ``jax.shard_map`` runs it on each device's.
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ class Mesh:
         self._coords = dict(coords)
         self._groups = dict(groups)
         self._slice_ranks = dict(slice_ranks)
+        self._p2p_ready = set()
 
     @property
     def axis_names(self) -> tuple:
@@ -205,28 +212,56 @@ class Mesh:
             return x.detach().to("cpu").contiguous(), x.device
         return x.contiguous(), None
 
-    def ppermute(self, x, axis: str, shift: int = 1):
-        """Rank ``i`` of ``axis`` sends ``x`` to rank ``(i + shift) %
-        n`` and returns what rank ``(i - shift) % n`` sent
-        (``jax.lax.ppermute`` with a cyclic permutation); the send and
-        the receive are posted together, so the ring cannot deadlock.
-        Differentiable: the backward shifts the cotangent back."""
-        n = self.size(axis)
-        if n == 1 or shift % n == 0:
-            return x
-        return _Ppermute.apply(x, self, axis, shift % n)
+    def ppermute(self, x, axis: str, shift: int = 1, pairs=None):
+        """``jax.lax.ppermute`` over ``axis``: with ``shift``, rank ``i``
+        sends ``x`` to rank ``(i + shift) % n`` and returns what rank
+        ``(i - shift) % n`` sent; with ``pairs``, a list of ``(src,
+        dst)`` coordinates (each source and each destination at most
+        once), ``src`` sends to ``dst`` and a rank that no pair sends to
+        returns zeros.  ``ppermute_start(...).wait()``.  Differentiable:
+        the backward runs the inverted pairs."""
+        return self.ppermute_start(x, axis, shift, pairs).wait()
 
-    def _ppermute(self, x, axis: str, shift: int):
+    def ppermute_start(self, x, axis: str, shift: int = 1,
+                       pairs=None) -> "Posted":
+        """Post :meth:`ppermute`'s send and receive and return at once;
+        :meth:`Posted.wait` returns what this rank received.  Work queued
+        between the two overlaps the transfer: on NCCL it runs on the
+        group's stream, and ``wait`` makes the current stream wait for
+        it; on gloo a CUDA tensor is copied to the host here and the
+        received one back in ``wait``, the transfer running on gloo's
+        threads between.  Every rank of the slice calls it, those that
+        neither send nor receive included (they post nothing).  ``x``
+        is also the template of the received tensor's shape and dtype."""
         n, me = self.size(axis), self.index(axis)
-        ranks = self._slice_ranks[axis]
-        src, dev = self._staged(x, axis)
-        out = torch.empty_like(src)
-        dist, group = _dist(), self._groups[axis]
-        ops = [dist.P2POp(dist.isend, src, ranks[(me + shift) % n], group),
-               dist.P2POp(dist.irecv, out, ranks[(me - shift) % n], group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return out if dev is None else out.to(dev)
+        pairs = _perm_pairs(n, shift, pairs)
+        dst = next((d for s, d in pairs if s == me), None)
+        src = next((s for s, d in pairs if d == me), None)
+        if dst == me and src == me:
+            return Posted(self, axis, x, pairs, value=x)
+        if dst is None and src is None:
+            return Posted(self, axis, x, pairs)
+        dist, group = _dist(), self._groups.get(axis)
+        ranks = self._slice_ranks.get(axis)
+        if axis not in self._p2p_ready and n > 1:
+            self._p2p_ready.add(axis)
+            if dist.get_backend(group) == "nccl":
+                # NCCL builds a group's communicator at its first
+                # collective, which every rank must join; a partial
+                # permutation's first hop may leave some out.
+                dist.all_reduce(torch.zeros(1, device=x.device), group=group)
+        host = x.is_cuda and dist.get_backend(group) != "nccl"
+        ops, out, send = [], None, None
+        if dst is not None:
+            send = x.detach()
+            send = (send.to("cpu") if host else send).contiguous()
+            ops.append(dist.P2POp(dist.isend, send, ranks[dst], group))
+        if src is not None:
+            out = torch.empty(x.shape, dtype=x.dtype,
+                              device="cpu" if host else x.device)
+            ops.append(dist.P2POp(dist.irecv, out, ranks[src], group))
+        return Posted(self, axis, x, pairs, reqs=dist.batch_isend_irecv(ops),
+                      out=out, dev=x.device if host else None, keep=send)
 
     def all_to_all(self, x, axis: str, split_dim: int, concat_dim: int):
         """``jax.lax.all_to_all(x, axis, split_dim, concat_dim,
@@ -373,17 +408,73 @@ class _PsumSplit(torch.autograd.Function):
         return ctx.mesh.psum(g, ctx.axis), None, None
 
 
-class _Ppermute(torch.autograd.Function):
+class Posted:
+    """A ppermute in flight (:meth:`Mesh.ppermute_start`)."""
+
+    def __init__(self, mesh, axis, x, pairs, *, reqs=(), out=None,
+                 dev=None, keep=None, value=None):
+        self.mesh, self.axis, self.x, self.pairs = mesh, axis, x, pairs
+        self._reqs, self._out, self._dev = reqs, out, dev
+        self._keep, self._value = keep, value
+
+    def _complete(self) -> None:
+        """Wait for the transfer without building the result."""
+        for req in self._reqs:
+            req.wait()
+        self._reqs, self._keep = (), None
+
+    def _result(self):
+        if self._value is None:
+            self._complete()
+            out = self._out
+            if out is None:
+                out = torch.zeros_like(self.x)
+            elif self._dev is not None:
+                out = out.to(self._dev)
+            self._value, self._out = out, None
+        return self._value
+
+    def wait(self):
+        """What this rank received: zeros where no pair sends to it; the
+        input itself where it sends to itself.  Differentiable in the
+        posted tensor."""
+        if self._value is self.x:
+            return self.x
+        if torch.is_grad_enabled() and self.x.requires_grad:
+            return _PermuteWait.apply(self.x, self)
+        return self._result()
+
+
+def _perm_pairs(n: int, shift: int, pairs) -> list:
+    """The ``(src, dst)`` list of a ppermute: ``pairs`` checked, or the
+    cyclic shift's."""
+    if pairs is None:
+        return [(i, (i + shift) % n) for i in range(n)]
+    pairs = [(int(s), int(d)) for s, d in pairs]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts):
+        raise ValueError(f"ppermute pairs {pairs} repeat a source or a "
+                         f"destination")
+    if any(not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute pairs {pairs} name a rank outside an "
+                         f"axis of size {n}")
+    return pairs
+
+
+class _PermuteWait(torch.autograd.Function):
+    """The received tensor as a function of the posted one; the
+    backward sends the cotangent along the inverted pairs."""
+
     @staticmethod
-    def forward(ctx, x, mesh, axis, shift):
-        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
-        return mesh._ppermute(x, axis, shift)
+    def forward(ctx, x, posted):
+        ctx.posted = posted
+        return posted._result()
 
     @staticmethod
     def backward(ctx, g):
-        n = ctx.mesh.size(ctx.axis)
-        return (ctx.mesh._ppermute(g, ctx.axis, n - ctx.shift),
-                None, None, None)
+        p = ctx.posted
+        back = [(d, s) for s, d in p.pairs]
+        return p.mesh.ppermute(g.contiguous(), p.axis, pairs=back), None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -529,3 +620,45 @@ def pmax(x, mesh: Mesh, axis: str):
 def all_gather(x, mesh: Mesh, axis: str, dim: int = 0):
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``."""
     return mesh.all_gather(x, axis, dim)
+
+
+def _map_spec(fn, tree, spec):
+    """``fn(leaf, spec)`` over ``tree`` with ``spec`` a :class:`P` (or
+    None) for a whole subtree, or a tree of them matching it."""
+    if spec is None or isinstance(spec, P):
+        return _tree_map(lambda x: fn(x, spec), tree)
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, tree[k], spec[k]) for k in tree}
+    if len(spec) != len(tree):
+        raise ValueError(f"{len(spec)} specs for {len(tree)} values")
+    return type(tree)(_map_spec(fn, t, s) for t, s in zip(tree, spec))
+
+
+def shard_map(f, mesh: Mesh, in_specs, out_specs):
+    """``jax.shard_map(f, mesh=, in_specs=, out_specs=)`` in the port's
+    SPMD world: the returned function takes whole inputs (every rank
+    passes the same), hands ``f`` this rank's block of each by
+    ``in_specs`` (one spec per positional argument, a :class:`P` for all
+    of an argument's leaves or a tree of them; one :class:`P` for every
+    argument), and returns ``f``'s outputs gathered whole along each
+    split dimension of ``out_specs`` (``P()``: as they are, as JAX
+    takes a replicated output)."""
+    def block(x, spec):
+        for dim, entry in enumerate(spec or ()):
+            n, idx = spec_split(mesh, entry)
+            x = local_slice(torch.as_tensor(x), dim, n, idx)
+        return x
+
+    def whole(x, spec):
+        for dim, entry in enumerate(spec or ()):
+            for axis in reversed(_spec_axes(entry)):
+                x = mesh.all_gather(x.contiguous(), axis, dim)
+        return x
+
+    def mapped(*args):
+        specs = in_specs if not isinstance(in_specs, P) else \
+            (in_specs,) * len(args)
+        return _map_spec(whole, f(*_map_spec(block, args, tuple(specs))),
+                         out_specs)
+
+    return mapped

@@ -181,30 +181,29 @@ def hop_plan(n: int, s_local: int, window: int | None,
 def _run_hops(plan, mesh, axis: str, fold, carry, riders, home: int = 0):
     """Run ``carry, riders = fold(carry, riders, src)`` at each step of
     ``plan`` with the ``riders`` (K/V, their segment ids, gradient
-    accumulators) moved between steps (``ring.py:270``).  The full plan
-    is the neighbour ring: one ``ppermute`` after each step, the last
-    one only for the ``home`` trailing riders (dK/dV), which then stand
-    on their own rank again.  A pruned plan jumps each gap in one
-    ``ppermute`` and sends the ``home`` riders back by ``-plan[-1]``."""
+    accumulators) moved between steps (``ring.py:270``): from step ``s``
+    to the plan's next step ``s'`` by one ``ppermute`` of ``s' - s``
+    (the neighbour ring when the plan is full; a pruned plan jumps each
+    gap in one).  The riders the fold only reads are posted before the
+    fold and waited for after it, so the hop overlaps the fold; the
+    ``home`` trailing riders (dK/dV) are what the fold adds to, so they
+    go after it, the last time by ``-plan[-1]``, which stands them on
+    their own rank again."""
     n, my = mesh.size(axis), mesh.index(axis)
     riders = tuple(riders)
-    if len(plan) == n:
-        for step in range(n):
-            carry, riders = fold(carry, riders, (my - step) % n)
-            if step < n - 1:
-                riders = tuple(mesh.ppermute(x, axis, 1) for x in riders)
-            elif home:
-                riders = riders[:-home] + tuple(
-                    mesh.ppermute(x, axis, 1) for x in riders[-home:])
-        return carry, riders
-    prev = 0
-    for s in plan:
-        riders = tuple(mesh.ppermute(x, axis, s - prev) for x in riders)
-        prev = s
+    ahead = len(riders) - home
+    for i, s in enumerate(plan):       # plan[0] is 0: the diagonal
+        nxt = plan[i + 1] - s if i + 1 < len(plan) else None
+        posted = ([mesh.ppermute_start(x, axis, nxt)
+                   for x in riders[:ahead]] if nxt is not None else [])
         carry, riders = fold(carry, riders, (my - s) % n)
-    if home:
-        riders = riders[:-home] + tuple(
-            mesh.ppermute(x, axis, -plan[-1]) for x in riders[-home:])
+        back = riders[ahead:]
+        if back and (nxt is not None or s):
+            shift = nxt if nxt is not None else -s
+            sent = [mesh.ppermute_start(x, axis, shift) for x in back]
+            back = tuple(h.wait() for h in sent)
+        riders = (tuple(h.wait() for h in posted) if posted
+                  else riders[:ahead]) + back
     return carry, riders
 
 

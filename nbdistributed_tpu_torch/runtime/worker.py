@@ -367,17 +367,18 @@ class DistributedWorker:
         collectives by name, its model entry points, and the mesh
         names the JAX package seeds (``make_mesh``, ``shard_batch``,
         ``replicate``, ``P``, ``apply_shardings``; its ``Mesh`` is the
-        port's :class:`..parallel.mesh.Mesh`) and its sequence-parallel
+        port's :class:`..parallel.mesh.Mesh`), its sequence-parallel
         attention (``ring_attention``, ``zigzag_shard``,
         ``zigzag_unshard``, ``ulysses_attention``, on this rank's local
-        chunk).  ``shard_map`` and the pipeline family wait for ROADMAP
-        A5."""
+        chunk), ``shard_map`` (this rank's blocks of whole inputs) and
+        the pipeline's ``pipeline_forward`` and ``shard_stage_params``."""
         import numpy as np
         import torch
         import torch.distributed as dist
 
         from .. import models
         from ..parallel import collectives, expert, mesh as mesh_mod
+        from ..parallel import pipeline
         from ..parallel.ring import (ring_attention, zigzag_shard,
                                      zigzag_unshard)
         from ..parallel.tensor_parallel import apply_shardings
@@ -408,10 +409,13 @@ class DistributedWorker:
             "shard_batch": mesh_mod.shard_batch,
             "replicate": mesh_mod.replicate,
             "apply_shardings": apply_shardings,
+            "shard_map": mesh_mod.shard_map,
             "ring_attention": ring_attention,
             "zigzag_shard": zigzag_shard,
             "zigzag_unshard": zigzag_unshard,
             "ulysses_attention": ulysses_attention,
+            "pipeline_forward": pipeline.pipeline_forward,
+            "shard_stage_params": pipeline.shard_stage_params,
             "moe_ffn": expert.moe_ffn,
             "init_moe_params": expert.init_moe_params,
             "load_hf_pretrained": _load_hf_pretrained_lazy,

@@ -113,3 +113,84 @@ def test_reducescatter_rejects_indivisible():
                                       Mesh({"tp": T}, {"tp": 0}, {}, {}),
                                       "tp")
     assert str(got.value) == str(want.value)
+
+
+# Every rank: the function's forward and backward with each ppermute's
+# post (P) and wait (W) and each product (M) recorded in order ("|"
+# between forward and backward), and the results gathered whole.
+RECORD = """
+import nbdistributed_tpu_torch.parallel.mesh as _pm
+from nbdistributed_tpu_torch.parallel.mesh import local_slice
+m = make_mesh({{"tp": {T}}})
+events = []
+_start = _pm.Mesh.ppermute_start
+
+def _rec_start(self, *a, **k):
+    h = _start(self, *a, **k)
+    events.append("P")
+    _wait = h.wait
+    h.wait = lambda: (events.append("W"), _wait())[1]
+    return h
+
+_mm = torch.Tensor.__matmul__
+
+def part(x, d):
+    x = torch.tensor(np.array(x))
+    return local_slice(x, d, {T}, m.index("tp")).contiguous()
+
+ins = [part(A[f"x{{i}}"], d).requires_grad_() for i, d in enumerate({ins!r})]
+_pm.Mesh.ppermute_start = _rec_start
+torch.Tensor.__matmul__ = lambda a, b: (events.append("M"), _mm(a, b))[1]
+try:
+    out = overlap.{fn}(*ins, m, "tp")
+    events.append("|")
+    (out * part(A["cot"], {out_d!r})).sum().backward()
+finally:
+    _pm.Mesh.ppermute_start = _start
+    torch.Tensor.__matmul__ = _mm
+res = {{"out": m.all_gather(out.detach(), "tp", {out_d!r}).numpy(),
+       **{{f"d{{i}}": m.all_gather(t.grad, "tp", d).numpy()
+          for i, (t, d) in enumerate(zip(ins, {ins!r}))}}}}
+"".join(events)
+"""
+
+# The order each function must keep on t = 4 ranks: a hop (P ... W)
+# always spans a product.  allgather_matmul sends each chunk on before
+# its product; matmul_reducescatter's sum carries from hop to hop, so
+# the next chunk's product runs during the hop instead.  Each backward
+# is the other's ring, two products (dx and dw) a chunk.
+ORDER = {
+    "allgather_matmul": "PMWPMWPMWM|MMPMMWPMMWPMMW",
+    "matmul_reducescatter": "MPMWPMWPMW|PMMWPMMWPMMWMM",
+}
+
+
+@pytest.mark.integration
+@pytest.mark.parametrize("fn", list(ORDER))
+def test_hops_are_posted_before_the_products_they_overlap(cluster, fn):
+    """C4's pin: every rank posts each hop before the product it does not
+    depend on and waits for it after, forward and backward, and the
+    output and gradients still equal JAX's."""
+    shapes, ins, out_d = CASES[fn]
+    rng = np.random.default_rng(len(fn) + 1)
+    A = {f"x{i}": (rng.standard_normal(s) / np.sqrt(s[0])).astype(
+        np.float32) for i, s in enumerate(shapes)}
+    jm = jmesh.make_mesh({"tp": T}, devices=jax.devices()[:T])
+    f = shard_map(lambda *a: getattr(joverlap, fn)(*a, "tp"), mesh=jm,
+                  in_specs=tuple(_spec(d) for d in ins),
+                  out_specs=_spec(out_d))
+    want, vjp = jax.vjp(jax.jit(f), *[jnp.asarray(A[f"x{i}"])
+                                      for i in range(len(shapes))])
+    A["cot"] = rng.standard_normal(want.shape).astype(np.float32)
+    grads = vjp(jnp.asarray(A["cot"]))
+    push(cluster, "A", A)
+    cell(cluster, "from nbdistributed_tpu_torch.parallel import overlap")
+    order = every_rank(cluster, RECORD.format(T=T, fn=fn, ins=ins,
+                                              out_d=out_d))
+    assert order == ORDER[fn]
+    got = pull0(cluster, "res")
+    np.testing.assert_allclose(got["out"], np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    for i, g in enumerate(grads):
+        np.testing.assert_allclose(got[f"d{i}"], np.asarray(g), atol=TOL,
+                                   rtol=TOL, err_msg=f"operand {i}")

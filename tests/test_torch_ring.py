@@ -25,8 +25,8 @@ from nbdistributed_tpu.parallel import mesh as jmesh
 from nbdistributed_tpu.parallel import ring as jring
 from nbdistributed_tpu_torch.parallel import ring as pring
 from nbdistributed_tpu_torch.parallel.mesh import Mesh
-from test_torch_mesh_train import (cell, cluster, pull0,  # noqa: F401
-                                   push)
+from test_torch_mesh_train import (cell, cluster, every_rank,  # noqa: F401
+                                   pull0, push)
 
 WORLD = 4
 DEVS = jax.devices()[:WORLD]
@@ -268,3 +268,84 @@ def test_mesh_collectives_match_jax(cluster, op, args):
     got = pull0(cluster, "res")
     np.testing.assert_array_equal(got["out"], np.asarray(want))
     np.testing.assert_array_equal(got["dx"], np.asarray(dx))
+
+
+# Every rank: ``RUN``'s ring with each ppermute's post (P) and wait (W)
+# and each per-hop kernel call (F: K1 forward, K2/K3 backward) recorded
+# in order, "|" between forward and backward.
+RECORD = """
+import nbdistributed_tpu_torch.parallel.mesh as _pm
+import nbdistributed_tpu_torch.parallel.ring as _ring
+events = []
+_start, _fwd, _bwd = (_pm.Mesh.ppermute_start, _ring._flash_forward,
+                      _ring._flash_backward_hop)
+
+def _rec_start(self, *a, **k):
+    h = _start(self, *a, **k)
+    events.append("P")
+    _wait = h.wait
+    h.wait = lambda: (events.append("W"), _wait())[1]
+    return h
+
+def _rec(fn):
+    return lambda *a, **k: (events.append("F"), fn(*a, **k))[1]
+
+class _Mark(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        events.append("|")
+        return g
+
+_pm.Mesh.ppermute_start = _rec_start
+_ring._flash_forward, _ring._flash_backward_hop = _rec(_fwd), _rec(_bwd)
+ring_attention_ = ring_attention
+ring_attention = lambda *a, **k: _Mark.apply(ring_attention_(*a, **k))
+try:
+{run}
+finally:
+    ring_attention = ring_attention_
+    _pm.Mesh.ppermute_start = _start
+    _ring._flash_forward, _ring._flash_backward_hop = _fwd, _bwd
+"".join(events)
+"""
+
+
+def _hop_order(n, fwd_folds, bwd_folds, riders):
+    """The event order of a full ring of ``n`` hops: each step posts the
+    K/V riders (P x riders) before its fold (F x the step's kernel
+    calls) and waits for them after; in the backward the dK/dV riders
+    (PP) are posted after the fold, the last step's sending them home."""
+    p, w, f, b = "P" * riders, "W" * riders, "F" * fwd_folds, "F" * bwd_folds
+    return ((p + f + w) * (n - 1) + f + "|"
+            + (p + b + "PPWW" + w) * (n - 1) + b + "PPWW")
+
+
+@pytest.mark.integration
+@pytest.mark.parametrize("schedule", ["plain", "zigzag"])
+def test_ring_hops_are_posted_before_each_fold(cluster, schedule):
+    """C4's pin: in both flash ring Functions every rank posts the K/V
+    and segment-id riders of a hop before the fold that reads them (one
+    K1 launch a hop, four half-pair launches zigzag; K2 + K3 in the
+    backward) and waits for them after it; the fp32 dK/dV riders go
+    after their fold.  The output and (dq, dk, dv) still equal JAX's."""
+    A = inputs(2, 32, 4, 2, seg=True, seed=21)
+    kw = {"use_flash": True}
+    if schedule == "zigzag":
+        A = {k: np.asarray(pring.zigzag_shard(v, WORLD))
+             for k, v in A.items()}
+        kw["schedule"] = "zigzag"
+    push(cluster, "A", A)
+    run = RUN.format(sizes={"sp": 4}, fn="ring_attention", kw=kw)
+    body = "\n".join("    " + ln for ln in run.strip().splitlines())
+    order = every_rank(cluster, RECORD.format(run=body))
+    folds = 4 if schedule == "zigzag" else 1
+    assert order == _hop_order(WORLD, folds, folds, 3)
+    want = jax_run(A, {"sp": 4}, jring.ring_attention,
+                   use_flash=schedule == "zigzag",
+                   **({"schedule": "zigzag"} if schedule == "zigzag"
+                      else {}))
+    check(pull0(cluster, "res"), want)

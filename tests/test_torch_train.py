@@ -277,9 +277,98 @@ def test_remat_policy_errors_match_jax(over):
     assert str(got.value) == str(want.value)
 
 
-def test_remat_dots_policy_names_its_roadmap_entry():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        make_layer_fn(tiny_config(remat=True, remat_policy="dots"), None)
+def test_remat_dots_policy_names_its_roadmap_entry(tree):
+    """``remat_policy="dots"`` (once refused, naming its ROADMAP entry;
+    now ported): the loss and every gradient leaf against JAX's
+    ``checkpoint_dots`` layer and against the port's layer without
+    remat, packed documents through the flash path."""
+    batch = _batch()
+    over = {"remat": True, "remat_policy": "dots"}
+    jcfg = jtf.tiny_config(dtype=jnp.float32, **over)
+    want_loss, want = jax.value_and_grad(jtf.loss_fn)(
+        jax.tree.map(jnp.asarray, tree),
+        {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    got = {}
+    for name, kw in (("dots", over), ("none", {})):
+        cfg = tiny_config(dtype=torch.float32, **kw)
+        params = _port(tree, cfg)
+        loss = loss_fn(params, _t(batch), cfg)
+        got[name] = (loss.detach(),
+                     torch.autograd.grad(loss, param_leaves(params)))
+    np.testing.assert_allclose(float(got["dots"][0]), float(want_loss),
+                               rtol=1e-6)
+    for a, b, c in zip(got["dots"][1], param_leaves(want), got["none"][1]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-7,
+                                   rtol=1e-6)
+    assert float(got["dots"][0]) == float(got["none"][0])
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten matrix products run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {"mm": 0, "bmm": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.n:
+            self.n[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("use_flash", [True, False], ids=["flash", "plain"])
+def test_remat_dots_recomputes_attention_and_saves_products(use_flash):
+    """Under ``"dots"`` the backward re-runs the attention forward (the
+    flash forward twice a layer, as with full remat, its backward once)
+    and none of the layer's products: its ``mm`` count is the backward's
+    without remat, where full remat re-runs the products a layer (six
+    of seven: the recompute stops once it has every saved tensor, and
+    ``w_down``'s output is none); only attention's own products
+    (``bmm``, the plain versions' einsums) run again."""
+    cfg0 = tiny_config(dtype=torch.float32, use_flash=use_flash)
+    counts = {}
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = tattn._flash_forward_plain, tattn._flash_backward_plain
+
+    def count_fwd(*a, **k):
+        calls["fwd"] += 1
+        return fwd(*a, **k)
+
+    def count_bwd(*a, **k):
+        calls["bwd"] += 1
+        return bwd(*a, **k)
+
+    tattn._flash_forward_plain, tattn._flash_backward_plain = \
+        count_fwd, count_bwd
+    try:
+        for name, over in (("none", {}), ("full", {"remat": True}),
+                           ("dots", {"remat": True,
+                                     "remat_policy": "dots"})):
+            cfg = tiny_config(dtype=torch.float32, use_flash=use_flash,
+                              **over)
+            params = init_cpu_params(cfg)
+            for p in param_leaves(params):
+                p.requires_grad_()
+            loss = loss_fn(params, _t(_batch()), cfg)
+            calls.update(fwd=0, bwd=0)
+            with _CountOps() as ops:
+                loss.backward()
+            counts[name] = dict(ops.n, **calls)
+    finally:
+        tattn._flash_forward_plain, tattn._flash_backward_plain = fwd, bwd
+    L = cfg0.n_layers
+    assert counts["full"]["mm"] == counts["none"]["mm"] + 6 * L
+    assert counts["dots"]["mm"] == counts["none"]["mm"]
+    assert counts["dots"]["bmm"] == counts["full"]["bmm"] > \
+        counts["none"]["bmm"]
+    if use_flash:
+        # The recompute's forward in the backward: once a layer, as
+        # full remat's; the kernel's backward once a layer.
+        assert counts["dots"]["fwd"] == counts["full"]["fwd"] == L
+        assert counts["none"]["fwd"] == 0
+        assert counts["dots"]["bwd"] == L
 
 
 def test_remat_recomputes_the_flash_forward():
