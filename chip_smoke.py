@@ -193,6 +193,31 @@ Phases (each prints one or more lines; any failure exits non-zero):
    4096 x 3584): C4's overlap, reported.  Rows: ms per step per rank,
    collectives per step, peak GB per rank, the phase's seconds.
 
+22. (run after phase 21) the training guard and per-rank checkpoints,
+   SmolLM2-135M at full depth and width, bf16, remat, B=4 x S=2048,
+   AdamW, from seed 0.  (1) Phase 18's ranks, each training on a mesh
+   of its own (``make_mesh({"dp": 1}, ranks=[rank])``) with the same
+   batches under ``TrainGuard(audit_every=2, snapshot_every=2)``, 6
+   steps, fault-free and then with one bit of rank 1's ``wq`` flipped
+   at step 3 by the process fault plan: every fault-free audit ``ok``,
+   the step-4 audit names minority (1,) and root 0 with one repair, and
+   every rank's final params and moments bitwise the fault-free run's;
+   K1/K2/K3 60/30/30 a rank a step.  (2) In this process, an inf scaled
+   into four lm_head weights at step 3: steps 3-5 skipped with the
+   params, moments and AdamW's step bitwise unchanged, the blown skip
+   budget rolling back to the step-2 snapshot bitwise, steps 6-9
+   finite.  (3) ``save_async`` after two steps, step 3 run at once in
+   place; the save restored into a fresh tree and optimizer is the
+   step-2 state bitwise and steps 3-4 from it repeat the uninterrupted
+   run's losses and fingerprints; a byte flipped on disk is refused
+   with its leaf named.  (4) A worker: the ``checkpoint`` request (save,
+   background save, status, restores into the live tensors) and the
+   ``guard`` request (status, audit, off, on) on CUDA tensors, and the
+   ``tg`` field on its pings.  Rows, reported: the fingerprint's ms
+   beside its bound, a snapshot's ms, the guarded step beside the
+   unguarded one, the save's and restore's GB/s, ``save_async``'s
+   synchronous ms, peak GB a rank.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
@@ -201,11 +226,13 @@ worker's K1 and K4 launches (``cluster_serve``), as the MoE
 forward's and MoE training's K1/K2/K3 launches join the SmolLM2
 paths', the mesh runs' K4 launches on rank 0 (``mesh_*``) and the
 mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
-``train_sp_*``, ``grad_sp_*``, ``train_pp_*``) and the dots step's
-(``train_remat_dots``).
+``train_sp_*``, ``grad_sp_*``, ``train_pp_*``), the dots step's
+(``train_remat_dots``) and phase 22's (``train_guard_*``,
+``train_checkpoint``, ``cluster_guard``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
-ranks alone on four cards, one NCCL rank per card (what one card cannot
+ranks and phase 22's guarded replicas alone on four cards, one NCCL
+rank per card (what one card cannot
 show: NCCL, its ``reduce_scatter_tensor``, its point-to-point ring and
 pipeline hops overlapping compute, ``all_to_all_single``, and the links
 between cards).
@@ -2240,7 +2267,8 @@ def mesh_rank(rank, port, jobs, q, backend, done):
         for job in jobs:
             send = lambda item: q.put((rank, item))  # noqa: E731
             out[job["name"]] = (
-                train_pp_job(job, counts, send) if job.get("train_pp")
+                guard_job(job, counts, send) if job.get("guard")
+                else train_pp_job(job, counts, send) if job.get("train_pp")
                 else overlap_job(job, counts, send) if job.get("overlap")
                 else train_sp_job(job, counts, send) if job.get("train_sp")
                 else train_mesh_job(job, counts, send) if job.get("train")
@@ -2303,7 +2331,7 @@ def run_mesh_ranks(jobs, backend, on_item=None):
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
         deadline = time.monotonic() + MESH_READY_S + MESH_RUN_S * (
             2 if any(j.get("train") or j.get("train_sp") or j.get("train_pp")
-                     for j in jobs)
+                     or j.get("guard") for j in jobs)
             else 1)
         while len(out) < MESH_WORLD:
             try:
@@ -3712,6 +3740,614 @@ def phase_train_pp(backend="gloo"):
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 22: the training guard and per-rank checkpoints.  SmolLM2-135M at
+# full depth and width, bf16, remat, B=4 x S=2048 (phase 11's shape),
+# AdamW, random init from seed 0.
+
+GUARD_STEPS = 6
+GUARD_LR = 1e-3
+GUARD_BATCH_SEED = 21
+# One bit of rank 1's attention query weights, at step 3: the audit at
+# step 4 must name rank 1 and repair it from rank 0.  The leaf is named
+# as ``jax.tree_util.keystr`` names it.
+GUARD_CORRUPT = {"rank": 1, "step": 3, "name": "['layers']['wq']"}
+GUARD_JOB = dict(name="train_guard_replicas_smol", guard=True)
+# Job 2: an inf scaled into four lm_head weights at step 3 makes every
+# later step non-finite until a blown skip budget (2) rolls back to the
+# step-2 snapshot.
+GUARD_POISON = {"rank": 0, "step": 3, "name": "['lm_head']",
+                "mode": "scale", "scale": float("inf"), "count": 4}
+GUARD_ROLLBACK_STEPS = 10
+CKPT_DIR = ROOT / "build" / "guard_ckpt"
+
+
+def guard_cfg():
+    from nbdistributed_tpu_torch.models import smol_135m_config
+    return smol_135m_config(remat=True)
+
+
+def guard_batches(cfg, n):
+    return [packed_batch(cfg, TRAIN_B, cfg.max_seq_len, GUARD_BATCH_SEED + i)
+            for i in range(n)]
+
+
+def guarded_step(cfg, opt):
+    """The guarded DDP step (``make_ddp_step(guard=True)``) on a mesh of
+    this rank alone."""
+    from nbdistributed_tpu_torch.models import loss_fn
+    from nbdistributed_tpu_torch.parallel import make_ddp_step, make_mesh
+    from nbdistributed_tpu_torch.parallel.collectives import rank
+
+    return make_ddp_step(lambda p, b: loss_fn(p, b, cfg), opt,
+                         make_mesh({"dp": 1}, ranks=[rank()]), guard=True)
+
+
+def state_bytes(params, opt):
+    """Every byte of the params and of AdamW's ``mu`` and ``nu`` (uint8
+    clones, so equality is bitwise, NaN and inf included) and the step
+    counts."""
+    import torch
+    from nbdistributed_tpu_torch.models import param_leaves
+
+    def raw(t):
+        return t.detach().reshape(-1).view(torch.uint8).clone()
+
+    leaves = param_leaves(params)
+    st = [opt.state.get(p, {}) for p in leaves]
+    return ([raw(p) for p in leaves]
+            + [raw(s[k]) for s in st for k in ("mu", "nu") if k in s],
+            [s.get("step") for s in st])
+
+
+def same_state(a, b) -> bool:
+    import torch
+    return (a[1] == b[1] and len(a[0]) == len(b[0])
+            and all(torch.equal(x, y) for x, y in zip(a[0], b[0])))
+
+
+def guard_run(cfg, batches, corrupt):
+    """One guarded run on this rank: the model from seed 0, the guard
+    auditing and snapshotting every 2 steps, ``corrupt`` on the process
+    fault plan, counts reset just before the steps and read per step."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                param_leaves)
+    from nbdistributed_tpu_torch.resilience import faults
+    from nbdistributed_tpu_torch.resilience.trainguard import (
+        TrainGuard, leaf_fingerprint, tree_fingerprint)
+
+    params = init_params(cfg, 0)
+    opt = AdamW(param_leaves(params), lr=GUARD_LR)
+    g = TrainGuard(guarded_step(cfg, opt), params, opt,
+                   audit_every=2, snapshot_every=2, skip_budget=10,
+                   checkpoint_every=0)
+    faults.set_process_plan(None if corrupt is None else
+                            faults.FaultPlan(seed=7, corrupt=[corrupt]))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, secs, per_step = [], [], []
+    try:
+        for b in batches:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            losses.append(float(g.step(b)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            after = launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+        d = g.finish()
+    finally:
+        faults.set_process_plan(None)
+    events = list(g._events)
+    mm = [e for e in events if e["kind"] == "mismatch"]
+    row = dict(fp=list(tree_fingerprint(params)),
+               opt_fp=list(tree_fingerprint(opt)),
+               leaf_fps=[leaf_fingerprint(p).tolist()
+                         for p in param_leaves(params)],
+               audits=[[e["step"], e["verdict"]] for e in events
+                       if e["kind"] == "audit"],
+               mismatches=d["mismatches"], repairs=d["repairs"],
+               skips=d["skips"],
+               minority=mm[0]["minority"] if mm else None,
+               majority_rank=mm[0]["majority_rank"] if mm else None,
+               corrupted=[e.get("leaf") for e in events
+                          if e["kind"] == "corrupt"],
+               kinds=sorted({e["kind"] for e in events}), losses=losses,
+               launches_per_step=per_step,
+               ms_per_step=[1e3 * x for x in secs])
+    del g, opt, params
+    return row
+
+
+def guard_job(job, counts, send):
+    """Job 1 on this rank: the fault-free guarded run, then the same run
+    with ``GUARD_CORRUPT`` on the plan."""
+    import gc
+
+    import torch
+    cfg = guard_cfg()
+    batches = guard_batches(cfg, GUARD_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for name, corrupt in (("ref", None), ("faulted", GUARD_CORRUPT)):
+        t0 = time.perf_counter()
+        out[name] = guard_run(cfg, batches, corrupt)
+        out[name]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_guard_replicas(backend="gloo"):
+    """Job 1: four ranks, each training SmolLM2 on a mesh of its own
+    with the same seed and batches (independent replicas, voting over
+    the world).  Held: every fault-free audit ``ok`` on every rank; the
+    faulted run's audit at step 4 names minority (1,) and root 0 with
+    one repair on every rank; every rank's final params and moments
+    bitwise the fault-free run's; K1/K2/K3 60/30/30 a rank a step."""
+    ts = time.perf_counter()
+    ranks = run_mesh_ranks([GUARD_JOB], backend)
+    check(all(r["rebuilt"] == [] for r in ranks.values()),
+          f"a guard rank rebuilt kernels: "
+          f"{[r['rebuilt'] for r in ranks.values()]}")
+    per = [ranks[r][GUARD_JOB["name"]] for r in range(MESH_WORLD)]
+    ref, got = per[0]["ref"], per[0]["faulted"]
+    want = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
+            "k3": N_LAYERS_SMOL}
+    row = dict(
+        steps=GUARD_STEPS, batch=TRAIN_B, seq=guard_cfg().max_seq_len,
+        corrupt=GUARD_CORRUPT, audits_ref=[p["ref"]["audits"] for p in per],
+        audits_faulted=[p["faulted"]["audits"] for p in per],
+        minority=[p["faulted"]["minority"] for p in per],
+        majority_rank=[p["faulted"]["majority_rank"] for p in per],
+        repairs=[p["faulted"]["repairs"] for p in per],
+        skips_faulted=[p["faulted"]["skips"] for p in per],
+        corrupted=[p["faulted"]["corrupted"] for p in per],
+        fp_ref=ref["fp"], fp_faulted=[p["faulted"]["fp"] for p in per],
+        losses_ref=ref["losses"], losses_faulted_rank1=per[1]["faulted"][
+            "losses"],
+        launches_per_step_rank0=ref["launches_per_step"][0],
+        want_per_step=want,
+        k1_launches_rank0=sum(c["k1"] for c in ref["launches_per_step"]),
+        k2_launches_rank0=sum(c["k2"] for c in ref["launches_per_step"]),
+        k3_launches_rank0=sum(c["k3"] for c in ref["launches_per_step"]),
+        k1_launches_faulted_rank0=sum(
+            c["k1"] for c in got["launches_per_step"]),
+        k2_launches_faulted_rank0=sum(
+            c["k2"] for c in got["launches_per_step"]),
+        k3_launches_faulted_rank0=sum(
+            c["k3"] for c in got["launches_per_step"]),
+        ms_per_step_per_rank=[p["faulted"]["ms_per_step"] for p in per],
+        seconds_per_run_rank0=[ref["seconds"], got["seconds"]],
+        peak_gb_per_rank=[p["peak_gb"] for p in per],
+        backend=backend, note=MESH_NOTE[backend])
+    say("train_guard_replicas", **row)
+    differ = {r: [i for i, (a, b) in enumerate(zip(p["ref"]["leaf_fps"],
+                                                   ref["leaf_fps"]))
+                  if a != b] for r, p in enumerate(per)}
+    check(all(not v for v in differ.values()),
+          f"the fault-free replicas differ (leaf indices by rank): {differ}")
+    for r, p in enumerate(per):
+        check([v for _, v in p["ref"]["audits"]] == ["ok", "ok"],
+              f"rank {r}: fault-free audits {p['ref']['audits']}")
+        f = p["faulted"]
+        check(f["audits"][1] == [4, "repair:1"] and f["minority"] == [1]
+              and f["majority_rank"] == 0 and f["repairs"] == 1
+              and f["mismatches"] == 1,
+              f"rank {r}: faulted audits {f['audits']}, minority "
+              f"{f['minority']}, root {f['majority_rank']}, repairs "
+              f"{f['repairs']}")
+        check(f["fp"] == ref["fp"] and f["opt_fp"] == ref["opt_fp"],
+              f"rank {r}: final params {f['fp']} / moments {f['opt_fp']} "
+              f"against the fault-free {ref['fp']} / {ref['opt_fp']}")
+        check(all(c == want for run in ("ref", "faulted")
+                  for c in p[run]["launches_per_step"]),
+              f"rank {r}: launches per step "
+              f"{p['ref']['launches_per_step']} / "
+              f"{f['launches_per_step']}, want {want}")
+    check(per[1]["faulted"]["corrupted"] == [GUARD_CORRUPT["name"]]
+          and all(not per[r]["faulted"]["corrupted"] for r in (0, 2, 3)),
+          f"the flip fired on {row['corrupted']}")
+    row["seconds"] = time.perf_counter() - ts
+    return row
+
+
+def guard_rollback(cfg):
+    """Job 2, this process: ``GUARD_POISON`` makes steps 3-5 non-finite;
+    each is skipped with the params, ``mu``, ``nu`` and AdamW's step
+    bitwise unchanged on the card, the third blows the skip budget and
+    rolls back to the step-2 snapshot bitwise, and steps 6-9 train on
+    with finite losses."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                param_leaves)
+    from nbdistributed_tpu_torch.resilience import faults
+    from nbdistributed_tpu_torch.resilience.trainguard import TrainGuard
+
+    params = init_params(cfg, 0)
+    opt = AdamW(param_leaves(params), lr=GUARD_LR)
+    inner = guarded_step(cfg, opt)
+    calls, kept = [], {}
+
+    def step(p, b):
+        i = len(calls)
+        before = state_bytes(params, opt)
+        if i in (2, 6):
+            kept[i] = before
+        c0 = launch_counts()
+        loss, aux = inner(p, b)
+        ok, lossf, gnorm = aux["v"].tolist()
+        c1 = launch_counts()
+        calls.append(dict(ok=bool(ok), loss=lossf, gnorm=gnorm,
+                          unchanged=same_state(before,
+                                               state_bytes(params, opt)),
+                          launches={k: c1[k] - c0[k] for k in c1}))
+        return loss, aux
+
+    g = TrainGuard(step, params, opt, audit_every=1, snapshot_every=2,
+                   skip_budget=2, checkpoint_every=0)
+    batch = packed_batch(cfg, TRAIN_B, cfg.max_seq_len, TRAIN_BATCH_SEED)
+    faults.set_process_plan(faults.FaultPlan(seed=5, corrupt=[GUARD_POISON]))
+    reset_launch_counts()
+    try:
+        for _ in range(GUARD_ROLLBACK_STEPS):
+            g.step(batch)
+        d = g.finish()
+    finally:
+        faults.set_process_plan(None)
+    launches = launch_counts()
+    kinds = [e["kind"] for e in g._events]
+    rolled = same_state(kept[2], kept[6])
+    row = dict(steps=GUARD_ROLLBACK_STEPS, poison=GUARD_POISON,
+               ok=[c["ok"] for c in calls], losses=[c["loss"] for c in calls],
+               skipped_unchanged=[c["unchanged"] for c in calls
+                                  if not c["ok"]],
+               rollback_bitwise_to_step_2=rolled, skips=d["skips"],
+               rollbacks=d["rollbacks"], snapshot_steps=d["snapshot_steps"],
+               events=kinds, launches=launches,
+               launches_per_step=calls[0]["launches"])
+    say("train_guard_rollback", **row)
+    want = [True] * 3 + [False] * 3 + [True] * (GUARD_ROLLBACK_STEPS - 6)
+    check(row["ok"] == want, f"guarded verdicts {row['ok']}, want {want}")
+    check(row["skipped_unchanged"] == [True] * 3,
+          f"a skipped step changed the state: {row['skipped_unchanged']}")
+    check(d["skips"] == 3 and d["rollbacks"] == 1
+          and "snapshot_dropped" in kinds and "rollback" in kinds,
+          f"skips {d['skips']}, rollbacks {d['rollbacks']}, events {kinds}")
+    check(rolled, "the rollback did not restore the step-2 state bitwise")
+    check(all(abs(c["loss"]) < float("inf") for c in calls[6:]),
+          f"losses after the rollback {row['losses'][6:]}")
+    want_k = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
+              "k3": N_LAYERS_SMOL}
+    check(all(c["launches"] == want_k for c in calls),
+          f"launches per step {[c['launches'] for c in calls]}")
+    del g, params, opt, inner, kept
+    return row
+
+
+def guard_costs(cfg):
+    """Report, not held: ``tree_fingerprint`` of the bf16 params beside
+    its bound, a snapshot (a guard's construction takes one), the guarded
+    step beside the unguarded one."""
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                make_train_step,
+                                                param_leaves)
+    from nbdistributed_tpu_torch.resilience.trainguard import (
+        TrainGuard, tree_fingerprint)
+
+    params = init_params(cfg, 0)
+    opt = AdamW(param_leaves(params), lr=GUARD_LR)
+    batch = packed_batch(cfg, TRAIN_B, cfg.max_seq_len, TRAIN_BATCH_SEED)
+    nbytes = sum(p.numel() * p.element_size() for p in param_leaves(params))
+
+    def wall_ms(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    fp_ms = wall_ms(lambda: tree_fingerprint(params), 5)
+    snap_ms = wall_ms(lambda: TrainGuard(
+        guarded_step(cfg, opt), params, opt, audit_every=0,
+        snapshot_every=1, checkpoint_every=0), 3)
+    # The default cadences (50): no snapshot or audit in these steps.
+    g = TrainGuard(guarded_step(cfg, opt), params, opt)
+    plain = make_train_step(cfg, opt)
+    fns = {"unguarded": lambda: float(plain(params, batch)),
+           "guarded": lambda: float(g.step(batch))}
+    for fn in fns.values():
+        fn()
+    step_ms = {k: [] for k in fns}
+    for name in ("unguarded", "guarded", "guarded", "unguarded"):
+        step_ms[name] += wall_ms(fns[name], 3)
+    g.finish()
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    row = dict(param_bytes=nbytes, fingerprint_ms=fp_ms,
+               fingerprint_ms_median=med(fp_ms),
+               fingerprint_bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+               snapshot_ms=snap_ms, snapshot_ms_median=med(snap_ms),
+               step_order="unguarded, guarded, guarded, unguarded; 3 "
+                          "steps each after one of each",
+               step_ms=step_ms,
+               unguarded_step_ms_median=med(step_ms["unguarded"]),
+               guarded_step_ms_median=med(step_ms["guarded"]))
+    say("train_guard_costs", **row)
+    del g, params, opt, plain
+    return row
+
+
+def flip_npz_byte(path, key):
+    """Flip the last data byte of ``key``'s entry in ``path`` in place
+    (``np.savez`` stores entries uncompressed): bit rot on disk."""
+    import struct
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo(key + ".npy")
+    with open(path, "r+b") as f:
+        f.seek(info.header_offset + 26)
+        n, m = struct.unpack("<HH", f.read(4))
+        pos = info.header_offset + 30 + n + m + info.compress_size - 1
+        f.seek(pos)
+        b = f.read(1)
+        f.seek(pos)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def guard_checkpoint(cfg):
+    """Job 3, this process: two steps, ``save_async`` of the params and
+    the optimizer, step 3 at once (in place, while the save drains) and
+    step 4; the save restored into a fresh tree and optimizer equals the
+    state after step 2 bitwise, and steps 3-4 from it give the
+    uninterrupted run's losses and fingerprints exactly.  A byte flipped
+    in ``arrays.npz`` is refused with its leaf named, nothing written.
+    Rows: the save's and restore's GB/s, ``save_async``'s synchronous
+    ms."""
+    import shutil
+
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                                make_train_step,
+                                                param_leaves)
+    from nbdistributed_tpu_torch.resilience.trainguard import \
+        tree_fingerprint
+    from nbdistributed_tpu_torch.runtime import checkpoint
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    path, again = str(CKPT_DIR / "async"), str(CKPT_DIR / "sync")
+    params = init_params(cfg, 0)
+    opt = AdamW(param_leaves(params), lr=GUARD_LR)
+    step = make_train_step(cfg, opt)
+    batches = guard_batches(cfg, 4)
+    reset_launch_counts()
+    losses = [float(step(params, b)) for b in batches[:2]]
+    state2 = state_bytes(params, opt)
+    ns = {"params": params, "opt": opt}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = checkpoint.save_async(path, ns, ["params", "opt"])
+    async_ms = 1e3 * (time.perf_counter() - t0)
+    losses += [float(step(params, b)) for b in batches[2:]]
+    launches = launch_counts()
+    fp4 = (tree_fingerprint(params), tree_fingerprint(opt))
+    summary = h.wait(600)
+    drained_s = time.perf_counter() - t0
+    nbytes = sum(v["bytes"] for v in summary.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h2 = checkpoint.save_async(again, ns, ["params", "opt"])
+    async2_ms = 1e3 * (time.perf_counter() - t0)
+    h2.wait(600)
+    t0 = time.perf_counter()
+    checkpoint.save(again, ns, ["params", "opt"])
+    save_s = time.perf_counter() - t0
+
+    fresh = init_params(cfg, 1)
+    fopt = AdamW(param_leaves(fresh), lr=GUARD_LR)
+    fns = {"params": fresh, "opt": fopt}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore(path, fns)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    in_place = fns["params"] is fresh and fns["opt"] is fopt
+    restored = same_state(state_bytes(fresh, fopt), state2)
+    fstep = make_train_step(cfg, fopt)
+    resumed = [float(fstep(fresh, b)) for b in batches[2:]]
+    fp_resumed = (tree_fingerprint(fresh), tree_fingerprint(fopt))
+
+    fp_before = tree_fingerprint(fresh)
+    flip_npz_byte(f"{path}/rank_0/arrays.npz", "params.0")
+    try:
+        checkpoint.restore(path, fns)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    untouched = tree_fingerprint(fresh) == fp_before
+    problems = checkpoint.verify_rank(path, 0)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    row = dict(losses=losses, resumed_losses=resumed,
+               restored_bitwise=restored, restored_in_place=in_place,
+               fingerprints=[list(x) for x in fp4],
+               resumed_fingerprints=[list(x) for x in fp_resumed],
+               checkpoint_bytes=nbytes, save_async_sync_ms=async_ms,
+               save_async_sync_ms_second=async2_ms,
+               save_async_drained_s=drained_s,
+               save_gb_per_s=nbytes / save_s / 1e9, save_s=save_s,
+               restore_gb_per_s=nbytes / restore_s / 1e9,
+               restore_s=restore_s, refused=refused[:200],
+               refusal_left_state=untouched, verify_rank=problems[:2],
+               launches=launches)
+    say("train_checkpoint", **row)
+    check(in_place and restored, f"restore in place {in_place}, bitwise "
+          f"the step-2 state {restored}")
+    check(resumed == losses[2:] and fp_resumed == fp4,
+          f"resumed losses {resumed} / {fp_resumed} against the "
+          f"uninterrupted {losses[2:]} / {fp4}")
+    check("params.0" in refused and "integrity" in refused and untouched,
+          f"the flipped byte: {refused!r}, state left {untouched}")
+    check(any("params.0" in p for p in problems), f"verify_rank: {problems}")
+    del params, opt, fresh, fopt, step, fstep, state2
+    return row
+
+
+GUARD_WORKER_CELL = """
+import chip_smoke as cs
+from nbdistributed_tpu_torch.models import AdamW, init_params, param_leaves
+from nbdistributed_tpu_torch.ops import _build
+from nbdistributed_tpu_torch.resilience import trainguard
+rebuilt = _build.build_all()
+cfg = cs.guard_cfg()
+params = init_params(cfg, 0, device=device)
+opt = AdamW(param_leaves(params), lr=cs.GUARD_LR)
+g = trainguard.TrainGuard(cs.guarded_step(cfg, opt), params, opt,
+                          audit_every=0, snapshot_every=2)
+batch = cs.packed_batch(cfg, 1, 512, 3)
+cs.reset_launch_counts()
+losses = [float(g.step(batch)) for _ in range(2)]
+state = {"launched": cs.launch_counts(), "rebuilt": sorted(rebuilt),
+         "losses": losses, "device": str(params["embed"].device),
+         "fp": list(trainguard.tree_fingerprint(params)),
+         "opt_fp": list(trainguard.tree_fingerprint(opt))}
+"""
+
+
+def phase_guard_worker():
+    """Job 4: one GPU worker of the port's process manager, driven over
+    its control plane: a guarded SmolLM2 run in a cell (CUDA tensors),
+    the ``checkpoint`` request (save, a background save polled to done,
+    restores written into the live tensors after a further step), the
+    ``guard`` request (status, audit, off and on) and the ``tg`` field
+    on its pings."""
+    from nbdistributed_tpu_torch.manager import (ProcessManager,
+                                                 wait_until_ready)
+    from nbdistributed_tpu_torch.messaging.coordinator import \
+        CommunicationManager
+
+    ts = time.perf_counter()
+    path, bg = str(CKPT_DIR / "worker"), str(CKPT_DIR / "worker_bg")
+    comm = CommunicationManager(1, timeout=300)
+    pm = ProcessManager()
+    pm.add_death_callback(lambda rank, rc: comm.mark_worker_dead(rank))
+    try:
+        pm.start_workers(1, comm.port, backend="gpu")
+        wait_until_ready(comm, pm, CLUSTER_READY_S, poll_s=0.5)
+        cell(comm, GUARD_WORKER_CELL, timeout=600)
+        state = fetch(comm, "state")
+        names = {"names": ["params", "opt"]}
+        saved = comm.send_to_rank(0, "checkpoint", {
+            "action": "save", "path": path, **names}, timeout=300).data
+        started = comm.send_to_rank(0, "checkpoint", {
+            "action": "save", "path": bg, "background": True, **names},
+            timeout=300).data
+        polls, t0 = 0, time.perf_counter()
+        while True:
+            polled = comm.send_to_rank(0, "checkpoint",
+                                       {"action": "status"}).data
+            polls += 1
+            if polled.get("status") != "pending":
+                break
+            check(time.perf_counter() - t0 < 300, "background save hangs")
+            time.sleep(0.05)
+        cell(comm, "g.step(batch); moved = list(trainguard.tree_fingerprint("
+                   "params)) != state['fp']")
+        restored = []
+        for where in (path, bg):
+            restored.append(comm.send_to_rank(0, "checkpoint", {
+                "action": "restore", "path": where}, timeout=300).data)
+            cell(comm, "back = [list(trainguard.tree_fingerprint(params)), "
+                       "list(trainguard.tree_fingerprint(opt))]")
+            restored[-1] = dict(restored[-1], back=fetch(comm, "back"))
+        moved = fetch(comm, "moved")
+        status = comm.send_to_rank(0, "guard", {"action": "status"}).data
+        audit = comm.send_to_rank(0, "guard", {"action": "audit"}).data
+        off = comm.send_to_rank(0, "guard", {"action": "off"}).data
+        on = comm.send_to_rank(0, "guard", {"action": "on"}).data
+        # A ping sent after the audit: its tg names the audit's step.
+        t0 = time.perf_counter()
+        while True:
+            ping = comm.last_ping(0)
+            if ping is not None and (ping[1] or {}).get("tg", {}).get(
+                    "as") == status.get("step"):
+                break
+            check(time.perf_counter() - t0 < 60,
+                  f"no ping carried the audit's tg: {ping}")
+            time.sleep(0.1)
+        comm.post([0], "shutdown")
+    finally:
+        pm.shutdown()
+        comm.shutdown()
+    want = {"k1": 4 * N_LAYERS_SMOL, "k2": 2 * N_LAYERS_SMOL,
+            "k3": 2 * N_LAYERS_SMOL}
+    row = dict(launched=state["launched"], want=want,
+               rebuilt=state["rebuilt"], device=state["device"],
+               losses=state["losses"], saved=saved.get("status"),
+               saved_bytes={k: v["bytes"] for k, v in
+                            saved.get("summary", {}).items()},
+               background=started.get("status"),
+               polled=polled.get("status"), polls=polls,
+               restored=[r.get("status") for r in restored],
+               restored_equal=[r["back"] == [state["fp"], state["opt_fp"]]
+                               for r in restored], moved_after_step=moved,
+               guard_status={k: status.get(k) for k in
+                             ("enabled", "active", "step", "skips",
+                              "snapshot_steps")},
+               audit={k: audit.get(k) for k in ("status", "ok",
+                                                "last_verdict")},
+               off=off.get("enabled"), on=on.get("enabled"),
+               tg=ping[1]["tg"], seconds=time.perf_counter() - ts)
+    say("guard_worker", **row)
+    check(state["rebuilt"] == [] and state["device"] == "cuda:0",
+          f"worker: rebuilt {state['rebuilt']}, device {state['device']}")
+    check(state["launched"] == want, f"worker launches {state['launched']}"
+          f", want {want}")
+    check(saved.get("status") == "save" and started.get("status")
+          == "started" and polled.get("status") == "done",
+          f"checkpoint requests: {saved}, {started}, {polled}")
+    check(moved and all(r.get("status") == "restore" for r in restored)
+          and all(row["restored_equal"]),
+          f"restores: moved {moved}, {row['restored']}, "
+          f"{row['restored_equal']}")
+    check(status.get("active") and status.get("step") == 3
+          and audit.get("status") == "audited" and audit.get("ok")
+          and off.get("enabled") is False and on.get("enabled") is True,
+          f"guard requests: {status}, {audit}, {off}, {on}")
+    check(row["tg"].get("v") == "ok" and row["tg"].get("sk") == 0,
+          f"ping tg {row['tg']}")
+    return row
+
+
+def phase_guard(backend="gloo"):
+    """Phase 22: job 1 on four ranks, then (one card) jobs 2-4 and the
+    costs in this process."""
+    import torch
+
+    ts = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = {"train_guard_replicas": phase_guard_replicas(backend)}
+    if backend == "gloo":
+        cfg = guard_cfg()
+        torch.cuda.reset_peak_memory_stats()
+        rows["train_guard_rollback"] = guard_rollback(cfg)
+        torch.cuda.empty_cache()
+        rows["train_guard_costs"] = guard_costs(cfg)
+        torch.cuda.empty_cache()
+        rows["train_checkpoint"] = guard_checkpoint(cfg)
+        rows["peak_gb_in_process"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        rows["guard_worker"] = phase_guard_worker()
+    rows["seconds"] = time.perf_counter() - ts
+    say("guard_seconds", seconds=rows["seconds"],
+        replicas_s=rows["train_guard_replicas"]["seconds"])
+    return rows
+
+
 def smol_135m_config_fp32():
     import torch
     from nbdistributed_tpu_torch.models import smol_135m_config
@@ -4105,9 +4741,9 @@ def gpu_name_and_power():
 
 
 def main_mesh_nccl() -> int:
-    """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks alone on four
-    cards, one NCCL rank each, against the references they compute first
-    on card 0."""
+    """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks, and phase 22's
+    guarded replicas, alone on four cards, one NCCL rank each, against
+    the references they compute first on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -4132,10 +4768,12 @@ def main_mesh_nccl() -> int:
     train_mesh = phase_train_mesh(backend="nccl")
     train_sp = phase_train_sp(backend="nccl")
     train_pp = phase_train_pp(backend="nccl")
+    guard = phase_guard(backend="nccl")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
-         "train_sp": train_sp, "train_pp": train_pp}, indent=1))
+         "train_sp": train_sp, "train_pp": train_pp, "guard": guard},
+        indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4190,6 +4828,7 @@ def main() -> int:
     train_sp = phase_train_sp()
     remat_dots = phase_remat_dots()
     train_pp = phase_train_pp()
+    guard = phase_guard()
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4235,6 +4874,17 @@ def main() -> int:
             k1_paths[name] = row["k1_launches_rank0"]
             k2_paths[name] = row["k2_launches_rank0"]
             k3_paths[name] = row["k3_launches_rank0"]
+    # Phase 22: the guarded replicas' two runs (rank 0), the rollback
+    # run, the checkpoint run and the worker's guarded steps.
+    rep_row = guard["train_guard_replicas"]
+    for k, paths in (("k1", k1_paths), ("k2", k2_paths), ("k3", k3_paths)):
+        paths["train_guard_replicas"] = rep_row[f"{k}_launches_rank0"]
+        paths["train_guard_replicas_faulted"] = \
+            rep_row[f"{k}_launches_faulted_rank0"]
+        paths["train_guard_rollback"] = \
+            guard["train_guard_rollback"]["launches"][k]
+        paths["train_checkpoint"] = guard["train_checkpoint"]["launches"][k]
+        paths["cluster_guard"] = guard["guard_worker"]["launched"][k]
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -4290,7 +4940,7 @@ def main() -> int:
          "cluster": cluster, "hf": hf_row, "mesh": mesh,
          "train_mesh": train_mesh, "hop_kernels": hop_err,
          "train_sp": train_sp, "remat_dots": remat_dots,
-         "train_pp": train_pp},
+         "train_pp": train_pp, "guard": guard},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

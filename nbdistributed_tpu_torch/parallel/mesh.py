@@ -491,17 +491,31 @@ class _AllToAll(torch.autograd.Function):
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, *,
+              ranks: list[int] | None = None,
               timeout_s: float = GROUP_TIMEOUT_S) -> Mesh:
     """Build a :class:`Mesh` over the world process group (one rank
     without one).
 
     ``axis_sizes`` maps axis name -> size in layout-major order, e.g.
     ``{"dp": 2, "tp": 2}``; a size of -1 means "whatever is left" (at
-    most one axis).  Default: one ``dp`` axis over every rank.  Every
-    rank must call it, with the same sizes: it creates the groups of
-    every axis slice, those this rank is not in included, in one order
-    (``dist.new_group``'s rule)."""
+    most one axis).  Default: one ``dp`` axis over every rank.
+
+    ``ranks``: the world ranks the mesh spans, in layout order (default:
+    every rank), this one among them: the counterpart of JAX's
+    ``make_mesh(..., devices=)``.  ``make_mesh({"dp": 1}, ranks=[rank])``
+    is a mesh of this rank alone, inside any world.
+
+    Every rank of the world must call it, with the same sizes and
+    ``ranks``, where an axis has more than one rank: it creates the
+    groups of every axis slice, those this rank is not in included, in
+    one order (``dist.new_group``'s rule).  A mesh whose axes all have
+    size 1 creates no group."""
     n, rank = _world()
+    members = list(range(n)) if ranks is None else [int(r) for r in ranks]
+    if rank not in members:
+        raise ValueError(f"rank {rank} is not among the mesh's ranks "
+                         f"{members}")
+    n, pos = len(members), members.index(rank)
     sizes = dict(axis_sizes) if axis_sizes else {"dp": n}
     wild = [k for k, v in sizes.items() if v == -1]
     if len(wild) > 1:
@@ -517,24 +531,24 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, *,
             f"mesh {sizes} needs {total} ranks but {n} are available")
     names = list(sizes)
     dims = [sizes[a] for a in names]
-    # Row-major coordinates of every rank: rank = ravel(coords).
+    # Row-major coordinates of every position: pos = ravel(coords).
     coord_of = list(itertools.product(*[range(d) for d in dims]))
-    mine = coord_of[rank]
+    mine = coord_of[pos]
     groups, slice_ranks = {}, {}
     for i, axis in enumerate(names):
         if dims[i] == 1:
             continue
         slices = {}
         for r, c in enumerate(coord_of):
-            slices.setdefault(c[:i] + c[i + 1:], []).append(r)
+            slices.setdefault(c[:i] + c[i + 1:], []).append(members[r])
         lists = list(slices.values())
         own = slices[mine[:i] + mine[i + 1:]]
         slice_ranks[axis] = own
         dist = _dist()
         td = datetime.timedelta(seconds=timeout_s)
-        for ranks in lists:          # every rank creates every group
-            g = dist.new_group(ranks, timeout=td)
-            if ranks == own:
+        for group_ranks in lists:    # every rank creates every group
+            g = dist.new_group(group_ranks, timeout=td)
+            if group_ranks == own:
                 groups[axis] = g
     return Mesh(sizes, dict(zip(names, mine)), groups, slice_ranks)
 

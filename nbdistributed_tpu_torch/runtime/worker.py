@@ -24,11 +24,9 @@ Startup order (deliberate, SURVEY §7 "hard parts"):
 3. serial message loop; a heartbeat thread pings the coordinator so
    liveness is observable even during long cells.
 
-Not ported yet (ROADMAP A5): the ``checkpoint`` and ``guard`` requests
-(they need ``runtime/checkpoint.py`` and ``resilience/trainguard.py``)
-answer with an error.  ``serve_open`` builds no local tensor-parallel
-mesh: a rank drives one GPU, and a mesh spans ranks (``make_mesh`` and
-``DecodeServer(mesh=)`` in a cell run on every rank).
+``serve_open`` builds no local tensor-parallel mesh: a rank drives one
+GPU, and a mesh spans ranks (``make_mesh`` and ``DecodeServer(mesh=)``
+in a cell run on every rank).
 """
 
 from __future__ import annotations
@@ -61,13 +59,6 @@ def _load_hf_pretrained_lazy(name_or_path, **kw):
     from ..models.hf import load_hf_pretrained
     return load_hf_pretrained(name_or_path, **kw)
 
-
-# The request types this port answers with an error naming the ROADMAP
-# entry that ports what they need.
-_NOT_PORTED = {
-    "checkpoint": "runtime/checkpoint.py",
-    "guard": "resilience/trainguard.py",
-}
 
 # How long the process group's rendezvous (and its device setup) may
 # take before the worker exits with an error the spawner captures.
@@ -179,6 +170,7 @@ class DistributedWorker:
         # heartbeat thread piggybacks it (`rep` ping field) so the
         # coordinator sees per-step progress without a probe.
         self._rep_snap: dict | None = None
+        self._ckpt_async = None          # in-flight background save
         # Resilience state: the reply-replay cache makes request
         # redelivery idempotent (a retried execute NEVER runs twice);
         # the fault plan (env knob / %dist_chaos) injects deterministic
@@ -496,6 +488,13 @@ class DistributedWorker:
                 # the same piggyback plane as tel/col.
                 data = dict(data or {})
                 data["rep"] = rep
+            tg = self._tg_snapshot()
+            if tg is not None:
+                # Training guard: skips, the last audit's step and
+                # verdict, rollback and repair counts, quarantine
+                # suspects — off pings alone, no status probe.
+                data = dict(data or {})
+                data["tg"] = tg
             try:
                 self.channel.send(Message(msg_type="ping",
                                           rank=self.rank, data=data))
@@ -517,6 +516,16 @@ class DistributedWorker:
                 self._flight.flush()
                 if self._orphan_ttl <= 0:
                     return  # legacy: no grace period configured
+
+    def _tg_snapshot(self):
+        """The training guard's ping payload, or None when no guard is
+        live: one atomically rebound dict, safe from the heartbeat
+        thread."""
+        try:
+            from ..resilience import trainguard
+            return trainguard.snapshot()
+        except Exception:
+            return None
 
     def _telemetry_extra(self) -> dict:
         """Resilience counters riding each telemetry snapshot, so the
@@ -907,14 +916,116 @@ class DistributedWorker:
                 self._ns_for(msg.tenant)), "status": "success"},
             rank=self.rank)
 
-    def _handle_not_ported(self, msg: Message) -> Message:
-        """``checkpoint`` / ``guard``: not ported yet.  An error reply
-        (never a crash of the loop) that names what is missing."""
-        return msg.reply(
-            data={"error": f"{msg.msg_type!r} is not ported to the "
-                           f"PyTorch worker yet: it needs "
-                           f"{_NOT_PORTED[msg.msg_type]} (ROADMAP A5)"},
-            rank=self.rank)
+    def _handle_guard(self, msg: Message) -> Message:
+        """Report, toggle or audit the training guard
+        (``resilience/trainguard.py``; ``worker.py:844`` of the JAX
+        package).  ``audit`` runs a replica-consistency audit on the live
+        guard now: only with every rank receiving it (``send_to_all``),
+        since the audit's all-gather needs the whole group."""
+        from ..resilience import trainguard
+        data = msg.data or {}
+        action = data.get("action", "status")
+        if action in ("on", "off"):
+            trainguard.set_enabled(action == "on")
+            self._flight.record("guard_toggle", enabled=action == "on")
+            return msg.reply(data={"status": action, **trainguard.status()},
+                             rank=self.rank)
+        if action == "audit":
+            g = trainguard._ACTIVE
+            if g is None:
+                return msg.reply(data={"error": "no live TrainGuard in "
+                                                "this process"},
+                                 rank=self.rank)
+            try:
+                v = g.audit()
+            except Exception as e:
+                return msg.reply(data={"error": f"audit failed: "
+                                                f"{type(e).__name__}: {e}"},
+                                 rank=self.rank)
+            return msg.reply(data={"status": "audited", "ok": v.ok,
+                                   "majority_rank": v.majority_rank,
+                                   "minority": list(v.minority),
+                                   **trainguard.status()},
+                             rank=self.rank)
+        return msg.reply(data=trainguard.status(), rank=self.rank)
+
+    def _handle_checkpoint(self, msg: Message) -> Message:
+        """Save or restore named namespace entries (``worker.py:907`` of
+        the JAX package).  ``background: true`` on a save starts
+        :func:`.checkpoint.save_async` and returns at once (the device-
+        to-host copy and the disk writes run on a thread); ``action:
+        "status"`` polls it: idle, pending, done with its summary, or
+        failed with its error.  A restore writes into live values that
+        fit (``checkpoint.restore``)."""
+        from . import checkpoint
+
+        data = msg.data or {}
+        action = data.get("action")
+        names = data.get("names")
+        if action == "status":
+            h = self._ckpt_async
+            if h is None:
+                return msg.reply(data={"status": "idle"}, rank=self.rank)
+            if not h.done():
+                return msg.reply(data={"status": "pending"}, rank=self.rank)
+            self._ckpt_async = None
+            try:
+                summary = h.wait(0)
+            except Exception as e:
+                return msg.reply(data={"error": f"async checkpoint "
+                                                f"failed: {e}"},
+                                 rank=self.rank)
+            return msg.reply(data={"status": "done", "summary": summary},
+                             rank=self.rank)
+        path = data.get("path")
+        if not path:
+            return msg.reply(data={"error": "checkpoint needs a path"},
+                             rank=self.rank)
+        self._flight.record("checkpoint", action=action, path=path,
+                            background=bool(data.get("background")))
+        ns = self._ns_for(msg.tenant)
+        if action == "save":
+            if not names:
+                return msg.reply(
+                    data={"error": "checkpoint save requires a non-empty "
+                                   "list of names"}, rank=self.rank)
+            if data.get("background"):
+                prev = self._ckpt_async
+                if prev is not None and not prev.done():
+                    return msg.reply(
+                        data={"error": "a background checkpoint is "
+                                       "already in flight (poll it with "
+                                       "action 'status' first)"},
+                        rank=self.rank)
+                reply: dict = {"status": "started", "summary": {}}
+                if prev is not None:
+                    # Completed but never polled: its outcome, a failure
+                    # above all, must not vanish.
+                    try:
+                        prev.wait(0)
+                    except Exception as e:
+                        reply["previous_error"] = (
+                            f"previous background checkpoint failed "
+                            f"unpolled: {e}")
+                self._ckpt_async = checkpoint.save_async(
+                    path, ns, names, rank=self.rank,
+                    world_size=self.world_size)
+                return msg.reply(data=reply, rank=self.rank)
+            with obs_spans.maybe_span("checkpoint/save", kind="checkpoint",
+                                      attrs={"path": path}):
+                summary = checkpoint.save(path, ns, names, rank=self.rank,
+                                          world_size=self.world_size)
+        elif action == "restore":
+            with obs_spans.maybe_span("checkpoint/restore",
+                                      kind="checkpoint",
+                                      attrs={"path": path}):
+                summary = checkpoint.restore(path, ns, names,
+                                             rank=self.rank)
+        else:
+            return msg.reply(data={"error": f"unknown checkpoint action "
+                                            f"{action!r}"}, rank=self.rank)
+        return msg.reply(data={"status": action, "summary": summary},
+                         rank=self.rank)
 
     def _handle_profile(self, msg: Message) -> Message:
         """``torch.profiler`` start/stop, idempotent; stop exports a
@@ -1163,7 +1274,8 @@ class DistributedWorker:
         if data.get("kv_quantized"):
             kw["kv_quantized"] = True
         # The JAX worker shards the decode over this rank's local
-        # devices (a tp mesh); one GPU per rank has none (mesh: A2).
+        # devices (a tp mesh); a rank here drives one GPU, and a mesh
+        # spans ranks (``DecodeServer(mesh=)`` in a cell on every rank).
         try:
             server = DecodeServer(
                 ns[pname], ns[cname],
@@ -1504,9 +1616,9 @@ class DistributedWorker:
             "get_status": self._handle_get_status,
             "get_namespace_info": self._handle_get_namespace_info,
             "profile": self._handle_profile,
-            "checkpoint": self._handle_not_ported,
+            "checkpoint": self._handle_checkpoint,
             "chaos": self._handle_chaos,
-            "guard": self._handle_not_ported,
+            "guard": self._handle_guard,
             "trace": self._handle_trace,
             "metrics": self._handle_metrics,
             "hello": self._handle_hello,

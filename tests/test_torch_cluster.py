@@ -7,8 +7,10 @@ nbdistributed_tpu_torch.runtime.worker`` processes: cells run on every
 rank with last-expression echo and a persistent namespace, the torch
 process group and the functional collectives work across processes,
 tensors cross ``get_var``/``set_var``, a tiny ``DecodeServer`` serves
-the same greedy tokens as in process, an interrupt aborts a cell and
-leaves the workers serving, and a death raises ``WorkerDied``.
+the same greedy tokens as in process, the ``checkpoint`` and ``guard``
+requests answer (a live guard's ``tg`` rides the pings), an interrupt
+aborts a cell and leaves the workers serving, and a death raises
+``WorkerDied``.
 
 No test sleeps: every wait polls its condition under its own deadline.
 """
@@ -82,6 +84,13 @@ def cluster():
 def outputs(responses):
     return {r: m.data.get("output", m.data.get("error"))
             for r, m in responses.items()}
+
+
+def cell_ok(comm, code):
+    """Run ``code`` on every rank; errors fail."""
+    r = comm.send_to_all("execute", code)
+    errs = {k: m.data["error"] for k, m in r.items() if "error" in m.data}
+    assert not errs, errs
 
 
 def pull(comm, name):
@@ -290,20 +299,107 @@ def test_serve_open_step_close(cluster):
     assert r.data == {"status": "ok", "existed": True}
 
 
-def test_status_and_refused_handlers(cluster):
+def _poll(comm, kind, data, want, timeout=60):
+    """Send ``kind`` to every rank until each reply's status is
+    ``want``; the last replies."""
+    deadline = time.monotonic() + timeout
+    while True:
+        r = comm.send_to_all(kind, data)
+        if all(m.data.get("status") == want for m in r.values()):
+            return r
+        assert time.monotonic() < deadline, {k: m.data for k, m in r.items()}
+        threading.Event().wait(0.05)
+
+
+def test_status_and_refused_handlers(cluster, tmp_path):
+    """The status probe, then the ``checkpoint`` and ``guard`` requests
+    the worker once refused: a save, a background save polled to done,
+    a restore written into the live tensor, and the guard's status and
+    audit with no guard live."""
     comm, _, _ = cluster
     st = comm.send_to_rank(0, "get_status").data
     assert st["backend"] == "gloo" and st["world_size"] == WORLD
     assert st["devices"][0]["platform"] == "cpu"
-    for kind in ("checkpoint", "guard"):
-        r = comm.send_to_all(kind, {"action": "status"})
-        assert all("ROADMAP A5" in m.data["error"] for m in r.values())
+    cell_ok(comm, "ck_t = torch.arange(6.0) + rank; ck_meta = {'r': rank}")
+    path, bg = str(tmp_path / "ck"), str(tmp_path / "bg")
+    names = ["ck_t", "ck_meta"]
+    r = comm.send_to_all("checkpoint", {"action": "save", "path": path,
+                                        "names": names})
+    assert all(m.data["status"] == "save"
+               and m.data["summary"]["ck_t"] == {"leaves": 1, "bytes": 24}
+               for m in r.values()), {k: m.data for k, m in r.items()}
+    r = comm.send_to_all("checkpoint", {"action": "save", "path": bg,
+                                        "names": names, "background": True})
+    assert all(m.data["status"] == "started" for m in r.values())
+    done = _poll(comm, "checkpoint", {"action": "status"}, "done")
+    assert all(m.data["summary"]["ck_meta"]["leaves"] == 1
+               for m in done.values())
+    r = comm.send_to_all("checkpoint", {"action": "status"})
+    assert all(m.data == {"status": "idle"} for m in r.values())
+    cell_ok(comm, "ck_live = ck_t; ck_t.mul_(0); ck_meta = None")
+    for where in (path, bg):
+        r = comm.send_to_all("checkpoint", {"action": "restore",
+                                            "path": where})
+        assert all(m.data["status"] == "restore" for m in r.values())
+    assert outputs(comm.send_to_all(
+        "execute", "(ck_t is ck_live, ck_t.tolist(), ck_meta)")) == {
+        k: f"(True, {[float(k + i) for i in range(6)]}, {{'r': {k}}})"
+        for k in range(WORLD)}
+    r = comm.send_to_rank(0, "checkpoint", {"action": "nope", "path": path})
+    assert "unknown checkpoint action" in r.data["error"]
+    r = comm.send_to_all("guard", {"action": "status"})
+    assert all(m.data == {"enabled": True, "active": False}
+               for m in r.values())
+    r = comm.send_to_all("guard", {"action": "audit"})
+    assert all("no live TrainGuard" in m.data["error"] for m in r.values())
     assert outputs(comm.send_to_all("execute", "1 + 1")) == {0: "2", 1: "2"}
     info = comm.send_to_rank(0, "get_namespace_info").data["namespace_info"]
     assert info["w"] == {"kind": "array", "shape": [4, 5],
                          "dtype": "bfloat16", "sharding": None,
                          "device": "cpu"}
     assert comm.send_to_all("sync")[1].data == {"status": "synced"}
+
+
+GUARD_CELL = """
+from nbdistributed_tpu_torch.resilience import trainguard as _tg
+_gp = {"w": torch.zeros(3)}
+def _gstep(p, b):
+    p["w"].add_(1.0)
+    return torch.tensor(1.0), {"ok": torch.tensor(True),
+                               "gnorm": torch.tensor(1.0)}
+_g = _tg.TrainGuard(_gstep, _gp, None, audit_every=0, snapshot_every=0)
+for _ in range(3):
+    _g.step(None)
+_g.finish()["step"]
+"""
+
+
+def test_ping_carries_tg_once_a_guard_is_live(cluster):
+    """With a TrainGuard live, the heartbeat carries its ``tg`` field;
+    the ``guard`` request reports it, audits it over the world, and
+    turns the host machinery off and on."""
+    comm, _, _ = cluster
+    assert outputs(comm.send_to_all("execute", GUARD_CELL)) == {0: "3",
+                                                               1: "3"}
+    deadline = time.monotonic() + 30
+    while True:
+        pings = [comm.last_ping(r) for r in range(WORLD)]
+        if all(p is not None and "tg" in (p[1] or {}) for p in pings):
+            break
+        assert time.monotonic() < deadline, pings
+        threading.Event().wait(0.1)
+    assert all(p[1]["tg"] == {"sk": 0, "as": None, "v": "none", "rb": 0,
+                              "rp": 0} for p in pings)
+    r = comm.send_to_all("guard", {"action": "audit"})
+    assert all(m.data["status"] == "audited" and m.data["ok"]
+               and m.data["active"] and m.data["step"] == 3
+               for m in r.values()), {k: m.data for k, m in r.items()}
+    r = comm.send_to_all("guard", {"action": "off"})
+    assert all(m.data["status"] == "off" and not m.data["enabled"]
+               for m in r.values())
+    r = comm.send_to_all("guard", {"action": "on"})
+    assert all(m.data["enabled"] for m in r.values())
+    cell_ok(comm, "_tg.reset_for_tests()")
 
 
 def test_heartbeat_and_telemetry_arrive(cluster):
