@@ -237,6 +237,32 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``%dist_shutdown`` leaving no worker pid.  Each cell's text and
    output go to ``chiprun_out/notebook_cells_n<ranks>.json``.
 
+24. (run after phase 23) cell vetting and the async window, through
+   the same magics and stand-in shell, a fresh ``%dist_init -n 1
+   --backend gpu`` (redelivery on, ``NBD_RETRY_TIMEOUT_S=2``):
+   ``%dist_lint warn`` and phase 17's 12 requests served in a cell (K4
+   once per layer per decode step, the streams equal to phase 17's);
+   under ``%dist_lint strict`` a cell with ``dist.all_reduce`` under
+   ``if rank == 0`` refused before dispatch (no execute frame sent, no
+   cell run on any rank, the group then all-reducing as before),
+   ``%%distributed --strict`` running a clean cell and ``%dist_lint
+   status`` counting the finding; phase 11's step 4 times as
+   synchronous cells and 4 times as ``--async`` cells with a
+   proven-free cell streamed beside each (the window deeper than one
+   while a training cell holds the collective stream, no edge between
+   them in ``%dist_lint deps``; the losses equal to the synchronous
+   ones to the last bit, K1/K2/K3 60/30/30 a step read through
+   ``%dist_pull``); an errored ``--async`` cell surfacing once at
+   ``%dist_wait``; ``NBD_ASYNC_WINDOW=4`` with a ``--sync`` cell
+   draining the window first; ``%dist_profile`` around one training
+   cell (the kernel events of ``rank<r>/trace.json`` equal the launch
+   counters); ``%dist_trace`` (one Chrome trace with spans from the
+   coordinator and every rank); ``%dist_metrics``, ``%dist_lat``,
+   ``%dist_top`` (each rank's card memory); ``%dist_chaos on --drop
+   0.1`` with every cell run once; and 20 trivial cells synchronous
+   against ``--async`` plus ``%dist_wait``.  Cells go to
+   ``chiprun_out/notebook_async_cells_n<ranks>.json``.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
@@ -247,13 +273,14 @@ paths', the mesh runs' K4 launches on rank 0 (``mesh_*``) and the
 mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
 ``train_sp_*``, ``grad_sp_*``, ``train_pp_*``), the dots step's
 (``train_remat_dots``) and phase 22's (``train_guard_*``,
-``train_checkpoint``, ``cluster_guard``) and phase 23's
-(``notebook_serve``, ``notebook_train``).
+``train_checkpoint``, ``cluster_guard``), phase 23's
+(``notebook_serve``, ``notebook_train``) and phase 24's
+(``notebook_async_serve``, ``notebook_async_train``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
-ranks, phase 22's guarded replicas and phase 23 (``%dist_init -n 4``,
-its references computed first on card 0) alone on four cards, one NCCL
-rank per card (what one card cannot
+ranks, phase 22's guarded replicas and phases 23 and 24
+(``%dist_init -n 4``, their references computed first on card 0) alone
+on four cards, one NCCL rank per card (what one card cannot
 show: NCCL, its ``reduce_scatter_tensor``, its point-to-point ring and
 pipeline hops overlapping compute, ``all_to_all_single``, and the links
 between cards).
@@ -4682,6 +4709,356 @@ def phase_notebook(outputs_ref, loss_ref, n=1):
     return row
 
 
+# Phase 24: cell vetting and the async window, through the same
+# magics' bodies and stand-in shell as phase 23.  A fresh session
+# serves phase 17's requests under %dist_lint warn, refuses a
+# rank-conditional collective under strict before anything is sent,
+# trains phase 11's step as synchronous cells and then as --async
+# cells with proven-free cells streamed beside them, and drives the
+# observability magics (profile, trace, metrics, latency, top, chaos).
+
+NOTEBOOK_ASYNC_STEPS = 4
+NOTEBOOK_CHAOS_CELLS = 6
+NOTEBOOK_PROFILE_DIR = ROOT / "build" / "notebook_profile"
+NOTEBOOK_TRACE = ROOT / "build" / "notebook_trace.json"
+# Kernel-name fragments of each kernel's launches in a torch.profiler
+# trace (the bf16 tensor-core and the fp32 scalar variants alike).
+PROFILE_KERNELS = {"k1": "flash_fwd_", "k2": "flash_bwd_dq_",
+                   "k3": "flash_bwd_dkv_", "k4": "decode_split_kernel"}
+
+NOTEBOOK_ASYNC_SETUP_CELL = """\
+import time
+from nbdistributed_tpu_torch.models import (AdamW, make_train_step,
+                                            param_leaves)
+del params, outputs
+torch.cuda.empty_cache()
+tcfg = smol_135m_config(remat=True)
+batch = cs.packed_batch(tcfg, cs.TRAIN_B, tcfg.max_seq_len,
+                        cs.TRAIN_BATCH_SEED)
+def fresh_step():
+    p = init_params(tcfg, 0, device=device)
+    return p, make_train_step(tcfg, AdamW(param_leaves(p), lr=1e-3))
+params, step = fresh_step()
+float(step(params, batch))    # warm-up: both timed runs start warm
+params, step = fresh_step()
+cs.reset_launch_counts()
+"""
+
+NOTEBOOK_TIMED_STEP_CELL = """\
+torch.cuda.synchronize()
+_t0 = time.perf_counter()
+loss_{tag} = float(step(params, batch))
+ms_{tag} = 1e3 * (time.perf_counter() - _t0)
+"""
+
+
+def _registry_count(prefix, *parts):
+    """Sum of this process's metrics-registry counters whose key starts
+    with ``prefix`` and holds every one of ``parts``."""
+    from nbdistributed_tpu_torch.observability import metrics
+    return sum(v for k, v in metrics.registry().to_json()["counters"]
+               .items() if k.startswith(prefix)
+               and all(x in k for x in parts))
+
+
+def _worker_cells(comm):
+    """Cells each rank has executed, from its ``nbd_cell_seconds``."""
+    out = {}
+    for r, m in comm.send_to_all("metrics", {"format": "json"},
+                                 timeout=60).items():
+        hists = m.data["metrics"].get("histograms", {})
+        out[r] = sum(v.get("count", 0) for k, v in hists.items()
+                     if k.startswith("nbd_cell_seconds"))
+    return out
+
+
+def profile_kernel_counts(path):
+    """Kernel events of each flash kernel in a torch.profiler Chrome
+    trace."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "kernel"]
+    return {k: sum(frag in n for n in names)
+            for k, frag in PROFILE_KERNELS.items()}, len(names)
+
+
+def phase_notebook_async(outputs_ref, loss_ref, n=1):
+    """Phase 24: cell vetting, the async window and the observability
+    magics on the card, ``n`` NCCL ranks (one a card).
+    ``outputs_ref``: the in-process bf16 server's streams of phase 17's
+    requests; ``loss_ref``: phase 11's first-step loss."""
+    import os
+    import re
+    import shutil
+    import statistics
+
+    from nbdistributed_tpu_torch.analysis import preflight
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+
+    ts = time.perf_counter()
+    shutil.rmtree(NOTEBOOK_PROFILE_DIR, ignore_errors=True)
+    ranks = list(range(n))
+    # Redelivery on: a frame the chaos plan drops is resent, not waited
+    # out (read when %dist_init builds the coordinator).
+    saved_env = {k: os.environ.get(k) for k in ("NBD_RETRY_TIMEOUT_S",
+                                                "NBD_ASYNC_WINDOW")}
+    os.environ["NBD_RETRY_TIMEOUT_S"] = "2"
+    nb = NotebookSession()
+    rows = {}
+    try:
+        t0 = time.perf_counter()
+        out = nb.run(f"%dist_init -n {n} --backend gpu -t 600")
+        check(f"{n} workers ready (backend=gpu" in out, f"%dist_init: {out}")
+        rows["spawn_to_ready_s"] = time.perf_counter() - t0
+        pids = [p.pid for p in DistributedMagics._pm.processes.values()]
+        comm = DistributedMagics._comm
+
+        # 1. Serving under %dist_lint warn.
+        out = nb.run("%dist_lint warn")
+        check("cell vetting ON (annotate only)" in out, out)
+        nb.run(NOTEBOOK_SERVE_CELL)
+        served, outputs = nb.pull("served"), nb.pull("outputs")
+        for r in ranks:
+            s = served[r]
+            check(s["rebuilt"] == [] and s["device"] == f"cuda:{r}",
+                  f"rank {r}: rebuilt {s['rebuilt']}, on {s['device']}")
+            check(s["steps"] > 0 and s["k4"] == N_LAYERS_SMOL * s["steps"],
+                  f"rank {r}: K4 launched {s['k4']} times over "
+                  f"{s['steps']} decode steps")
+            check(outputs[r] == outputs_ref, f"rank {r}: the streams "
+                  "pulled under %dist_lint warn differ from the "
+                  "in-process server's")
+        rows["serve"] = dict(k4_launches=served[0]["k4"],
+                             decode_steps=served[0]["steps"],
+                             tokens_equal=True)
+
+        # 2. Strict vetting: refused before dispatch, group not hung.
+        nb.run("nb_t = torch.ones(4, device=device)")
+        nb.run("%dist_lint strict")
+        sent0 = _registry_count("nbd_wire_messages_total", 'dir="tx"',
+                                'type="execute"')
+        cells0 = _worker_cells(comm)
+        found0 = _registry_count("nbd_lint_findings_total",
+                                 "rank-conditional-collective")
+        out = nb.run("strict_marker = 1\nif rank == 0:\n"
+                     "    dist.all_reduce(nb_t)")
+        check("[rank-conditional-collective]" in out
+              and "⛔ cell NOT dispatched" in out, f"strict: {out}")
+        sent1 = _registry_count("nbd_wire_messages_total", 'dir="tx"',
+                                'type="execute"')
+        check(sent1 == sent0 and _worker_cells(comm) == cells0,
+              f"strict sent {sent1 - sent0} execute frames")
+        nb.run("%dist_lint warn")
+        out = nb.run("%%distributed --strict\n"
+                     "dist.all_reduce(nb_t)\nnb_sum = float(nb_t.sum())")
+        check("NOT dispatched" not in out, f"--strict clean cell: {out}")
+        sums = nb.pull("nb_sum")
+        check(all(v == 4.0 * n for v in sums.values()),
+              f"all_reduce after the refusal: {sums}")
+        out = nb.run("%dist_lint status")
+        found1 = _registry_count("nbd_lint_findings_total",
+                                 "rank-conditional-collective")
+        check(found1 == found0 + 1
+              and f"· rank-conditional-collective: {found1:.0f}" in out,
+              f"%dist_lint status: {out}")
+        out = nb.run("%%distributed\n'strict_marker' in dir()")
+        check(out.count("False") == n, f"the refused cell ran: {out}")
+        rows["strict"] = dict(execute_frames_sent=sent1 - sent0,
+                              worker_cells=cells0,
+                              findings_counted=found1 - found0)
+
+        # 3. The window: phase 11's step, synchronous then --async.
+        nb.run(NOTEBOOK_ASYNC_SETUP_CELL)
+        t0 = time.perf_counter()
+        for k in range(NOTEBOOK_ASYNC_STEPS):
+            nb.run("%%distributed\n" + NOTEBOOK_TIMED_STEP_CELL.format(
+                tag=f"s{k}"))
+        sync_wall = time.perf_counter() - t0
+        nb.run("sync_counts = cs.launch_counts()\n"
+               "params, step = fresh_step()\ncs.reset_launch_counts()")
+        depth_held, holds = 0, []
+        t0 = time.perf_counter()
+        for k in range(NOTEBOOK_ASYNC_STEPS):
+            out = nb.run(f"%%distributed --async\n"
+                         f"loss_a{k} = float(step(params, batch))")
+            holds.append("⧗ held:" in out)
+            nb.run(f"%%distributed --async\nnb_free_{k} = "
+                   f"torch.full((1024,), {k}.0, device=device)")
+            snap = DistributedMagics._async_exec.snapshot()
+            if snap["collective_holder"] is not None:
+                depth_held = max(depth_held, snap["depth"])
+        out = nb.run("%dist_wait")
+        async_wall = time.perf_counter() - t0
+        check("✅ drained" in out and "errored" not in out,
+              f"%dist_wait: {out}")
+        check(depth_held >= 2, "the window never held a free cell beside "
+              f"a training cell (depth {depth_held})")
+        deps = nb.run("%dist_lint deps")
+        dag = preflight.deps_dag()
+        mine = {e["seq"] for e in dag["nodes"]
+                if any(w.startswith(("loss_a", "nb_free_"))
+                       for w in e["writes"])}
+        check(len(mine) == 2 * NOTEBOOK_ASYNC_STEPS, f"DAG nodes {mine}")
+        edges = [e for e in dag["edges"] if {e["src"], e["dst"]} <= mine]
+        check(not edges, f"%dist_lint deps drew {edges}:\n{deps}")
+        steps = range(NOTEBOOK_ASYNC_STEPS)
+        nb.run("losses_sync = [" + ", ".join(f"loss_s{k}" for k in steps)
+               + "]\nlosses_async = ["
+               + ", ".join(f"loss_a{k}" for k in steps)
+               + "]\nasync_counts = cs.launch_counts()")
+        l_sync, l_async = nb.pull("losses_sync"), nb.pull("losses_async")
+        counts_s, counts_a = nb.pull("sync_counts"), nb.pull("async_counts")
+        want = {"k1": 2 * N_LAYERS_SMOL * NOTEBOOK_ASYNC_STEPS,
+                "k2": N_LAYERS_SMOL * NOTEBOOK_ASYNC_STEPS,
+                "k3": N_LAYERS_SMOL * NOTEBOOK_ASYNC_STEPS}
+        for r in ranks:
+            check(l_async[r] == l_sync[r], f"rank {r}: async losses "
+                  f"{l_async[r]} != synchronous {l_sync[r]}")
+            for c in (counts_s[r], counts_a[r]):
+                got = {k: c[k] for k in want}
+                check(got == want, f"rank {r}: {got}, want {want}")
+        check(l_sync[0][0] == loss_ref, f"first loss {l_sync[0][0]!r} != "
+              f"phase 11's {loss_ref!r}")
+        step_ms = nb.pull(f"ms_s{NOTEBOOK_ASYNC_STEPS - 1}")[0]
+        rows["train"] = dict(
+            losses=l_sync[0], losses_equal_bitwise=True,
+            launches_async={k: counts_a[0][k] for k in want},
+            launches_sync={k: counts_s[0][k] for k in want},
+            sync_wall_ms=1e3 * sync_wall, async_wall_ms=1e3 * async_wall,
+            max_depth_with_collective_holder=depth_held,
+            training_cells_held=sum(holds))
+
+        # An --async cell that raises surfaces at the drain, once.
+        out = nb.run("%%distributed --async\ntime.sleep(0.5)\n"
+                     "raise ValueError('async boom')")
+        check("streamed to ranks" in out, f"--async error cell: {out}")
+        out = nb.run("%dist_wait")
+        check(out.count("✗ async cell") == 1 and "1 errored" in out
+              and out.count("async boom") == n, f"%dist_wait: {out}")
+        out = nb.run("%%distributed\nafter_error = 1")
+        check("errored un-inspected" not in out, out)
+        # NBD_ASYNC_WINDOW arms the window; a --sync cell drains it.
+        os.environ["NBD_ASYNC_WINDOW"] = "4"
+        out = nb.run("time.sleep(0.5)\nwin_a = 1")
+        check("⧗ async cell" in out, f"NBD_ASYNC_WINDOW cell: {out}")
+        out = nb.run("%%distributed --sync\nwin_b = 2")
+        check(out.startswith("⧗ draining async window (1 in flight) — "
+                             "synchronous cell"), f"--sync: {out}")
+        del os.environ["NBD_ASYNC_WINDOW"]
+
+        # 4. %dist_profile around one training cell.
+        nb.run("cs.reset_launch_counts()")
+        out = nb.run(f"%dist_profile start --log-dir "
+                     f"{NOTEBOOK_PROFILE_DIR}")
+        check("profiling started" in out, out)
+        nb.run("%%distributed\n" + NOTEBOOK_TIMED_STEP_CELL.format(
+            tag="prof") + "prof_counts = cs.launch_counts()")
+        out = nb.run(f"%dist_profile stop --log-dir {NOTEBOOK_PROFILE_DIR}")
+        check("profiling stopped" in out, out)
+        prof_counts = nb.pull("prof_counts")
+        prof_ms = nb.pull("ms_prof")[0]
+        traced = {}
+        for r in ranks:
+            got, n_kernels = profile_kernel_counts(
+                NOTEBOOK_PROFILE_DIR / f"rank{r}" / "trace.json")
+            want_p = {k: prof_counts[r][k] for k in ("k1", "k2", "k3")}
+            check({k: got[k] for k in want_p} == want_p and got["k4"] == 0,
+                  f"rank {r}: trace kernels {got}, counters {want_p}")
+            traced[r] = dict(got, kernel_events=n_kernels)
+        rows["profile"] = dict(trace_kernels=traced[0],
+                               launch_counters=prof_counts[0],
+                               step_ms_profiled=prof_ms,
+                               step_ms_unprofiled=step_ms,
+                               overhead=prof_ms / step_ms)
+
+        # 5. %dist_trace: one merged Chrome trace, every process in it.
+        out = nb.run("%dist_trace start")
+        check("tracing ON" in out, out)
+        nb.run("%%distributed\ntraced = rank")
+        out = nb.run(f"%dist_trace save {NOTEBOOK_TRACE}")
+        check("load in ui.perfetto.dev" in out, out)
+        nb.run("%dist_trace stop")
+        merged = json.loads(NOTEBOOK_TRACE.read_text())["traceEvents"]
+        procs = {e["pid"] for e in merged if e.get("ph") == "X"}
+        check(procs == {-1, *ranks}, f"trace spans from {procs}")
+        rows["trace"] = dict(events=len(merged), processes=sorted(procs))
+
+        # 6. %dist_metrics, %dist_lat, %dist_top.
+        out = nb.run("%dist_metrics")
+        check("📊 coordinator: wire tx/rx" in out
+              and all(f"🔹 rank {r}: cells" in out for r in ranks), out)
+        out = nb.run("%dist_lat --last 1")
+        check("latency observatory" in out and "execute" in out, out)
+        out = nb.run("%dist_top")
+        mem_rows = [ln for ln in out.splitlines()
+                    if re.match(r"^\d+\s+● alive", ln)]
+        check(len(mem_rows) == n and all(
+            re.search(r"\d+\.\d\d/\d+\.\d\d", ln) for ln in mem_rows),
+              f"%dist_top shows no card memory: {out}")
+        rows["top"] = mem_rows
+
+        # 7. %dist_chaos: 10 % of frames dropped, every cell once.
+        nb.run("chaos_n = 0")
+        out = nb.run("%dist_chaos on --drop 0.1 --seed 7")
+        check("chaos ON (both)" in out and "no retry policy" not in out,
+              out)
+        t0 = time.perf_counter()
+        for _ in range(NOTEBOOK_CHAOS_CELLS):
+            out = nb.run("chaos_n += 1\nchaos_n")
+            check("⏱️" not in out, f"chaos cell timed out: {out}")
+        chaos_s = time.perf_counter() - t0
+        status = nb.run("%dist_chaos status")
+        nb.run("%dist_chaos off")
+        got = nb.pull("chaos_n")
+        check(all(v == NOTEBOOK_CHAOS_CELLS for v in got.values()),
+              f"chaos cells ran {got} times")
+        rows["chaos"] = dict(cells=NOTEBOOK_CHAOS_CELLS, seconds=chaos_s,
+                             retries_sent=comm.retries_sent,
+                             status=status.splitlines())
+
+        # 8. 20 trivial cells synchronous, then through the window.
+        rt = []
+        for k in range(NOTEBOOK_RT_CELLS):
+            t0 = time.perf_counter()
+            nb.run(f"%%distributed\nnb_s{k} = {k}")
+            rt.append(1e3 * (time.perf_counter() - t0))
+        blocked = []
+        t_all = time.perf_counter()
+        for k in range(NOTEBOOK_RT_CELLS):
+            t0 = time.perf_counter()
+            nb.run(f"%%distributed --async\nnb_a{k} = {k}")
+            blocked.append(1e3 * (time.perf_counter() - t0))
+        nb.run("%dist_wait")
+        async_total = 1e3 * (time.perf_counter() - t_all)
+        got = nb.pull(f"nb_a{NOTEBOOK_RT_CELLS - 1}")
+        check(all(v == NOTEBOOK_RT_CELLS - 1 for v in got.values()), got)
+        rows["trivial"] = dict(
+            sync_ms_median=statistics.median(rt), sync_ms_total=sum(rt),
+            async_blocked_ms_median=statistics.median(blocked),
+            async_blocked_ms_max=max(blocked),
+            async_ms_total_with_wait=async_total)
+
+        out = nb.run("%dist_shutdown")
+        check(f"✅ shut down {n} workers" in out, f"%dist_shutdown: {out}")
+        left = [p for p in pids if pathlib.Path(f"/proc/{p}").exists()]
+        check(not left, f"workers left after %dist_shutdown: {left}")
+    finally:
+        if DistributedMagics._pm is not None:
+            DistributedMagics.shutdown_all()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"notebook_async_cells_n{n}.json").write_text(
+            json.dumps(nb.log, indent=1))
+    rows.update(ranks=n, seconds=time.perf_counter() - ts)
+    say("notebook_async", **{k: v for k, v in rows.items()
+                             if k not in ("top",)})
+    return rows
+
+
 def smol_135m_config_fp32():
     import torch
     from nbdistributed_tpu_torch.models import smol_135m_config
@@ -5076,9 +5453,9 @@ def gpu_name_and_power():
 
 def main_mesh_nccl() -> int:
     """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks, phase 22's
-    guarded replicas and phase 23's notebook, alone on four cards, one
-    NCCL rank each, against the references they compute first on card
-    0."""
+    guarded replicas and phases 23 and 24's notebook, alone on four
+    cards, one NCCL rank each, against the references they compute
+    first on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -5104,12 +5481,15 @@ def main_mesh_nccl() -> int:
     train_sp = phase_train_sp(backend="nccl")
     train_pp = phase_train_pp(backend="nccl")
     guard = phase_guard(backend="nccl")
-    notebook = phase_notebook(*notebook_refs(), n=MESH_WORLD)
+    refs = notebook_refs()
+    notebook = phase_notebook(*refs, n=MESH_WORLD)
+    notebook_async = phase_notebook_async(*refs, n=MESH_WORLD)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
          "train_sp": train_sp, "train_pp": train_pp, "guard": guard,
-         "notebook": notebook}, indent=1))
+         "notebook": notebook, "notebook_async": notebook_async},
+        indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5167,6 +5547,8 @@ def main() -> int:
     guard = phase_guard()
     torch.cuda.empty_cache()
     notebook = phase_notebook(dense["outputs"], train["losses"][0])
+    notebook_async = phase_notebook_async(dense["outputs"],
+                                          train["losses"][0])
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5198,7 +5580,9 @@ def main() -> int:
                 + moe["fp32"]["k4_int8"],
                 **{name: row["k4_launches_rank0"]
                    for name, row in mesh.items() if name != "seconds"},
-                "notebook_serve": notebook["serve"]["k4_launches"]}
+                "notebook_serve": notebook["serve"]["k4_launches"],
+                "notebook_async_serve":
+                    notebook_async["serve"]["k4_launches"]}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "train": train["k1"],
@@ -5226,6 +5610,9 @@ def main() -> int:
         paths["cluster_guard"] = guard["guard_worker"]["launched"][k]
         # Phase 23: the notebook's training cell (rank 0).
         paths["notebook_train"] = notebook["train"]["launches"][k]
+        # Phase 24: the training steps streamed through the window.
+        paths["notebook_async_train"] = \
+            notebook_async["train"]["launches_async"][k]
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -5281,8 +5668,8 @@ def main() -> int:
          "cluster": cluster, "hf": hf_row, "mesh": mesh,
          "train_mesh": train_mesh, "hop_kernels": hop_err,
          "train_sp": train_sp, "remat_dots": remat_dots,
-         "train_pp": train_pp, "guard": guard, "notebook": notebook},
-        indent=1))
+         "train_pp": train_pp, "guard": guard, "notebook": notebook,
+         "notebook_async": notebook_async}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,21 @@ per GPU, with the reference's magic surface under the same names
 ``%dist_push``, ``%dist_sync_ide``, ``%dist_checkpoint`` /
 ``%dist_restore``, ``%timeline_*``, ``%dist_shutdown`` and
 ``%dist_reset``, plus the auto-distributed input transformer that makes
-plain cells run on every worker (reference: magic.py:609-645).  Names,
-options and printed text follow the JAX package; its TPU options become
-their GPU forms (``--backend gpu``, ``--gpu-ids``).
+plain cells run on every worker (reference: magic.py:609-645).  Every
+cell is vetted before dispatch (``%dist_lint``; ``analysis/``) and may
+stream through the async in-flight window (``%%distributed --async``,
+``NBD_ASYNC_WINDOW``, ``%dist_wait``; ``messaging/pipeline.py``);
+``%dist_chaos``, ``%dist_profile``, ``%dist_trace``, ``%dist_metrics``,
+``%dist_lat`` and ``%dist_top`` observe and perturb the control plane.
+Names, options and printed text follow the JAX package; its TPU
+options become their GPU forms (``--backend gpu``, ``--gpu-ids``).
 
 Magics whose modules have not been ported yet stay registered and raise
 :class:`NotImplementedError` naming their ROADMAP entry (``_DEFERRED``),
-as do the options of those modules (``%%distributed --strict``,
-``--async``, ``--sync``, ``--deadline``, ``--priority``; ``%dist_init
---hosts``, ``--agents``, ``--coordinator-addr``,
-``--chips-per-worker``, ``--attach``).
+as do the options of those modules (``%%distributed --deadline``,
+``--priority``; ``%dist_init --hosts``, ``--agents``,
+``--coordinator-addr``, ``--chips-per-worker``, ``--attach``;
+``%dist_lint self``).
 
 This module does not import IPython.  Each magic is a plain method of
 :class:`DistributedMagics` taking the magic's line (and its cell), with
@@ -34,6 +39,7 @@ import argparse
 import os
 import re
 import shlex
+import tempfile
 import threading
 import time
 
@@ -51,15 +57,17 @@ _COLLECTIVE_TOKENS = re.compile(
 
 # The ROADMAP entry each not-yet-ported magic lands with.
 _DEFERRED = {
-    "dist_lint": "A5.3b", "dist_wait": "A5.3b", "dist_chaos": "A5.3b",
-    "dist_profile": "A5.3b", "dist_trace": "A5.3b",
-    "dist_metrics": "A5.3b", "dist_lat": "A5.3b", "dist_top": "A5.3b",
     "dist_heal": "A5.4", "dist_supervise": "A5.4",
     "dist_watchdog": "A5.4", "dist_doctor": "A5.4",
     "dist_postmortem": "A5.4", "dist_guard": "A5.4",
     "dist_attach": "A5.6", "dist_pool": "A5.6", "dist_serve": "A5.6",
     "dist_gc": "A5.6",
 }
+
+
+# The longest %dist_shutdown / %dist_reset wait for the async window:
+# a cell still running after it is cut off by the teardown.
+_SHUTDOWN_DRAIN_S = 30.0
 
 
 def _not_ported(what: str, entry: str) -> NotImplementedError:
@@ -91,16 +99,25 @@ Every cell now runs on ALL workers. Namespace on each worker:
 
 Magics: %%rank [0,1] targeted cells · %sync barrier · %dist_interrupt ·
 %dist_status · %dist_logs · %dist_debug ·
-%%distributed --repeat k [--until EXPR] (compile once, loop
-worker-side) · %dist_mode -d/-e auto-run off/on ·
+%%distributed --async (stream cells through the DAG-gated in-flight
+window — NBD_ASYNC_WINDOW arms it session-wide) · %dist_wait (drain
+the window) · %%distributed --repeat k [--until EXPR] (compile once,
+loop worker-side) · %dist_mode -d/-e auto-run off/on ·
 %dist_pull/%dist_push vars · %dist_sync_ide ·
 %dist_checkpoint/%dist_restore path names (--background, --status) ·
+%dist_lint warn|strict|off|status|effects|deps (pre-dispatch cell
+vetting: rank-conditional collectives, subset hazards, host-syncs in
+loops — strict blocks error-severity cells; also %%distributed
+--strict per cell; deps|effects render the session's cell effect
+footprints and dependency DAG) · %dist_chaos (fault injection) ·
+%dist_profile start/stop (torch.profiler) · %dist_trace
+start/stop/save (Perfetto) · %dist_metrics · %dist_lat (per-cell
+stage attribution + waterfall) · %dist_top (live device telemetry) ·
 %timeline_show · %timeline_sidecar (in-notebook persistence) ·
 %dist_shutdown (fleet teardown) · %dist_reset
 Not ported yet (they raise, naming their ROADMAP entry):
-%dist_lint/wait/chaos/profile/trace/metrics/lat/top (A5.3b) ·
 %dist_heal/supervise/watchdog/doctor/postmortem/guard (A5.4) ·
-%dist_attach/pool/serve/gc (A5.6)
+%dist_attach/pool/serve/gc (A5.6) · %dist_lint self (A5.7)
 """
 
 
@@ -179,8 +196,9 @@ _PARSERS = {
     "distributed": _parser(
         "distributed",
         _arg("--strict", action="store_true",
-             help="block dispatch on an error-severity hazard (not "
-                  "ported: raises, A5.3b)"),
+             help="block dispatch when the pre-flight analyzer finds "
+                  "an error-severity hazard (rank-conditional "
+                  "collective, subset collective, desyncing exit)"),
         _arg("--deadline", type=float, default=None,
              help="per-cell budget for the hang watchdog (not ported: "
                   "raises, A5.4)"),
@@ -188,11 +206,14 @@ _PARSERS = {
              help="pool-scheduling priority in tenant mode (not "
                   "ported: raises, A5.6)"),
         _arg("--async", dest="use_async", action="store_true",
-             help="stream through the async in-flight window (not "
-                  "ported: raises, A5.3b)"),
+             help="stream this cell through the async in-flight "
+                  "window and return a pending CellFuture instead "
+                  "of blocking (admission gated by the effects/deps "
+                  "DAG; %%dist_wait drains)"),
         _arg("--sync", dest="use_sync", action="store_true",
-             help="force synchronous dispatch under NBD_ASYNC_WINDOW "
-                  "(not ported: raises, A5.3b)"),
+             help="force synchronous dispatch for this cell (drains "
+                  "the async window first) even when "
+                  "NBD_ASYNC_WINDOW arms async mode session-wide"),
         _arg("--repeat", type=int, default=None, metavar="K",
              help="worker-side step loop: compile the cell once and "
                   "run it K times in ONE dispatch — per-step "
@@ -274,6 +295,122 @@ _PARSERS = {
         "timeline_save",
         _arg("path", nargs="?", default="nbd_timeline.json"),
     ),
+    "dist_lint": _parser(
+        "dist_lint",
+        _arg("command", nargs="?", default="status",
+             choices=["strict", "warn", "off", "status", "deps",
+                      "effects", "self"]),
+        _arg("--dot", action="store_true",
+             help="with `deps`: print the dependency DAG as Graphviz "
+                  "dot instead of text"),
+    ),
+    "dist_wait": _parser(
+        "dist_wait",
+        _arg("--timeout", type=float, default=None,
+             help="bound the drain in seconds (cells still pending "
+                  "at the deadline stay in flight)"),
+    ),
+    "dist_chaos": _parser(
+        "dist_chaos",
+        _arg("command", nargs="?", default="status",
+             choices=["on", "off", "status"]),
+        _arg("--seed", type=int, default=0,
+             help="fault plan seed (same seed = same fault sequence)"),
+        _arg("--drop", type=float, default=0.0,
+             help="probability a control frame is dropped"),
+        _arg("--delay-p", type=float, default=0.0, dest="delay_p",
+             help="probability a frame is delayed by --delay-s"),
+        _arg("--delay-s", type=float, default=0.02, dest="delay_s"),
+        _arg("--duplicate", type=float, default=0.0,
+             help="probability a frame is sent twice"),
+        _arg("--truncate", type=float, default=0.0,
+             help="probability a frame is cut mid-write "
+                  "(connection-fatal: exercises death handling)"),
+        _arg("--freeze-heartbeats", action="store_true",
+             help="stop worker pings (exercises degraded detection)"),
+        _arg("--kill-rank", type=int, default=None,
+             help="SIGKILL this rank ..."),
+        _arg("--kill-at", type=int, default=None,
+             help="... at this received-message index (1 = next)"),
+        _arg("--side", default="both",
+             choices=["coordinator", "worker", "both"],
+             help="which send path(s) inject frame faults"),
+        _arg("--partition", default=None,
+             help="host pair 'hostA,hostB' whose link to blackhole "
+                  "(labels from the world's host map, 'local' = the "
+                  "coordinator's host)"),
+        _arg("--partition-after", type=float, default=0.0,
+             dest="partition_after",
+             help="seconds after arming before the partition opens"),
+        _arg("--partition-for", type=float, default=10.0,
+             dest="partition_for",
+             help="partition duration in seconds (0 = until "
+                  "%%dist_chaos off — allowed with --side coordinator "
+                  "only: a worker-side plan can't be cleared across "
+                  "the link it cuts)"),
+        _arg("--link-latency", type=float, default=0.0,
+             dest="link_latency",
+             help="added per-frame delay on the --link-hosts pair"),
+        _arg("--link-loss", type=float, default=0.0, dest="link_loss",
+             help="per-frame drop probability on the --link-hosts "
+                  "pair"),
+        _arg("--link-hosts", default=None, dest="link_hosts",
+             help="host pair 'hostA,hostB' for --link-latency/"
+                  "--link-loss ('*,hostB' matches any peer)"),
+        _arg("--corrupt", default=None,
+             help="param-leaf path substring to corrupt on "
+                  "--corrupt-rank at --corrupt-step ('*' = first "
+                  "leaf); fires inside the rank's guarded train loop"),
+        _arg("--corrupt-rank", type=int, default=None,
+             dest="corrupt_rank",
+             help="rank whose params --corrupt damages"),
+        _arg("--corrupt-step", type=int, default=1, dest="corrupt_step",
+             help="guarded-step index at which the corruption fires "
+                  "(one-shot, >= semantics)"),
+        _arg("--corrupt-mode", default="bitflip",
+             choices=["bitflip", "scale"], dest="corrupt_mode",
+             help="bitflip: XOR seeded bits; scale: multiply a "
+                  "seeded contiguous slice by --corrupt-scale"),
+        _arg("--corrupt-bits", type=int, default=1, dest="corrupt_bits",
+             help="bits to flip in bitflip mode"),
+        _arg("--corrupt-scale", type=float, default=4.0,
+             dest="corrupt_scale",
+             help="multiplier for scale mode"),
+        _arg("--corrupt-count", type=int, default=1,
+             dest="corrupt_count",
+             help="elements the scale-mode slice covers"),
+    ),
+    "dist_profile": _parser(
+        "dist_profile",
+        _arg("action", choices=["start", "stop"]),
+        _arg("--log-dir",
+             default=os.path.join(tempfile.gettempdir(), "nbd_profile"),
+             help="per-worker trace dir (suffixed with the rank)"),
+    ),
+    "dist_trace": _parser(
+        "dist_trace",
+        _arg("action", nargs="?", default="status",
+             choices=["start", "stop", "save", "status"]),
+        _arg("path", nargs="?", default="nbd_trace.json",
+             help="output file for `save` (Chrome-trace JSON; load in "
+                  "ui.perfetto.dev)"),
+    ),
+    "dist_metrics": _parser(
+        "dist_metrics",
+        _arg("--prom", action="store_true",
+             help="print Prometheus exposition text instead of the "
+                  "summary"),
+        _arg("--save", default=None,
+             help="also write the full JSON snapshot (coordinator + "
+                  "per-rank) to this path"),
+    ),
+    "dist_lat": _parser(
+        "dist_lat",
+        _arg("--last", type=int, default=0,
+             help="also render a waterfall for the last N cells"),
+        _arg("--save", default=None,
+             help="write the summary + raw stage records JSON here"),
+    ),
 }
 
 
@@ -309,8 +446,9 @@ class DistributedMagics:
         cls._bg_ckpt_done = set()
 
     # Session-wide pre-dispatch cell-vetting mode: None = resolve the
-    # NBD_LINT knob at use time (%dist_lint, which pins it, is A5.3b).
+    # NBD_LINT knob at use time; %dist_lint warn|strict|off pins it.
     _lint_mode: str | None = None
+    _async_exec = None          # messaging.pipeline.AsyncExecutor | None
 
     _cell_hooks: tuple | None = None
 
@@ -405,6 +543,7 @@ class DistributedMagics:
         # larger) world must not promote a half-written checkpoint in
         # the next one.
         cls._clear_bg_ckpt()
+        cls._async_exec = None
         cls._comm = None
         cls._pm = None
         cls._world = 0
@@ -460,6 +599,10 @@ class DistributedMagics:
         and polls buffers from the main thread; same structure, 30 ms
         cadence instead of 100 ms).  ``repeat``/``until`` ride the
         payload: the worker compiles once and loops k steps."""
+        # A synchronous cell is a sync point for the async window:
+        # every streamed cell completes (and surfaces its errors)
+        # before this one dispatches, so program order stays readable.
+        self._drain_async("synchronous cell")
         comm = self._comm
         assert comm is not None
         disp = display_mod.StreamDisplay()
@@ -732,33 +875,365 @@ class DistributedMagics:
         mode = (_knobs.get_str("NBD_LINT", "warn") or "warn").lower()
         return mode if mode in ("warn", "strict", "off") else "warn"
 
-    def _vet_cell(self, code: str, ranks: list[int]) -> bool:
-        """Vet a cell before ``send_to_ranks``.  Until the analyzer
-        lands (ROADMAP A5.3b), ``warn`` keeps the legacy text check: a
-        cell aimed at a strict subset of the world that names a
-        collective gets the deadlock warning and still dispatches.
-        ``off`` skips it; ``strict`` (blocking on the analyzer's
-        findings) raises."""
+    @staticmethod
+    def _note_effects(code: str) -> None:
+        """Record a dispatched cell's effect footprint in the
+        preflight store: the substrate of the session dependency DAG
+        ``%dist_lint deps`` renders and the async in-flight window
+        consults.  Best effort — effect inference must never break
+        dispatch."""
+        try:
+            from ..analysis import infer_effects, preflight
+            from ..runtime.collective_guard import cell_hash
+            preflight.note_effects(cell_hash(code),
+                                   infer_effects(code))
+        except Exception:
+            pass
+
+    def _vet_cell(self, code: str, ranks: list[int], *,
+                  strict: bool = False) -> bool:
+        """Statically vet a cell BEFORE ``send_to_ranks``:
+        rank-conditional collectives, subset-rankspec collectives,
+        rank-conditional early exits, blocking host syncs in loops,
+        namespace shadowing.  Findings print as inline annotations;
+        error-severity findings block dispatch only under
+        ``--strict`` / ``%dist_lint strict``.  Returns False when the
+        cell must not ship.  Unparseable source NEVER blocks — it
+        degrades to the legacy regex warning for subset cells and
+        dispatches.  Every cell that WILL dispatch also gets its
+        effect footprint recorded (``_note_effects``); ``off`` mode
+        skips analysis entirely, effect tracking included."""
         mode = self._lint_mode_now()
-        if mode == "off":
+        if mode == "off" and not strict:
+            return True  # an explicit per-cell --strict still vets
+        try:
+            from .. import analysis
+            res = analysis.vet_cell(code, ranks=ranks,
+                                    world=self._world)
+        except Exception:
+            return True  # the analyzer must never break dispatch
+        if not res.parsed:
+            if len(ranks) < self._world \
+                    and _COLLECTIVE_TOKENS.search(code):
+                print(f"⚠️ Cell names a collective but targets only "
+                      f"ranks {ranks} of {self._world}. A collective "
+                      "run by a subset deadlocks the mesh; %sync can "
+                      "realign after errors.")
+            # Unparseable cells still dispatch — their footprint is
+            # OPAQUE, which poisons the dependency DAG on purpose.
+            self._note_effects(code)
             return True
-        if mode == "strict":
-            raise _not_ported("strict cell vetting (NBD_LINT=strict)",
-                              "A5.3b")
-        if len(ranks) < self._world and _COLLECTIVE_TOKENS.search(code):
-            print(f"⚠️ Cell names a collective but targets only "
-                  f"ranks {ranks} of {self._world}. A collective "
-                  "run by a subset deadlocks the mesh; %sync can "
-                  "realign after errors.")
+        if not res.findings:
+            self._note_effects(code)
+            return True
+        from ..analysis import preflight
+        from ..observability import flightrec
+        from ..observability import metrics as obs_metrics
+        from ..runtime.collective_guard import cell_hash
+        sha = cell_hash(code)
+        reg = obs_metrics.registry()
+        for f in res.findings:
+            reg.counter("nbd_lint_findings_total",
+                        "pre-dispatch cell-vetting findings",
+                        {"rule": f.rule}).inc()
+            flightrec.record("lint_finding", rule=f.rule,
+                             severity=f.severity, line=f.line,
+                             cell=sha)
+            print(f.render())
+        errors = res.errors
+        if errors and (strict or mode == "strict"):
+            print(f"⛔ cell NOT dispatched: {len(errors)} error-"
+                  f"severity finding(s) under strict vetting — fix "
+                  f"the cell, or loosen with %dist_lint warn (or "
+                  f"drop --strict) to dispatch anyway")
+            return False
+        # Dispatched despite findings: remember them so a later
+        # diagnosis of this cell can cite the pre-flight warning.
+        preflight.note(sha, res.findings)
+        self._note_effects(code)
         return True
+
+    @staticmethod
+    def _render_effects_entry(e: dict, *, verbose: bool) -> str:
+        """One dispatched cell's footprint as a compact line."""
+        col = e.get("collective_verdict", "?")
+        n = len(e.get("collectives") or ())
+        if col == "exact":
+            col = f"exact({n})"
+        flags = []
+        if e.get("opaque"):
+            flags.append("OPAQUE")
+        if e.get("host_sync_in_loop"):
+            flags.append("host-sync-loop")
+        elif e.get("host_sync"):
+            flags.append("host-sync")
+        if e.get("pure"):
+            flags.append("pure")
+
+        def names(key, cap=6):
+            vals = list(e.get(key) or ())
+            if not vals:
+                return "∅"
+            shown = ", ".join(vals[:cap])
+            extra = len(vals) - cap
+            return shown + (f" +{extra}" if extra > 0 else "")
+
+        line = (f"#{e['seq']} {e['sha'][:8]} · collectives={col}"
+                + (f" [{' '.join(flags)}]" if flags else ""))
+        if verbose:
+            line += (f"\n      writes {names('writes')} · mutates "
+                     f"{names('mutates')} · dels {names('deletes')}"
+                     f"\n      reads  {names('reads', 8)}")
+            sites = e.get("collectives") or ()
+            if sites:
+                line += "\n      order  " + " → ".join(
+                    f"{s['op']}@L{s['line']}"
+                    + (f"(via {s['via']})" if s.get("via") else "")
+                    for s in sites[:8])
+            for t in (e.get("taints") or ())[:3]:
+                line += f"\n      ? {t}"
+            for r in (e.get("opaque_reasons") or ())[:3]:
+                line += f"\n      ! {r}"
+        return line
+
+    def dist_lint(self, line):
+        """Pre-dispatch SPMD cell vetting: every ``%%distributed`` /
+        ``%%rank`` / auto-distributed cell is AST-analyzed
+        coordinator-side before dispatch — rank-conditional
+        collectives (``if rank == 0: dist.all_reduce(t)`` deadlocks
+        the process group), collectives in subset-``%%rank`` cells,
+        rank-conditional ``return``/``break``/``raise`` that desync
+        the collective sequence, blocking host syncs inside loops
+        (``.item()``, ``.cpu()``, ``torch.cuda.synchronize()``,
+        printing device values), and shadowed framework names.
+        ``%dist_lint warn`` (default) annotates, ``strict`` blocks
+        error-severity cells, ``off`` disables; the NBD_LINT env knob
+        sets the session default, and ``%%distributed --strict`` arms
+        strict for one cell.  Never blocks on unparseable source.
+
+        ``%dist_lint effects`` lists each dispatched cell's inferred
+        effect footprint (reads/writes, ordered collective sites,
+        opacity); ``%dist_lint deps`` renders the session cell
+        dependency DAG (RAW/WAR/WAW hazard edges) — the gate of the
+        async window; ``--dot`` emits it as Graphviz dot.
+
+        ``%dist_lint self`` (the framework's self-lint over its own
+        tree) is not ported yet: it raises, naming ROADMAP A5.7."""
+        args = _parse("dist_lint", line)
+        if args.command == "self":
+            raise _not_ported("%dist_lint self", "A5.7")
+        if args.command in ("deps", "effects"):
+            from ..analysis import preflight
+            entries = preflight.effects_log()
+            if not entries:
+                print("🔎 no dispatched cells recorded this session "
+                      "(effect footprints are captured at dispatch; "
+                      "%dist_lint off disables them)")
+                return
+            if args.command == "effects":
+                print(f"🔎 effect footprints — {len(entries)} "
+                      f"dispatched cell(s), oldest first:")
+                for e in entries:
+                    print("  " + self._render_effects_entry(
+                        e, verbose=True))
+                return
+            dag = preflight.deps_dag()
+            if args.dot:
+                print(preflight.dag_to_dot(dag))
+                return
+            by_dst: dict = {}
+            for edge in dag["edges"]:
+                by_dst.setdefault(edge["dst"], []).append(edge)
+            print(f"🔎 cell dependency DAG — {len(dag['nodes'])} "
+                  f"cell(s), {len(dag['edges'])} write→read edge(s):")
+            for e in dag["nodes"]:
+                print("  " + self._render_effects_entry(
+                    e, verbose=False))
+                for edge in by_dst.get(e["seq"], ()):
+                    names = ", ".join(edge["names"][:6])
+                    extra = len(edge["names"]) - 6
+                    if extra > 0:
+                        names += f" +{extra}"
+                    print(f"      ← #{edge['src']} via {{{names}}}")
+            if not dag["edges"]:
+                print("   (no edges: every recorded cell is "
+                      "independent — safe to overlap)")
+            return
+        if args.command == "status":
+            mode = self._lint_mode_now()
+            src = ("pinned by %dist_lint"
+                   if DistributedMagics._lint_mode is not None
+                   else "from NBD_LINT / default")
+            print(f"🔎 cell vetting: {mode} ({src})")
+            from ..observability import metrics as obs_metrics
+            counters = obs_metrics.registry().to_json()["counters"]
+            found = {k: v for k, v in counters.items()
+                     if k.startswith("nbd_lint_findings_total")}
+            if found:
+                print("   findings this session:")
+                for k in sorted(found):
+                    rule = k.split('rule="')[-1].rstrip('"}')
+                    print(f"   · {rule}: {found[k]:.0f}")
+            else:
+                print("   no findings this session")
+            return
+        DistributedMagics._lint_mode = args.command
+        verb = {"strict": "ON (strict — error-severity cells are "
+                          "blocked pre-dispatch)",
+                "warn": "ON (annotate only)",
+                "off": "OFF"}[args.command]
+        print(f"✅ cell vetting {verb}")
+
+    # ==================================================================
+    # async pipelined execution
+
+    @classmethod
+    def _async_window_armed(cls) -> bool:
+        """Session-wide async mode: NBD_ASYNC_WINDOW > 0 makes every
+        %%distributed cell stream through the window by default
+        (--sync opts out per cell)."""
+        return _knobs.get_int("NBD_ASYNC_WINDOW", 0) > 0
+
+    def _ensure_async_executor(self):
+        """The lazily-built AsyncExecutor over the live comm.  One per
+        fleet: reset_class_state/shutdown_all drop it with the comm."""
+        cls = DistributedMagics
+        ex = cls._async_exec
+        if ex is not None and ex.comm is self._comm:
+            return ex
+        from ..messaging.pipeline import AsyncExecutor
+        ex = AsyncExecutor(
+            self._comm,
+            on_hold=lambda reason: print(f"⧗ held: {reason} — "
+                                         "waiting for the window"),
+            on_result=self._async_cell_done)
+        cls._async_exec = ex
+        return ex
+
+    @staticmethod
+    def _async_cell_done(cell) -> None:
+        """Executor completion hook (IO thread): surface an async
+        cell's ERROR the moment its reply lands — stdout already
+        streamed live; a quiet success needs no echo, a silent error
+        would vanish."""
+        fut = cell.future
+        if fut.state == "error" and not fut.consumed:
+            fut.consumed = True
+            print(f"\n✗ async cell #{fut.seq}: {fut.error}")
+
+    def _warn_unconsumed_async(self) -> None:
+        """The next-cell warn pass (the proxy-future consumption
+        contract): errored futures nobody inspected are announced
+        once instead of vanishing."""
+        ex = DistributedMagics._async_exec
+        if ex is None:
+            return
+        for fut in ex.unconsumed_errors():
+            print(f"⚠️ async cell #{fut.seq} errored un-inspected: "
+                  f"{fut.error} (.result() on its handle re-raises)")
+
+    def _drain_async(self, why: str,
+                     timeout: float | None = None) -> list:
+        """Drain the in-flight window (the sync points: a synchronous
+        cell, %sync, %dist_wait, %dist_shutdown, %dist_reset).
+        Errors surface here — rendered once, futures marked
+        consumed."""
+        ex = DistributedMagics._async_exec
+        if ex is None or ex.depth == 0:
+            return []
+        depth = ex.depth
+        print(f"⧗ draining async window ({depth} in flight) — {why}")
+        try:
+            futures = ex.drain(timeout)
+        except KeyboardInterrupt:
+            print("🛑 drain interrupted — cells keep running on the "
+                  "workers; %dist_wait to re-drain")
+            return []
+        for fut in futures:
+            if fut.state == "error" and not fut.consumed:
+                fut.consumed = True
+                print(f"✗ async cell #{fut.seq}: {fut.error}")
+        return futures
+
+    def dist_wait(self, line):
+        """Drain the async in-flight window: block until every
+        ``%%distributed --async`` / ``NBD_ASYNC_WINDOW``-streamed cell
+        has completed, render any errors, and refresh the IDE
+        proxies.  The explicit sync point of async pipelined
+        execution — a synchronous cell or ``%sync`` drains
+        implicitly."""
+        args = _parse("dist_wait", line)
+        ex = DistributedMagics._async_exec
+        if ex is None or ex.depth == 0:
+            snap = ex.snapshot() if ex is not None else {}
+            done = snap.get("completed", 0)
+            print("✅ async window empty"
+                  + (f" · {done} cell(s) completed this session, "
+                     f"{snap.get('errored', 0)} errored"
+                     if done else ""))
+            return
+        futures = self._drain_async("%dist_wait", args.timeout)
+        still = [f for f in futures if not f.done]
+        ok = sum(1 for f in futures if f.state == "done")
+        err = sum(1 for f in futures if f.state == "error")
+        print(f"✅ drained {ok} cell(s)"
+              + (f" · {err} errored" if err else "")
+              + (f" · {len(still)} still in flight (--timeout hit)"
+                 if still else ""))
+        if not still and self._running():
+            self._sync_ide_quietly()
+
+    def _run_async(self, code: str, ranks: list[int], *,
+                   repeat=None, until=None, vet_s=None):
+        """Submit one cell through the async window and return its
+        CellFuture (the cell magic's return value — IPython's display
+        hook echoes the pending handle; the executor resolves it when
+        the replies land)."""
+        from ..analysis import preflight
+        from ..runtime.collective_guard import cell_hash
+        sha = cell_hash(code)
+        # The entry _note_effects just recorded for THIS cell — the
+        # admission gate's footprint (None → treated opaque, which
+        # drains the window and serializes; %dist_lint off lands here
+        # on purpose: no proofs, no overlap).
+        entry = preflight.effects_for(sha)
+        ex = self._ensure_async_executor()
+        # The timeline row records the SUBMISSION (per-rank durations
+        # live on the future; the row closes immediately — an async
+        # cell must not look like a still-running cell forever).
+        rec = self._timeline.start(code, ranks, kind="async")
+        self._timeline.finish(rec, None)
+        try:
+            fut = ex.submit_cell(
+                code, ranks, entry=entry, sha=sha, repeat=repeat,
+                until=until, vet_s=vet_s)
+        except KeyboardInterrupt:
+            print("🛑 interrupted while held at the window gate — "
+                  "nothing was submitted (%dist_wait drains the "
+                  "window)")
+            return None
+        except Exception as e:
+            print(f"❌ async submit failed: {type(e).__name__}: {e}")
+            return None
+        snap = ex.snapshot()
+        print(f"⧗ async cell #{fut.seq} streamed to ranks {ranks} "
+              f"(window {snap['depth']}/{snap['window']}"
+              + (f", collective stream held by "
+                 f"#{snap['collective_holder']}"
+                 if snap.get("collective_holder") is not None else "")
+              + ") — %dist_wait drains")
+        return fut
 
     # ==================================================================
     # execution magics
 
     def distributed(self, line, cell):
         """Run the cell on every worker (reference: magic.py:1042-1129).
-        ``--repeat K [--until EXPR]`` compiles once and loops
-        worker-side."""
+        ``--async`` streams the cell through the bounded in-flight
+        window and returns a pending future; ``--strict`` blocks it on
+        an error-severity finding; ``--repeat K [--until EXPR]``
+        compiles once and loops worker-side."""
+        self._warn_unconsumed_async()
         if not self._require_cluster():
             return
         try:
@@ -766,16 +1241,13 @@ class DistributedMagics:
         except Exception as e:
             print(f"❌ {e}")
             return
-        if args.strict or args.use_async or args.use_sync:
-            raise _not_ported("%%distributed --strict/--async/--sync",
-                              "A5.3b")
-        if _knobs.get_int("NBD_ASYNC_WINDOW", 0) > 0:
-            raise _not_ported("the async window (NBD_ASYNC_WINDOW)",
-                              "A5.3b")
         if args.deadline is not None:
             raise _not_ported("%%distributed --deadline", "A5.4")
         if args.priority is not None:
             raise _not_ported("%%distributed --priority", "A5.6")
+        if args.use_async and args.use_sync:
+            print("❌ choose one of --async / --sync")
+            return
         if args.until is not None:
             # IPython's non-posix arg_split keeps quote chars inside
             # the token: without the strip, --until 'loss < 0.1'
@@ -794,8 +1266,20 @@ class DistributedMagics:
             print("❌ --repeat needs K >= 1")
             return
         t_vet = time.monotonic()
-        if not self._vet_cell(cell, list(range(self._world))):
+        if not self._vet_cell(cell, list(range(self._world)),
+                              strict=args.strict):
             return
+        use_async = (args.use_async
+                     or (self._async_window_armed()
+                         and not args.use_sync))
+        if use_async:
+            # The window path: return the pending future — IPython's
+            # display hook echoes it; the executor resolves it when
+            # the replies land.  Its admission gate consults the
+            # footprint _vet_cell just recorded.
+            return self._run_async(
+                cell, list(range(self._world)), repeat=args.repeat,
+                until=args.until, vet_s=time.monotonic() - t_vet)
         result = self._run_on_ranks(cell, list(range(self._world)),
                                     kind="distributed",
                                     vet_s=time.monotonic() - t_vet,
@@ -807,6 +1291,7 @@ class DistributedMagics:
     def rank(self, line, cell):
         """Run the cell on selected ranks: ``%%rank [0,2]`` / ``[0-2]``
         (reference: magic.py:1476-1565)."""
+        self._warn_unconsumed_async()
         if not self._require_cluster():
             return
         try:
@@ -814,6 +1299,10 @@ class DistributedMagics:
         except rankspec.RankSpecError as e:
             print(f"❌ {e}")
             return
+        # Pre-dispatch vetting with the SUBSET context armed: the
+        # analyzer upgrades the old regex warning to real findings
+        # (calls = error under strict, bare references = warning) and
+        # falls back to the regex only for unparseable source.
         t_vet = time.monotonic()
         if not self._vet_cell(cell, ranks):
             return
@@ -862,9 +1351,12 @@ class DistributedMagics:
             pass  # a busy/aborting worker answers the probe late; fine
 
     def sync(self, line):
-        """Barrier across all workers (reference: magic.py:1567-1587)."""
+        """Barrier across all workers (reference: magic.py:1567-1587).
+        Also a sync point for the async window: in-flight streamed
+        cells drain (and surface their errors) before the barrier."""
         if not self._require_cluster():
             return
+        self._drain_async("%sync barrier")
         try:
             self._comm.send_to_all("sync", timeout=120)
             print(f"✅ All {self._world} workers synchronized")
@@ -1020,6 +1512,34 @@ class DistributedMagics:
             from ..observability import latency as lat_mod
             for w in lat_mod.skew_warnings(self._comm.clock.stats()):
                 print(w)
+        ex = DistributedMagics._async_exec
+        if ex is not None:
+            snap = ex.snapshot()
+            if snap["depth"]:
+                holder = snap.get("collective_holder")
+                print(f"⧗ async window: {snap['depth']}/"
+                      f"{snap['window']} in flight"
+                      + (f" · collective stream held by cell "
+                         f"#{holder}" if holder is not None
+                         else " · all proven collective-free"))
+                for c in snap["cells"]:
+                    print(f"   #{c['seq']} {c['sha'] or '?'} · "
+                          f"{c['collective']} · {c['age_s']}s in "
+                          f"flight · {c['state']}")
+            elif snap["submitted"]:
+                print(f"⧗ async window idle · {snap['completed']} "
+                      f"cell(s) completed"
+                      + (f", {snap['errored']} errored"
+                         if snap["errored"] else "")
+                      + (f", held {snap['held_total']}×"
+                         if snap["held_total"] else ""))
+        plan = self._comm.fault_plan() if self._comm is not None else None
+        if plan is not None:
+            print(f"💥 chaos active (coordinator side): {plan.counters}")
+        if self._comm is not None and self._comm.tracer.enabled:
+            print(f"📡 span trace active: {len(self._comm.tracer)} "
+                  f"coordinator spans — %dist_trace save <path> / "
+                  f"%dist_trace stop")
 
     def dist_logs(self, line):
         """Tail the raw process stdio of worker(s) — output that
@@ -1454,34 +1974,520 @@ class DistributedMagics:
         return ok
 
     # ==================================================================
+    # fault injection, profiling, tracing, metrics, latency, telemetry
+
+    def dist_chaos(self, line):
+        """Deterministic fault injection on the live control plane:
+        ``%dist_chaos on --drop 0.1 --seed 7`` / ``off`` / ``status``.
+        The same knobs drive tests through the NBD_FAULT_PLAN env spec;
+        pair with retries (NBD_RETRY_TIMEOUT_S) so a lost frame is
+        redelivered instead of surfacing as a timeout."""
+        from ..resilience.faults import FaultPlan
+        args = _parse("dist_chaos", line)
+        if not self._require_cluster():
+            return
+        if args.command == "off":
+            self._comm.set_fault_plan(None)
+            try:
+                resps = self._comm.send_to_all(
+                    "chaos", {"action": "clear"}, timeout=30)
+                for r in sorted(resps):
+                    c = resps[r].data.get("counters")
+                    if c:
+                        print(f"🔹 rank {r} injected: {c}")
+            except Exception as e:
+                print(f"⚠️ worker-side clear failed: {e}")
+            print("✅ chaos off")
+            return
+        if args.command == "status":
+            plan = self._comm.fault_plan()
+            print(f"coordinator side: "
+                  f"{plan.counters if plan else 'off'}")
+            try:
+                resps = self._comm.send_to_all(
+                    "chaos", {"action": "status"}, timeout=30)
+                for r in sorted(resps):
+                    d = resps[r].data
+                    print(f"🔹 rank {r}: {d.get('status')} "
+                          f"counters={d.get('counters')} "
+                          f"dedup_hits={d.get('dedup_hits')}")
+            except Exception as e:
+                print(f"⚠️ worker-side status failed: {e}")
+            return
+        # Reconfiguring while chaos is active: clear the coordinator
+        # plan FIRST (like the 'off' path) so the arming broadcast
+        # below doesn't have to fight the outgoing fault schedule it
+        # replaces.
+        self._comm.set_fault_plan(None)
+        spec = {"seed": args.seed, "drop": args.drop,
+                "delay_p": args.delay_p, "delay_s": args.delay_s,
+                "duplicate": args.duplicate, "truncate": args.truncate,
+                "freeze_heartbeat": args.freeze_heartbeats}
+
+        def _host_pair(raw: str) -> list[str] | None:
+            # Non-posix arg_split keeps quote chars inside the token.
+            raw = raw.strip().strip("'\"")
+            pair = [h.strip() for h in raw.split(",") if h.strip()]
+            if len(pair) != 2:
+                print(f"❌ host pair must be 'hostA,hostB', got {raw!r}")
+                return None
+            return pair
+
+        links = []
+        if args.partition:
+            pair = _host_pair(args.partition)
+            if pair is None:
+                return
+            if not args.partition_for and args.side != "coordinator":
+                # An open-ended partition shipped to the WORKERS can
+                # never be cleared: `%dist_chaos off` cannot traverse
+                # the link the plan itself blackholes.
+                print("❌ --partition-for 0 (until cleared) is "
+                      "coordinator-side only — the 'off' that would "
+                      "clear a worker-side plan can't cross the "
+                      "partition. Use --side coordinator, or give a "
+                      "finite --partition-for.")
+                return
+            links.append({"hosts": pair,
+                          "after_s": args.partition_after,
+                          "for_s": args.partition_for})
+        if args.link_latency or args.link_loss:
+            if not args.link_hosts:
+                print("❌ --link-latency/--link-loss need --link-hosts "
+                      "'hostA,hostB' to name the link")
+                return
+            pair = _host_pair(args.link_hosts)
+            if pair is None:
+                return
+            links.append({"hosts": pair,
+                          "latency_s": args.link_latency,
+                          "loss": args.link_loss})
+        if links:
+            known = set((self._pm.hosts or {}).values()) | {"local", "*"}
+            for lk in links:
+                unknown = set(lk["hosts"]) - known
+                if unknown:
+                    print(f"⚠️ link hosts {sorted(unknown)} are not in "
+                          f"this world's host map {sorted(known)} — "
+                          "the spec will match nothing")
+            spec["links"] = links
+        corrupt = None
+        if args.corrupt is not None:
+            if args.corrupt_rank is None:
+                print("❌ --corrupt needs --corrupt-rank to name the "
+                      "rank whose params get damaged")
+                return
+            from ..resilience.faults import CorruptSpec
+            try:
+                # Build the real CorruptSpec (validation) and ship its
+                # spec() — the same dict FaultPlan.from_spec rebuilds.
+                corrupt = CorruptSpec(
+                    rank=args.corrupt_rank, step=args.corrupt_step,
+                    name=args.corrupt.strip().strip("'\""),
+                    mode=args.corrupt_mode, bits=args.corrupt_bits,
+                    scale=args.corrupt_scale,
+                    count=args.corrupt_count).spec()
+            except (TypeError, ValueError) as e:
+                print(f"❌ bad --corrupt spec: {e}")
+                return
+            if args.side == "coordinator":
+                print("⚠️ --corrupt ignored: corruption fires inside "
+                      "the workers' guarded train loop, but --side "
+                      "coordinator never ships them a plan")
+                corrupt = None
+        kill_armed = (args.kill_rank is not None
+                      and args.side in ("worker", "both"))
+        if args.kill_rank is not None and not kill_armed:
+            print("⚠️ --kill-rank ignored: the kill arms on workers, "
+                  "but --side coordinator never ships them a plan")
+        if args.freeze_heartbeats and args.side == "coordinator":
+            print("⚠️ --freeze-heartbeats ignored: only the worker "
+                  "heartbeat loop consults it, but --side coordinator "
+                  "never ships workers a plan")
+        if args.side in ("worker", "both"):
+            wspec = dict(spec)
+            if kill_armed:
+                wspec["kill_rank"] = args.kill_rank
+                wspec["kill_at"] = args.kill_at or 1
+            if corrupt is not None:
+                wspec["corrupt"] = [corrupt]
+            try:
+                self._comm.send_to_all("chaos", {"action": "set",
+                                                 "spec": wspec},
+                                       timeout=30)
+            except Exception as e:
+                print(f"❌ arming worker-side chaos failed: {e}")
+                return
+        if args.side in ("coordinator", "both"):
+            # Different stream than the workers' (offset seed) so the
+            # two directions don't mirror each other's decisions.
+            cspec = dict(spec)
+            cspec["seed"] = args.seed + 1
+            self._comm.set_fault_plan(FaultPlan.from_spec(cspec))
+        warn = (" · ⚠ no retry policy on this manager — lost frames "
+                "only surface as timeouts"
+                if not self._comm.retry.enabled() else "")
+        print(f"💥 chaos ON ({args.side}): {spec}"
+              + (f" · kill rank {args.kill_rank} at msg "
+                 f"{args.kill_at or 1}" if kill_armed else "")
+              + (f" · corrupt rank {corrupt['rank']} step "
+                 f"{corrupt['step']} {corrupt['mode']} "
+                 f"{corrupt['name']!r}" if corrupt else "") + warn)
+
+    def dist_profile(self, line):
+        """``torch.profiler`` traces on every worker (CPU ops and, on
+        a GPU rank, CUDA kernels): ``start``, run cells, ``stop``;
+        each rank writes ``<log-dir>/rank<r>/trace.json``, a Chrome
+        trace Perfetto opens."""
+        if not self._require_cluster():
+            return
+        args = _parse("dist_profile", line)
+        try:
+            # One broadcast; each worker suffixes its own rank directory.
+            self._comm.send_to_all(
+                "profile", {"action": args.action,
+                            "log_dir": args.log_dir}, timeout=60)
+        except Exception as e:
+            print(f"❌ profile {args.action} failed: {e}")
+            return
+        if args.action == "start":
+            print(f"🔬 profiling started → {args.log_dir}/rank*/")
+        else:
+            print(f"🔬 profiling stopped; traces in {args.log_dir}/rank*/")
+
+    def dist_trace(self, line):
+        """Cross-rank span tracing: ``%dist_trace start`` records
+        coordinator spans around every request and worker spans around
+        handler dispatch / cell execution / checkpoints / eager
+        collectives, all under ONE trace id propagated in the wire
+        envelope; ``save`` merges coordinator + all ranks onto the
+        coordinator's timebase (per-rank clock offsets estimated from
+        request RTTs) into one Perfetto-loadable file, with any active
+        fault plan's decisions folded in as instant events.  Off by
+        default with near-zero overhead."""
+        if not self._require_cluster():
+            return
+        args = _parse("dist_trace", line)
+        comm = self._comm
+        tr = comm.tracer
+        if args.action == "start":
+            import uuid
+            tid = uuid.uuid4().hex[:16]
+            try:
+                # Workers first (adopting the shared trace id), so the
+                # coordinator never stamps a request that lands on a
+                # not-yet-tracing worker.
+                comm.send_to_all("trace", {"action": "start",
+                                           "trace_id": tid}, timeout=30)
+            except Exception as e:
+                print(f"❌ starting worker tracers failed: {e}")
+                return
+            tr.start(trace_id=tid)
+            print(f"📡 tracing ON (trace {tid}) — run cells, then "
+                  f"%dist_trace save <path>")
+            return
+        if args.action == "stop":
+            n = tr.stop()
+            try:
+                resps = comm.send_to_all("trace", {"action": "stop"},
+                                         timeout=30)
+                per_rank = {r: resps[r].data.get("spans")
+                            for r in sorted(resps)}
+            except Exception as e:
+                per_rank = f"<worker stop failed: {e}>"
+            print(f"📡 tracing OFF — buffered spans: coordinator {n}, "
+                  f"workers {per_rank} (%dist_trace save still works)")
+            return
+        if args.action == "status":
+            state = "ON" if tr.enabled else "off"
+            print(f"coordinator: tracing {state}, {len(tr)} spans "
+                  f"buffered"
+                  + (f", trace {tr.trace_id}" if tr.trace_id else ""))
+            try:
+                resps = comm.send_to_all("trace", {"action": "status"},
+                                         timeout=30)
+                for r in sorted(resps):
+                    d = resps[r].data
+                    print(f"🔹 rank {r}: {d.get('status')} "
+                          f"({d.get('spans', 0)} spans)")
+            except Exception as e:
+                print(f"⚠️ worker-side status failed: {e}")
+            return
+        # save: collect per-rank dumps + fault events, merge on the
+        # coordinator's timebase, write one Chrome-trace JSON.
+        from ..observability import export as obs_export
+        try:
+            resps = comm.send_to_all("trace", {"action": "dump"},
+                                     timeout=120)
+        except Exception as e:
+            print(f"❌ collecting worker traces failed: {e}")
+            return
+        rank_dumps = {r: m.data.get("trace") or {}
+                      for r, m in resps.items()}
+        rank_faults = {r: m.data.get("fault_events") or []
+                       for r, m in resps.items()}
+        plan = comm.fault_plan()
+        cdump = tr.dump()
+        offsets = comm.clock.offsets()
+        merged = obs_export.merge_trace(
+            cdump, rank_dumps, offsets,
+            coordinator_faults=plan.events() if plan is not None else [],
+            rank_faults=rank_faults)
+        try:
+            n = obs_export.save_trace(args.path, merged)
+        except OSError as e:
+            print(f"❌ could not write {args.path}: {e}")
+            return
+        n_spans = {r: len(d.get("spans", [])) for r, d in
+                   sorted(rank_dumps.items())}
+        offs = {r: round(o * 1e3, 3) for r, o in sorted(offsets.items())}
+        print(f"✅ {n} events → {args.path} (coordinator "
+              f"{len(cdump['spans'])} spans, ranks {n_spans}, "
+              f"clock offsets {offs} ms) — load in ui.perfetto.dev")
+
+    def dist_metrics(self, line):
+        """One coherent view of the session's metrics: wire messages /
+        bytes, retries, dedup hits, cell and collective durations,
+        fault injections — from the coordinator's registry and every
+        rank's, with resilience counters mirrored in at snapshot
+        time."""
+        if not self._require_cluster():
+            return
+        args = _parse("dist_metrics", line)
+        comm = self._comm
+        from ..observability import flightrec as _flightrec
+        from ..observability import latency as _lat_mod
+        from ..observability import metrics as obs_metrics
+        reg = obs_metrics.registry()
+        # Mirror coordinator-side resilience state into the registry so
+        # the export is self-contained — including the flight ring's
+        # health and the clock estimator's per-rank offsets.
+        _flightrec.export_health(reg)
+        _lat_mod.export_clock_metrics(comm.clock, reg)
+        now = time.time()
+        for r in comm.connected_ranks():
+            seen = comm.last_seen(r)
+            if seen is not None:
+                reg.gauge("nbd_heartbeat_staleness_seconds",
+                          "seconds since this rank was last heard",
+                          {"rank": str(r)}).set(round(now - seen, 3))
+        plan = comm.fault_plan()
+        if plan is not None:
+            for action, c in plan.counters.items():
+                reg.gauge("nbd_fault_injections",
+                          "fault-plan decisions by action",
+                          {"action": action}).set(c)
+        try:
+            resps = comm.send_to_all(
+                "metrics",
+                {"format": "prometheus" if args.prom else "json"},
+                timeout=30)
+        except Exception as e:
+            print(f"❌ metrics fetch failed: {e}")
+            return
+        if args.prom:
+            print("── coordinator ──")
+            print(reg.prometheus_text(), end="")
+            for r in sorted(resps):
+                print(f"── rank {r} ──")
+                print(resps[r].data.get("text", ""), end="")
+            return
+        coord = reg.to_json()
+        rank_json = {r: resps[r].data.get("metrics", {})
+                     for r in sorted(resps)}
+        if args.save:
+            import json
+            with open(args.save, "w") as f:
+                json.dump({"coordinator": coord,
+                           "ranks": {str(r): v
+                                     for r, v in rank_json.items()}}, f,
+                          indent=1)
+            print(f"✅ full snapshot → {args.save}")
+
+        def _total(snap: dict, name: str) -> float:
+            """Sum every series of ``name`` across counters+gauges."""
+            tot = 0.0
+            for sect in ("counters", "gauges"):
+                for k, v in snap.get(sect, {}).items():
+                    if k == name or k.startswith(name + "{"):
+                        tot += v
+            return tot
+
+        def _hist(snap: dict, name: str) -> tuple[int, float]:
+            count, total = 0, 0.0
+            for k, v in snap.get("histograms", {}).items():
+                if k == name or k.startswith(name + "{"):
+                    count += v.get("count", 0)
+                    total += v.get("sum", 0.0)
+            return count, total
+
+        print(f"📊 coordinator: wire tx/rx "
+              f"{_total(coord, 'nbd_wire_messages_total'):.0f} msgs · "
+              f"{_total(coord, 'nbd_wire_bytes_total') / 1e6:.2f} MB · "
+              f"retries {_total(coord, 'nbd_retries_total'):.0f}")
+        for r in sorted(rank_json):
+            snap = rank_json[r]
+            cells, cell_s = _hist(snap, "nbd_cell_seconds")
+            colls, coll_s = _hist(snap, "nbd_collective_seconds")
+            print(f"🔹 rank {r}: cells {cells} ({cell_s:.2f}s) · "
+                  f"collectives {colls} ({coll_s:.2f}s) · dedup "
+                  f"{_total(snap, 'nbd_dedup_hits'):.0f} · wire "
+                  f"{_total(snap, 'nbd_wire_messages_total'):.0f} msgs "
+                  f"{_total(snap, 'nbd_wire_bytes_total') / 1e6:.2f} MB"
+                  + (f" · faults "
+                     f"{_total(snap, 'nbd_fault_injections'):.0f}"
+                     if _total(snap, "nbd_fault_injections") else "")
+                  + (f" · parked "
+                     f"{_total(snap, 'nbd_mailbox_parked'):.0f}"
+                     if _total(snap, "nbd_mailbox_parked") else "")
+                  + (f" · orphan transitions "
+                     f"{_total(snap, 'nbd_orphan_transitions'):.0f}"
+                     if _total(snap, "nbd_orphan_transitions") else ""))
+
+    def dist_lat(self, line):
+        """The latency observatory: WHERE each cell's wall-clock went,
+        as eight contiguous stages (vet → queue → wire → dispatch →
+        compile → execute → reply → deliver) stamped by the
+        coordinator and workers and clock-corrected onto one
+        timebase.  Default: per-stage p50/p95/p99 table over the
+        recent-cells ring (``NBD_LAT_RING``); ``--last N`` adds an
+        ASCII waterfall per cell.  ``NBD_LAT=0`` disables stamping
+        entirely."""
+        args = _parse("dist_lat", line)
+        from ..observability import latency as lat_mod
+        if self._comm is None:
+            print("❌ No cluster. %dist_init first.")
+            return
+        block = self._comm.lat.status_block(records=max(args.last, 32))
+        print(lat_mod.format_stage_table(block.get("summary") or {}))
+        if args.last:
+            recs = (block.get("records") or [])[-args.last:]
+            print(lat_mod.format_waterfall(recs))
+        if args.save:
+            import json
+            with open(args.save, "w") as f:
+                json.dump(block, f, indent=1)
+            print(f"✅ latency snapshot → {args.save}")
+
+    @staticmethod
+    def _fmt_gb(n) -> str:
+        return "-" if n is None else f"{n / 1e9:.2f}"
+
+    def dist_top(self, line):
+        """Live per-rank dashboard from the PUSH path: process state,
+        busy cell, heartbeat age, device memory in-use/limit/peak
+        (the CUDA caching allocator's), dedup hits — all read from
+        heartbeat piggybacks and the process table, so it renders
+        instantly even while every worker is busy mid-cell (a
+        ``get_status`` probe would stall behind the serial request
+        loop)."""
+        if self._pm is None or self._comm is None:
+            print("❌ No cluster. %dist_init to start one.")
+            return
+        from ..observability.telemetry import hbm_totals
+        from ..runtime.worker import HEARTBEAT_INTERVAL_S
+        comm, pm = self._comm, self._pm
+        proc = pm.get_status()
+        now = time.time()
+        print(f"⏱  cluster top · {self._world} workers · backend="
+              f"{pm.backend} · {time.strftime('%H:%M:%S')}")
+        # Serving KV column only when some rank reports a decode
+        # server — idle clusters keep the pre-serving layout.
+        kv_seen = any((comm.last_ping(r) or (0, {}))[1].get("srv")
+                      for r in range(self._world))
+        # Guard column only when some rank's ping carries a
+        # TrainGuard snapshot — guard-free sessions keep their layout.
+        guard_seen = any((comm.last_ping(r) or (0, {}))[1].get("tg")
+                         for r in range(self._world))
+        hdr = (f"{'rank':<5}{'state':<11}{'busy':<18}"
+               f"{'hb-age':<8}"
+               f"{'col#':<7}{'HBM use/limit GB':<18}{'peak':<7}"
+               + (f"{'kv':<12}{'frag':<6}" if kv_seen else "")
+               + (f"{'guard':<16}" if guard_seen else "")
+               + f"{'bufs':<6}{'compiles':<9}{'dedup':<6}")
+        print(hdr)
+        print("─" * len(hdr))
+        for r in range(self._world):
+            p = proc.get(r) or {}
+            ping = comm.last_ping(r)
+            tel = comm.last_telemetry(r) or {}
+            if not p.get("running", False):
+                state = f"✖ dead({p.get('returncode')})"
+            elif (ping is not None
+                    and now - ping[0] > 3 * HEARTBEAT_INTERVAL_S):
+                state = "◐ stale"
+            else:
+                state = "● alive"
+            busy = "-"
+            if ping is not None and ping[1].get("busy_s") is not None:
+                busy = (f"{ping[1].get('busy_type')} "
+                        f"{ping[1]['busy_s'] + (now - ping[0]):.1f}s")
+                rep = ping[1].get("rep")
+                if rep:
+                    # Step-loop progress: one dispatch, k steps — the
+                    # per-step view without a probe.
+                    busy = (f"step {rep.get('i')}/{rep.get('k')} "
+                            f"{rep.get('sps', 0)}/s")
+                    if rep.get("last") is not None:
+                        busy += f" {rep['last']:g}"
+            hb = f"{now - ping[0]:.1f}s" if ping is not None else "-"
+            # Collective-stream position (heartbeat piggyback): "#7*"
+            # = entered collective 7 and still inside it — the
+            # cross-rank skew on this column IS the hang signature.
+            col = "-"
+            if ping is not None and ping[1].get("col"):
+                c = ping[1]["col"]
+                col = (f"#{c.get('seq')}"
+                       + ("*" if c.get("in") else ""))
+            hbm = hbm_totals(tel) or {}
+            mem = (f"{self._fmt_gb(hbm.get('in_use'))}"
+                   f"/{self._fmt_gb(hbm.get('limit'))}"
+                   if hbm.get("in_use") is not None else "-")
+            peak = self._fmt_gb(hbm.get("peak"))
+            kvcol = ""
+            if kv_seen:
+                srv = (ping[1].get("srv") or {}) if ping else {}
+                kvb = srv.get("kvb") or ()
+                if len(kvb) == 2:
+                    kvcol = f"{f'{kvb[0]}/{kvb[1]}blk':<12}"
+                elif srv:
+                    kvcol = (f"{srv.get('occ', 0)}"
+                             f"/{srv.get('slots', 0)}")
+                    kvcol = f"{kvcol:<12}"
+                else:
+                    kvcol = f"{'-':<12}"
+                # Fragmentation: the rank's largest contiguous
+                # free-block run.
+                frag = srv.get("frag")
+                kvcol += (f"{frag:<6}" if frag is not None
+                          else f"{'-':<6}")
+            gcol = ""
+            if guard_seen:
+                tg = (ping[1].get("tg") or {}) if ping else {}
+                if tg:
+                    # skips · last audit verdict (· rollbacks / 🔶
+                    # quarantine suspects when present).
+                    g = f"s{tg.get('sk', 0)} {tg.get('v', '?')}"
+                    if tg.get("rb"):
+                        g += f" rb{tg['rb']}"
+                    if tg.get("qr"):
+                        g += f" 🔶{tg['qr']}"
+                    gcol = f"{g:<16}"
+                else:
+                    gcol = f"{'-':<16}"
+            print(f"{r:<5}{state:<11}{busy:<18}{hb:<8}{col:<7}"
+                  f"{mem:<18}"
+                  f"{peak:<7}{kvcol}{gcol}{str(tel.get('bufs', '-')):<6}"
+                  f"{str(tel.get('compiles', '-')):<9}"
+                  f"{str(tel.get('dedup', '-')):<6}")
+        print(f"coordinator: retries sent {comm.retries_sent} · "
+              f"run dir {_knobs.get_str('NBD_RUN_DIR', '(unset)')}")
+
+    # ==================================================================
     # magics of later slices: registered, raising with their entry
 
     def _deferred(self, name: str):
         raise _not_ported(f"%{name}", _DEFERRED[name])
-
-    def dist_lint(self, line):
-        self._deferred("dist_lint")
-
-    def dist_wait(self, line):
-        self._deferred("dist_wait")
-
-    def dist_chaos(self, line):
-        self._deferred("dist_chaos")
-
-    def dist_profile(self, line):
-        self._deferred("dist_profile")
-
-    def dist_trace(self, line):
-        self._deferred("dist_trace")
-
-    def dist_metrics(self, line):
-        self._deferred("dist_metrics")
-
-    def dist_lat(self, line):
-        self._deferred("dist_lat")
-
-    def dist_top(self, line):
-        self._deferred("dist_top")
 
     def dist_heal(self, line):
         self._deferred("dist_heal")
@@ -1631,6 +2637,10 @@ class DistributedMagics:
                                        cls._proxy_registry)
             except Exception:
                 pass
+        # Window futures still pending at teardown resolve through the
+        # handles' death/disconnect aborts; the executor itself dies
+        # with the comm it wraps.
+        cls._async_exec = None
         cls._comm = None
         cls._pm = None
         cls._world = 0
@@ -1670,8 +2680,11 @@ class DistributedMagics:
         ``ProcessManager.shutdown``'s SIGTERM then SIGKILL of each
         rank's process group; unlike the JAX package's, nothing
         pkills every worker on the host, which would take other
-        kernels' fleets with it."""
+        kernels' fleets with it.  Streamed cells still in flight drain
+        first (for at most ``_SHUTDOWN_DRAIN_S``), so their errors
+        surface instead of dying with the fleet."""
         had = self._world
+        self._drain_async("%dist_shutdown", _SHUTDOWN_DRAIN_S)
         token, epoch = self._session_identity()
         self.shutdown_all()
         self._end_durable_session(token, epoch)
@@ -1679,7 +2692,9 @@ class DistributedMagics:
               "shut down")
 
     def dist_reset(self, line):
-        """Full reset for a fresh start (reference: magic.py:963-1003)."""
+        """Full reset for a fresh start (reference: magic.py:963-1003);
+        the async window drains first, as at ``%dist_shutdown``."""
+        self._drain_async("%dist_reset", _SHUTDOWN_DRAIN_S)
         token, epoch = self._session_identity()
         self.shutdown_all()
         self._end_durable_session(token, epoch)

@@ -119,3 +119,34 @@ class TelemetrySampler:
                 pass
         self.last = snap
         return snap
+
+
+def hbm_totals(snapshot: dict | None) -> dict | None:
+    """Sum a snapshot's per-device memory numbers into one
+    ``{"in_use", "peak", "limit", "devices"}`` (bytes) — the per-rank
+    figure ``%dist_top`` shows (a copy of the JAX package's; a port
+    rank owns one GPU, so the sum is that card's).  None when the
+    snapshot carries no memory stats (CPU ranks)."""
+    hbm = (snapshot or {}).get("hbm") or []
+    if not hbm:
+        return None
+    out = {"devices": len(hbm)}
+    for key in ("in_use", "peak", "limit"):
+        vals = [d.get(key) for d in hbm if d.get(key) is not None]
+        out[key] = sum(vals) if vals else None
+    return out
+
+
+def peak_hbm(snapshots) -> dict:
+    """Summarize a sequence of snapshots into per-device peak memory
+    bytes (a trajectory summary; a copy of the JAX package's)."""
+    peaks: dict[str, int] = {}
+    for snap in snapshots:
+        for dev in (snap or {}).get("hbm", ()):
+            for key in ("peak", "in_use"):
+                v = dev.get(key)
+                if v is not None:
+                    did = str(dev.get("id"))
+                    peaks[did] = max(peaks.get(did, 0), v)
+                    break
+    return peaks

@@ -1072,6 +1072,12 @@ class DistributedWorker:
             log_dir, self._profile_dir = self._profile_dir, None
             prof, self._profiler = self._profiler, None
             try:
+                if self.device.type == "cuda":
+                    import torch
+                    # CUDA runs behind the host: a cell's reply leaves
+                    # when its Python returns, so its last kernels may
+                    # still be queued; stop only once they ran.
+                    torch.cuda.synchronize(self.device)
                 prof.stop()
                 os.makedirs(log_dir, exist_ok=True)
                 path = os.path.join(log_dir, "trace.json")

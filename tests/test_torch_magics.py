@@ -1,8 +1,9 @@
 """The port's notebook surface through a real IPython shell: ``%load_ext
 nbdistributed_tpu_torch`` and ``%dist_init -n 2 --backend cpu`` (gloo
 workers), then the counterparts of the JAX package's magic tests
-(``tests/integration/test_magics_e2e.py``), the magics that raise until
-their ROADMAP entry lands, and the refusals of ``%dist_init``.
+(``tests/integration/test_magics_e2e.py``), the vetting, async-window
+and observability magics, the magics that raise until their ROADMAP
+entry lands, and the refusals of ``%dist_init``.
 
 The shell is IPython's process-wide singleton, which another module of
 the same pytest process may have used: the fixture takes it with
@@ -109,13 +110,14 @@ def run(ip, code):
 
 def test_init_banner_names_the_torch_namespace(ip, capsys):
     """The banner of the fixture's %dist_init, re-rendered: the
-    reference's torch namespace and the entries of the magics that
-    raise."""
+    reference's torch namespace, the vetting and async magics, and the
+    entries of the magics that raise."""
     from nbdistributed_tpu_torch.magics.magic import _BANNER
     text = _BANNER.format(n=2, backend="cpu", secs=1.0)
     assert text.startswith("✅ 2 workers ready (backend=cpu, attach 1.0s).")
     for name in ("torch, np, dist", "device, gpu_id", "DecodeServer",
-                 "(A5.3b)", "(A5.4)", "(A5.6)"):
+                 "%dist_wait", "%dist_lint warn|strict|off",
+                 "(A5.4)", "(A5.6)", "%dist_lint self (A5.7)"):
         assert name in text
     assert "jax" not in text.lower()
 
@@ -153,9 +155,15 @@ def test_lint_modes(ip, capsys, monkeypatch):
     monkeypatch.setenv("NBD_LINT", "off")
     run(ip, "%%rank [0]\nalias = all_reduce")
     assert "deadlock" not in capsys.readouterr().out.lower()
+    # Strict blocks an error-severity subset cell before anything
+    # reaches a worker: the marker it would set never exists.
     monkeypatch.setenv("NBD_LINT", "strict")
-    with pytest.raises(NotImplementedError, match="A5.3b"):
-        _magics()._instance.rank("[0]", "alias = all_reduce")
+    run(ip, "%%rank [0]\nstrict_marker = 1\nall_reduce(torch.ones(1))")
+    out = capsys.readouterr().out
+    assert "[subset-collective]" in out and "NOT dispatched" in out, out
+    monkeypatch.setenv("NBD_LINT", "warn")
+    run(ip, "'strict_marker' in dir()")
+    assert capsys.readouterr().out.count("False") == 2
 
 
 def test_sync_magic(ip, capsys):
@@ -323,24 +331,136 @@ def test_repeat_runs_the_cell_k_times_worker_side(ip, capsys):
 
 
 @pytest.mark.parametrize("line,entry", [
-    ("--strict", "A5.3b"), ("--async", "A5.3b"), ("--sync", "A5.3b"),
     ("--deadline 5", "A5.4"), ("--priority 1", "A5.6")])
 def test_distributed_options_of_later_entries_raise(ip, line, entry):
     with pytest.raises(NotImplementedError, match=entry):
         ip.run_cell_magic("distributed", line, "1")
 
 
-def test_async_window_knob_raises(ip, monkeypatch):
+def test_distributed_strict_option(ip, capsys):
+    """``--strict`` runs a clean cell and refuses an error-severity one
+    before dispatch (its marker never reaches a worker)."""
+    ip.run_cell_magic("distributed", "--strict", "strict_ok = rank + 7")
+    run(ip, "strict_ok")
+    assert "7" in capsys.readouterr().out
+    ip.run_cell_magic("distributed", "--strict",
+                      "never_set = 1\nif rank == 0:\n"
+                      "    dist.all_reduce(torch.ones(1))")
+    out = capsys.readouterr().out
+    assert "[rank-conditional-collective]" in out
+    assert "⛔ cell NOT dispatched" in out
+    run(ip, "'never_set' in dir()")
+    assert capsys.readouterr().out.count("False") == 2
+
+
+def test_distributed_async_option(ip, capsys):
+    """``--async`` returns the cell's pending future at once;
+    ``%dist_wait`` drains it and the value is on every rank."""
+    from nbdistributed_tpu_torch.magics.proxies import CellFuture
+    fut = ip.run_cell_magic("distributed", "--async",
+                            "async_v = torch.full((2,), rank + 0.5)")
+    assert isinstance(fut, CellFuture)
+    assert "streamed to ranks [0, 1]" in capsys.readouterr().out
+    ip.run_line_magic("dist_wait", "")
+    assert "✅ drained 1 cell(s)" in capsys.readouterr().out
+    assert fut.state == "done"
+    run(ip, "float(async_v.sum())")
+    out = capsys.readouterr().out
+    assert "1.0" in out and "3.0" in out
+
+
+def test_distributed_sync_option(ip, capsys):
+    """``--sync`` dispatches synchronously (no future); with
+    ``--async`` it is refused."""
+    assert ip.run_cell_magic("distributed", "--sync", "sync_v = 3") is None
+    assert ip.run_cell_magic("distributed", "--async --sync", "1") is None
+    assert "choose one of --async / --sync" in capsys.readouterr().out
+
+
+def test_async_window_knob_streams_cells(ip, capsys, monkeypatch):
+    """``NBD_ASYNC_WINDOW`` streams every ``%%distributed`` cell
+    through the window; a synchronous cell drains it first."""
     monkeypatch.setenv("NBD_ASYNC_WINDOW", "4")
-    with pytest.raises(NotImplementedError, match="A5.3b"):
-        ip.run_cell_magic("distributed", "", "1")
+    fut = ip.run_cell_magic("distributed", "", "knob_v = rank")
+    assert fut is not None and "⧗ async cell" in capsys.readouterr().out
+    ip.run_cell_magic("distributed", "--sync", "knob_w = knob_v + 1")
+    assert fut.done
+    monkeypatch.delenv("NBD_ASYNC_WINDOW")
+    run(ip, "knob_w")
+    out = capsys.readouterr().out
+    assert "1" in out and "2" in out
+
+
+def _trace_pids(path):
+    import json
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e["pid"] for e in events if e.get("ph") == "X"}
+
+
+@pytest.mark.parametrize("name", [
+    "dist_lint", "dist_wait", "dist_chaos", "dist_profile", "dist_trace",
+    "dist_metrics", "dist_lat", "dist_top"])
+def test_vetting_window_and_observability_magics_run(ip, capsys, name,
+                                                      tmp_path):
+    """Each magic of the vetting / async / observability slice runs on
+    the gloo cluster and reports what it read."""
+    if name == "dist_lint":
+        ip.run_line_magic("dist_lint", "status")
+        assert "🔎 cell vetting: warn" in capsys.readouterr().out
+        ip.run_line_magic("dist_lint", "effects")
+        assert "effect footprints" in capsys.readouterr().out
+        ip.run_line_magic("dist_lint", "deps --dot")
+        assert capsys.readouterr().out.startswith("digraph cell_deps")
+    elif name == "dist_wait":
+        ip.run_line_magic("dist_wait", "")
+        assert "✅ async window empty" in capsys.readouterr().out
+    elif name == "dist_chaos":
+        ip.run_line_magic("dist_chaos", "on --duplicate 0.5 --seed 3")
+        assert "💥 chaos ON (both)" in capsys.readouterr().out
+        run(ip, "chaos_n = rank + 20")
+        ip.run_line_magic("dist_chaos", "off")
+        assert "✅ chaos off" in capsys.readouterr().out
+        run(ip, "chaos_n")
+        out = capsys.readouterr().out
+        assert "20" in out and "21" in out
+    elif name == "dist_profile":
+        ip.run_line_magic("dist_profile", f"start --log-dir {tmp_path}")
+        run(ip, "prof_y = torch.ones(8, 8) @ torch.ones(8, 8)")
+        ip.run_line_magic("dist_profile", f"stop --log-dir {tmp_path}")
+        assert "🔬 profiling stopped" in capsys.readouterr().out
+        for r in (0, 1):
+            assert (tmp_path / f"rank{r}" / "trace.json").stat().st_size
+    elif name == "dist_trace":
+        ip.run_line_magic("dist_trace", "start")
+        run(ip, "traced = rank")
+        path = tmp_path / "trace.json"
+        ip.run_line_magic("dist_trace", f"save {path}")
+        ip.run_line_magic("dist_trace", "stop")
+        assert "load in ui.perfetto.dev" in capsys.readouterr().out
+        assert _trace_pids(path) == {-1, 0, 1}
+    elif name == "dist_metrics":
+        ip.run_line_magic("dist_metrics", "")
+        out = capsys.readouterr().out
+        assert "📊 coordinator: wire tx/rx" in out
+        assert "🔹 rank 0: cells" in out and "🔹 rank 1: cells" in out
+    elif name == "dist_lat":
+        ip.run_line_magic("dist_lat", "--last 1")
+        out = capsys.readouterr().out
+        assert "latency observatory" in out and "execute" in out
+    else:
+        ip.run_line_magic("dist_top", "")
+        out = capsys.readouterr().out
+        assert "cluster top · 2 workers · backend=cpu" in out
+        assert "\n0    ● alive" in out and "\n1    ● alive" in out
+
+
+def test_dist_lint_self_raises_naming_a57(ip):
+    with pytest.raises(NotImplementedError,
+                       match=r"%dist_lint self .*ROADMAP A5.7$"):
+        ip.run_line_magic("dist_lint", "self")
 
 
 @pytest.mark.parametrize("name,entry", [
-    ("dist_lint", "A5.3b"), ("dist_wait", "A5.3b"),
-    ("dist_chaos", "A5.3b"), ("dist_profile", "A5.3b"),
-    ("dist_trace", "A5.3b"), ("dist_metrics", "A5.3b"),
-    ("dist_lat", "A5.3b"), ("dist_top", "A5.3b"),
     ("dist_heal", "A5.4"), ("dist_supervise", "A5.4"),
     ("dist_watchdog", "A5.4"), ("dist_doctor", "A5.4"),
     ("dist_postmortem", "A5.4"), ("dist_guard", "A5.4"),

@@ -7,10 +7,16 @@ What the two print is compared line for line.
 
 Capture starts after ``%dist_init``: its banner names each package's
 own worker namespace and is pinned by ``test_torch_magics.py``.  Both
-runs set ``NBD_LINT=off``, so the JAX analyzer's findings (which the
-port gains with ROADMAP A5.3b) print in neither.  A cell that differs
-between the packages is a pair (JAX text, port text); every other cell
-is the same text.  One pair builds ``tiny_config`` (float32) from the
+runs start with ``NBD_LINT=off``; a later section turns the vetting on
+with ``%dist_lint warn`` and ``strict``, where both analyzers' findings
+(cells in the vocabulary the packages share) print identically, and an
+async section streams ``%%distributed --async`` cells, an errored one
+among them, drains them with ``%dist_wait`` and by a synchronous cell.
+The errored cell runs between two cells that sleep, so every future is
+still in flight when IPython echoes it, and the error lands while the
+drain waits, never beside another print.  A cell
+that differs between the packages is a pair (JAX text, port text);
+every other cell is the same text.  One pair builds ``tiny_config`` (float32) from the
 same numpy parameters — pushed with ``%dist_push``, carried into the
 port by ``models/convert.py`` — and runs greedy ``generate``; the
 tokens pulled back with ``%dist_pull`` must be exactly equal.
@@ -127,6 +133,24 @@ TRANSCRIPT = [
     (_JAX_MODEL, _PORT_MODEL),
     "%dist_pull toks",
     "%dist_pull toks --rank 1 --as toks1",
+    "import time",
+    "%dist_lint warn",
+    "%%rank [0]\nalias2 = all_reduce",
+    "for i in range(2):\n    print(x)",
+    "%dist_lint strict",
+    "blocked = 1\nif rank == 0:\n    y = all_reduce(x)",
+    "'blocked' in dir()",
+    "%dist_lint status",
+    "%dist_lint warn",
+    "%%distributed --async\ntime.sleep(1.5)\nasync_a = rank + 1",
+    "%%distributed --async\nraise ValueError('async boom')",
+    "%%distributed --async\ntime.sleep(1.5)\nasync_b = rank * 2",
+    "%dist_wait",
+    "async_a + async_b",
+    "%%distributed --async\ntime.sleep(1.5)\nasync_c = 7",
+    "async_c + rank",
+    "%dist_wait",
+    "%dist_lint off",
 ]
 
 _HEADER = re.compile(r"^🔹 Rank (\d+):$")
@@ -243,5 +267,15 @@ def test_jax_and_port_extensions_print_the_same_transcript(tmp_path):
                      "✅ 2 ranks restored ← {ck}/a",
                      "🔁 3/3 steps", "--until requires --repeat",
                      f"🔹 Rank 1:\n{want_toks}",
-                     "✅ toks = pytree (list) (from rank 0)"):
+                     "✅ toks = pytree (list) (from rank 0)",
+                     "[subset-collective-ref]", "[host-sync-in-loop]",
+                     "[rank-conditional-collective]",
+                     "⛔ cell NOT dispatched", "🔎 cell vetting: strict",
+                     "(window 2/4)", "in flight on ranks [0, 1]",
+                     "✗ async cell #2: async cell #2 errored — rank 0: "
+                     "async boom; rank 1: async boom",
+                     "✅ drained 2 cell(s) · 1 errored",
+                     "draining async window (1 in flight) — synchronous "
+                     "cell", "✅ async window empty · 4 cell(s) "
+                     "completed this session, 1 errored"):
         assert expected in text, expected

@@ -306,17 +306,47 @@ def test_magic_options_parse_as_ipython_parses_them():
     values, on the options the two share."""
     from nbdistributed_tpu.magics.magic import DistributedMagics as Jax
     from IPython.core.magic_arguments import parse_argstring
-    cases = {"dist_pull": "pull_me --rank 1 --as pulled --readonly",
-             "dist_push": "pushed --ranks [0,1]",
-             "dist_checkpoint": "/tmp/ck a b --background",
-             "dist_restore": "/tmp/ck a --ship /tmp/local",
-             "dist_logs": "--ranks [1] -n 5",
-             "dist_mode": "-d", "dist_interrupt": "--ranks [0]",
-             "timeline_save": "tl.json",
-             "distributed": "--repeat 3 --until 'loss < 0.1'"}
-    for name, line in cases.items():
+    cases = [("dist_pull", "pull_me --rank 1 --as pulled --readonly"),
+             ("dist_push", "pushed --ranks [0,1]"),
+             ("dist_checkpoint", "/tmp/ck a b --background"),
+             ("dist_restore", "/tmp/ck a --ship /tmp/local"),
+             ("dist_logs", "--ranks [1] -n 5"),
+             ("dist_mode", "-d"), ("dist_interrupt", "--ranks [0]"),
+             ("timeline_save", "tl.json"),
+             ("distributed", "--repeat 3 --until 'loss < 0.1'"),
+             ("distributed", "--strict --async"),
+             ("distributed", "--sync"),
+             ("dist_lint", "deps --dot"), ("dist_lint", ""),
+             ("dist_wait", "--timeout 5"),
+             ("dist_chaos", "on --drop 0.1 --seed 7 --side worker "
+                            "--kill-rank 1 --kill-at 3 --corrupt 'wq' "
+                            "--corrupt-rank 0 --corrupt-mode scale "
+                            "--link-hosts 'a,b' --link-loss 0.5 "
+                            "--freeze-heartbeats --delay-p 0.2"),
+             ("dist_chaos", "off"),
+             ("dist_profile", "start --log-dir /tmp/p"),
+             ("dist_trace", "save t.json"), ("dist_trace", ""),
+             ("dist_metrics", "--prom --save m.json"),
+             ("dist_lat", "--last 3 --save l.json")]
+    for name, line in cases:
         got = vars(port_magic._parse(name, line))
         want = vars(parse_argstring(getattr(Jax, name), line))
         assert got == {k: want[k] for k in got}, name
     with pytest.raises(port_magic.UsageError, match="unrecognized"):
         port_magic._parse("distributed", "--bogus")
+
+
+def test_memory_totals_as_in_jax():
+    """``%dist_top``'s per-rank memory sum and the trajectory peaks
+    (``observability/telemetry.py``) read snapshots as the JAX
+    package's do."""
+    from nbdistributed_tpu.observability import telemetry as jax_tel
+    from nbdistributed_tpu_torch.observability import telemetry as tel
+    snaps = [None, {}, {"hbm": []},
+             {"hbm": [{"id": 0, "in_use": 5, "peak": 9, "limit": 80}]},
+             {"hbm": [{"id": 0, "in_use": 7, "peak": None, "limit": 80},
+                      {"id": 1, "in_use": 2, "peak": 3, "limit": None}]}]
+    for snap in snaps:
+        assert tel.hbm_totals(snap) == jax_tel.hbm_totals(snap)
+    assert tel.peak_hbm(snaps) == jax_tel.peak_hbm(snaps) == \
+        {"0": 9, "1": 3}
