@@ -263,6 +263,37 @@ Phases (each prints one or more lines; any failure exits non-zero):
    against ``--async`` plus ``%dist_wait``.  Cells go to
    ``chiprun_out/notebook_async_cells_n<ranks>.json``.
 
+25. (run after phase 24) supervision and diagnosis, through the same
+   magics and stand-in shell, a fresh ``%dist_init -n 1 --backend
+   gpu`` with short watchdog thresholds (``NBD_HANG_POLL_S=0.25``,
+   ``_SKEW_S=3``, ``_STALL_S=5``, ``_GRACE_S=2``) and
+   ``NBD_METRICS_PORT`` on a free port: ``/metrics``, ``/healthz`` and
+   ``/latency.json`` scraped while phase 11's step runs as a
+   ``--repeat 8`` cell (the device-memory gauges equal rank 0's
+   heartbeat telemetry, its first loss phase 11's); a cell launching
+   K1 in an endless Python loop caught as a ``stall`` (``%dist_status``
+   showing the rank stalled first), its stacks dumped (the loop's line
+   in ``stacks-rank0.*.txt``) and interrupted (a KeyboardInterrupt
+   reply, the worker alive, ``%dist_doctor`` naming verdict, busy age,
+   stack and flight events, the next step's loss phase 11's, K1/K2/K3
+   60/30/30); ``%%distributed --repeat 28 --deadline 3`` giving a
+   ``deadline`` verdict with losses equal to the same cell's without
+   it; two steps, ``%dist_checkpoint`` of params and optimizer, the
+   uninterrupted steps 3-4, a restore, ``%dist_supervise on`` and rank
+   0 SIGKILLed on step 3's cell (``%dist_chaos --kill-rank 0 --kill-at
+   1``): the postmortem bundle (manifest naming rank 0, its ring ending
+   with the dispatch of that cell, its last memory numbers,
+   ``%dist_postmortem --last``), the auto-heal (respawn, restore,
+   alive → dead → healing → alive, one restart of the budget), the
+   step cell run again and steps 3-4 equal to the uninterrupted ones
+   to the last bit (K1/K2/K3 120/60/60), free card memory before the
+   kill and after the heal, phase 17's requests served on the healed
+   world (streams equal, K4 once per layer per decode step);
+   ``%dist_guard status`` and ``audit`` on phase 22's guarded step;
+   the step's time with the watchdog armed against a world spawned
+   with ``NBD_HANG=0``.  Cells go to
+   ``chiprun_out/supervision_cells_n<ranks>.json``.
+
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
 step (per round: the draft's launches), and their K4 launches join
@@ -274,16 +305,22 @@ mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
 ``train_sp_*``, ``grad_sp_*``, ``train_pp_*``), the dots step's
 (``train_remat_dots``) and phase 22's (``train_guard_*``,
 ``train_checkpoint``, ``cluster_guard``), phase 23's
-(``notebook_serve``, ``notebook_train``) and phase 24's
-(``notebook_async_serve``, ``notebook_async_train``).
+(``notebook_serve``, ``notebook_train``), phase 24's
+(``notebook_async_serve``, ``notebook_async_train``) and phase 25's
+(``supervision_*``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
-ranks, phase 22's guarded replicas and phases 23 and 24
-(``%dist_init -n 4``, their references computed first on card 0) alone
-on four cards, one NCCL rank per card (what one card cannot
-show: NCCL, its ``reduce_scatter_tensor``, its point-to-point ring and
-pipeline hops overlapping compute, ``all_to_all_single``, and the links
-between cards).
+ranks, phase 22's guarded replicas, phases 23 and 24
+(``%dist_init -n 4``, their references computed first on card 0) and
+phase 25's hung collective (``if rank != 3: dist.all_reduce(t)`` then
+``t.item()``, ``%dist_lint off``, ladder warn,dump,heal: a ``skew``
+verdict naming the ranks stuck inside the all-reduce and rank 3 that
+finished, their stacks at the ``.item()`` line, the world healed well
+inside the 120 s NCCL timeout and all-reducing 4.0) alone on four
+cards, one NCCL rank per card (what one card cannot show: NCCL, its
+``reduce_scatter_tensor``, its point-to-point ring and pipeline hops
+overlapping compute, ``all_to_all_single``, and the links between
+cards).
 
 Then one JSON line listing the kernels (each with its design, bf16 /
 fp32, and ptxas's registers, spills and static shared memory per
@@ -5059,6 +5096,583 @@ def phase_notebook_async(outputs_ref, loss_ref, n=1):
     return rows
 
 
+# ----------------------------------------------------------------------
+# Phase 25: supervision and diagnosis, through the same magics' bodies
+# and stand-in shell.  Short watchdog thresholds (the ladder ends far
+# inside the process group's 120 s NCCL timeout) and the scrape
+# endpoint on a free port, set before %dist_init.  One card: the
+# endpoint scraped during a training cell; a Python loop launching K1
+# caught as a stall, dumped and interrupted (the worker survives); a
+# --deadline verdict on a --repeat training cell; a rank killed during
+# step 3 under %dist_supervise, its postmortem bundle, the auto-heal
+# (respawn + restore) and steps 3-4 bitwise equal to an uninterrupted
+# run's, phase 17's requests on the healed world; %dist_guard.  Four
+# cards (--mesh-nccl): a rank-conditional dist.all_reduce named and
+# healed.
+
+SUP_ENV = {"NBD_HANG_POLL_S": "0.25", "NBD_HANG_SKEW_S": "3",
+           "NBD_HANG_STALL_S": "5", "NBD_HANG_GRACE_S": "2"}
+SUP_CKPT = ROOT / "build" / "supervision_ckpt"
+SUP_SCRAPE_STEPS = 8
+SUP_DEADLINE_STEPS = 28
+SUP_TIMED_STEPS = 6
+
+SUP_SETUP_CELL = """\
+import time
+import chip_smoke as cs
+from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                            make_train_step, param_leaves,
+                                            smol_135m_config)
+from nbdistributed_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+rebuilt = sorted(_build.build_all())
+tcfg = smol_135m_config(remat=True)
+batch = cs.packed_batch(tcfg, cs.TRAIN_B, tcfg.max_seq_len,
+                        cs.TRAIN_BATCH_SEED)
+"""
+
+SUP_INIT_CELL = """\
+params = init_params(tcfg, 0, device=device)
+opt = AdamW(param_leaves(params), lr=1e-3)
+"""
+
+# The cell that builds the step function, run again after a restore
+# into a fresh namespace (where ``opt`` holds the optimizer's state).
+SUP_STEP_FN_CELL = """\
+if not isinstance(opt, torch.optim.Optimizer):
+    _state, opt = opt, AdamW(param_leaves(params), lr=1e-3)
+    opt.load_state_dict(_state)
+step = make_train_step(tcfg, opt)
+"""
+
+SUP_STALL_CELL = """\
+from nbdistributed_tpu_torch.ops.attention import flash_attention
+_g = torch.Generator(device=device).manual_seed(0)
+qs = [torch.randn(1, 512, n, 64, device=device, dtype=torch.bfloat16,
+                  generator=_g) for n in (9, 3, 3)]
+cs.reset_launch_counts()
+while True:
+    o = flash_attention(*qs, causal=True)   # the hung loop: K1, no collective
+"""
+SUP_STALL_LINE = 7
+
+SUP_TIMED_CELL = """\
+torch.cuda.synchronize()
+step_ms = []
+for _ in range({n}):
+    _t0 = time.perf_counter()
+    float(step(params, batch))
+    step_ms.append(1e3 * (time.perf_counter() - _t0))
+"""
+
+SUP_HANG_CELL = """\
+t = torch.ones(1, device=device)
+if rank != {skip}:
+    dist.all_reduce(t)
+t.item()
+"""
+SUP_HANG_LINE = 4
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _poll(cond, what, timeout=120.0, every=0.05):
+    t0 = time.monotonic()
+    while True:
+        got = cond()
+        if got:
+            return got
+        check(time.monotonic() - t0 < timeout, f"timed out: {what}")
+        time.sleep(every)
+
+
+def _wd_events(event, kind=None):
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    return [e for e in DistributedMagics._watchdog.status()["events"]
+            if e["event"] == event
+            and (kind is None or e.get("kind") == kind
+                 or e.get("step") == kind)]
+
+
+def _stack_text(run_dir, rank):
+    """The newest non-empty stack dump of ``rank`` (one file a worker
+    pid; a respawned rank opens an empty one) and its mtime."""
+    import os
+    paths = [os.path.join(run_dir, n) for n in os.listdir(run_dir)
+             if n.startswith(f"stacks-rank{rank}.") and n.endswith(".txt")]
+    paths = [p for p in paths if os.path.getsize(p)]
+    check(paths, f"no stack dump for rank {rank} in {run_dir}")
+    path = max(paths, key=os.path.getmtime)
+    return open(path).read(), os.path.getmtime(path)
+
+
+def _cell_in_thread(nb, code, repeat=None):
+    """Dispatch ``code`` on every rank as ``%%distributed`` does (vet,
+    then send and stream) on a thread: the notebook is blocked in the
+    cell while this thread's caller plays the operator.  Returns the
+    thread and a dict that receives the replies and the return time."""
+    import threading
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    box = {}
+    ranks = list(range(DistributedMagics._world))
+
+    def go():
+        check(nb.magics._vet_cell(code, ranks), "vetting blocked the cell")
+        box["t0"] = time.time()
+        box["res"] = nb.magics._run_on_ranks(code, ranks, "distributed",
+                                             repeat=repeat)
+        box["t1"] = time.time()
+
+    th = threading.Thread(target=go, daemon=True)
+    th.start()
+    return th, box
+
+
+def phase_supervision(outputs_ref, loss_ref, n=1):
+    """Phase 25, one card: items 1-5 and 7 (the rows) on ``n`` NCCL
+    ranks.  ``outputs_ref``: phase 17's streams; ``loss_ref``: phase
+    11's first-step loss."""
+    import os
+    import re
+    import shutil
+    import urllib.request
+
+    import torch
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    from nbdistributed_tpu_torch.observability import flightrec
+    from nbdistributed_tpu_torch.observability import postmortem
+    from nbdistributed_tpu_torch.observability.telemetry import hbm_totals
+
+    ts = time.perf_counter()
+    shutil.rmtree(SUP_CKPT, ignore_errors=True)
+    ranks = list(range(n))
+    port = _free_port()
+    saved_env = {k: os.environ.get(k) for k in (*SUP_ENV, "NBD_HANG",
+                                                "NBD_METRICS_PORT")}
+    os.environ.update(SUP_ENV, NBD_METRICS_PORT=str(port))
+    os.environ.pop("NBD_HANG", None)
+    nb = NotebookSession()
+    rows = {}
+    try:
+        out = nb.run(f"%dist_init -n {n} --backend gpu -t 600")
+        check(f"{n} workers ready (backend=gpu" in out
+              and f"📈 scrape endpoint: http://127.0.0.1:{port}/metrics"
+              in out, f"%dist_init: {out}")
+        check(DistributedMagics._watchdog is not None, "no watchdog armed")
+        run_dir = flightrec.run_dir(create=False)
+        comm = DistributedMagics._comm
+        nb.run(SUP_SETUP_CELL)
+        nb.run(SUP_INIT_CELL)
+        nb.run(SUP_STEP_FN_CELL)
+
+        # 1. The scrape endpoint while a training cell runs.
+        base = f"http://127.0.0.1:{port}"
+        nb.run("scrape_losses = []\ncs.reset_launch_counts()")
+        th, box = _cell_in_thread(
+            nb, "scrape_losses.append(float(step(params, batch)))",
+            repeat=SUP_SCRAPE_STEPS)
+        scrapes = {}
+        try:
+            _poll(lambda: (comm.last_ping(0) or (0, {}))[1].get("busy_s")
+                  is not None and comm.last_telemetry(0), "a busy ping")
+            for path in ("/metrics", "/healthz", "/latency.json"):
+                before = hbm_totals(comm.last_telemetry(0))
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(base + path, timeout=30) as r:
+                    body = r.read().decode()
+                ms = 1e3 * (time.perf_counter() - t0)
+                busy = (comm.last_ping(0) or (0, {}))[1].get("busy_s")
+                scrapes[path] = dict(ms=ms, busy_during=busy is not None,
+                                     body=body, hbm_before=before,
+                                     hbm_after=hbm_totals(
+                                         comm.last_telemetry(0)))
+        finally:
+            th.join(600)
+        check(box.get("res") and not any(
+            m.data.get("error") for m in box["res"].values()),
+            f"scrape cell: {box}")
+        for path, s in scrapes.items():
+            check(s["busy_during"], f"{path} answered after the cell")
+        m = scrapes["/metrics"]
+        for key in ("in_use", "peak", "limit"):
+            got = re.search(rf'^nbd_worker_hbm_{key}_bytes\{{rank="0"\}} '
+                            rf'(\S+)$', m["body"], re.M)
+            check(got is not None, f"/metrics has no {key} gauge")
+            want = {m["hbm_before"][key], m["hbm_after"][key]}
+            check(float(got.group(1)) in want, f"/metrics {key} "
+                  f"{got.group(1)} not rank 0's heartbeat {want}")
+        health = json.loads(scrapes["/healthz"]["body"])
+        check(health["alive"] == ranks and health["status"] == "ok",
+              f"/healthz {health}")
+        json.loads(scrapes["/latency.json"]["body"])
+        nb.run("scrape_counts = cs.launch_counts()")
+        sl, sc = nb.pull("scrape_losses"), nb.pull("scrape_counts")
+        want = {"k1": 2 * N_LAYERS_SMOL * SUP_SCRAPE_STEPS,
+                "k2": N_LAYERS_SMOL * SUP_SCRAPE_STEPS,
+                "k3": N_LAYERS_SMOL * SUP_SCRAPE_STEPS}
+        check(sl[0][0] == loss_ref, f"scrape cell's first loss "
+              f"{sl[0][0]!r} != phase 11's {loss_ref!r}")
+        check({k: sc[0][k] for k in want} == want, f"launches {sc[0]}")
+        rows["scrape"] = dict(
+            ms={p: s["ms"] for p, s in scrapes.items()},
+            hbm_in_use_gb=m["hbm_before"]["in_use"] / 1e9,
+            first_loss=sl[0][0], launches=sc[0])
+
+        # 2. A Python loop launching K1: stall, dump, interrupt.
+        out = nb.run("%dist_watchdog on --escalate warn,dump,interrupt")
+        check("ladder warn→dump→interrupt (grace 2s)" in out, out)
+        flagged = DistributedMagics._watchdog.cells_flagged
+        th, box = _cell_in_thread(nb, SUP_STALL_CELL)
+        try:
+            _poll(lambda: DistributedMagics._watchdog.cells_flagged
+                  > flagged and any(v["ranks"] == ranks for v in
+                                    DistributedMagics._watchdog
+                                    .last_verdicts), "a stall verdict")
+            check(not [e for e in _wd_events("escalation", "interrupt")
+                       if e["ts"] >= box["t0"]],
+                  "interrupted before %dist_status")
+            status = nb.run("%dist_status")
+            # (An earlier slow cell may have had its own verdict and
+            # dump: only this cell's count.)
+            _poll(lambda: [e for e in _wd_events("stacks")
+                           if e["ts"] >= box["t0"]], "the stack dump")
+            t_dump = [e for e in _wd_events("escalation", "dump")
+                      if e["ts"] >= box["t0"]][-1]["ts"]
+            stacks, t_stack = _poll(
+                lambda: (lambda s: s if f'File "<rank 0>", line '
+                         f'{SUP_STALL_LINE}' in s[0] else None)(
+                    _stack_text(run_dir, 0)), "the loop's line in the "
+                "stack file", timeout=30, every=0.01)
+            t_seen = time.time()
+        finally:
+            th.join(120)
+        check(not th.is_alive(), "the interrupt did not end the cell")
+        check(status.count("⚠ stalled") == n
+              and "⚠ HUNG [stall]" in status, f"%dist_status: {status}")
+        for r in ranks:
+            err = box["res"][r].data.get("error") or ""
+            check("KeyboardInterrupt" in err, f"rank {r}: {err}")
+        verdict = [e for e in _wd_events("verdict", "stall")
+                   if e["ts"] >= box["t0"]][0]
+        t_int = _wd_events("escalation", "interrupt")[-1]["ts"]
+        doctor = nb.run("%dist_doctor")
+        check("stuck-cell doctor" in doctor and "HUNG [stall]" in doctor
+              and f'line {SUP_STALL_LINE}' in doctor
+              and "last flight events:" in doctor and "cell_start" in doctor,
+              f"%dist_doctor: {doctor}")
+        check(re.search(r"^0\s+execute \d+\.\ds", doctor, re.M),
+              f"%dist_doctor shows no busy age: {doctor}")
+        # The worker survived: it answers the next cells.
+        nb.run("stall_k1 = cs.launch_counts()['k1']")
+        stall_k1 = nb.pull("stall_k1")[0]
+        check(stall_k1 > 0, "the loop launched no K1")
+        nb.run("del qs, o\ntorch.cuda.synchronize()")
+        nb.run(SUP_INIT_CELL)
+        nb.run(SUP_STEP_FN_CELL)
+        nb.run("cs.reset_launch_counts()\nafter_stall = float(step(params, "
+               "batch))\nafter_counts = cs.launch_counts()")
+        after = nb.pull("after_stall")[0]
+        counts = nb.pull("after_counts")[0]
+        check(after == loss_ref and counts == {"k1": 2 * N_LAYERS_SMOL,
+                                               "k2": N_LAYERS_SMOL,
+                                               "k3": N_LAYERS_SMOL},
+              f"after the interrupt: loss {after!r}, launches {counts}")
+        rows["stall"] = dict(
+            verdict_s=verdict["ts"] - box["t0"],
+            dump_to_stack_file_s=t_stack - t_dump,
+            dump_to_stack_seen_s=t_seen - t_dump,
+            interrupt_to_reply_ms=1e3 * (box["t1"] - t_int),
+            loop_k1_launches=stall_k1, loss_after=after,
+            detail=verdict["detail"])
+
+        # 3. --deadline on a --repeat training cell, ladder warn.
+        nb.run("%dist_watchdog on --escalate warn")
+        deadline_losses = []
+        for line in ("", " --deadline 3"):
+            nb.run(SUP_INIT_CELL)
+            nb.run(SUP_STEP_FN_CELL)
+            nb.run("dl_losses = []")
+            before = len(_wd_events("verdict", "deadline"))
+            t0 = time.time()
+            out = nb.run(f"%%distributed --repeat {SUP_DEADLINE_STEPS}"
+                         f"{line}\ndl_losses.append(float(step(params, "
+                         f"batch)))")
+            cell_s = time.time() - t0
+            deadline_losses.append(nb.pull("dl_losses")[0])
+            got = _wd_events("verdict", "deadline")[before:]
+            if line:
+                check(len(got) == 1 and "hang watchdog [DEADLINE]" in out,
+                      f"no deadline verdict: {out}")
+                rows["deadline"] = dict(verdict_s=got[0]["ts"] - t0,
+                                        cell_s=cell_s,
+                                        detail=got[0]["detail"])
+            else:
+                check(not got, f"a verdict without --deadline: {got}")
+        check(deadline_losses[0] == deadline_losses[1]
+              and len(deadline_losses[0]) == SUP_DEADLINE_STEPS,
+              f"losses with --deadline {deadline_losses[1]} != without "
+              f"{deadline_losses[0]}")
+        rows["deadline"]["losses_equal_bitwise"] = True
+
+        # 4. Death during step 3: postmortem, auto-heal, restore.
+        nb.run(SUP_INIT_CELL)
+        nb.run(SUP_STEP_FN_CELL)
+        nb.run("first2 = [float(step(params, batch)) for _ in range(2)]")
+        ck = str(SUP_CKPT)
+        out = nb.run(f"%dist_checkpoint {ck} params opt")
+        check(f"✅ {n} ranks saved → {ck}: opt" in out, out)
+        nb.run("ref34 = [float(step(params, batch)) for _ in range(2)]")
+        ref34 = nb.pull("ref34")
+        out = nb.run(f"%dist_restore {ck}")
+        check(f"✅ {n} ranks restored" in out, out)
+        out = nb.run("%dist_supervise on")
+        check(f"✅ supervising {n} workers: auto-heal ON" in out, out)
+        sup = DistributedMagics._supervisor
+        old_pm = DistributedMagics._pm
+        free_before = torch.cuda.mem_get_info(0)[0]
+        out = nb.run("%dist_chaos on --kill-rank 0 --kill-at 1")
+        check("kill rank 0 at msg 1" in out, out)
+        out = nb.run("cs.reset_launch_counts()\nstep3 = float(step(params, "
+                     "batch))", ok=False)
+        check("💀" in out, f"rank 0 was not killed: {out}")
+        t_ready = _poll(lambda: time.time() if (
+            DistributedMagics._pm is not None
+            and DistributedMagics._pm is not old_pm
+            and DistributedMagics._comm is not None
+            and len(DistributedMagics._comm.connected_ranks()) == n)
+            else None, "the respawned world", every=0.02)
+        _poll(lambda: sup.status()["heals_done"] == 1 and sup.healthy()
+              and not DistributedMagics._healing, "the auto-heal")
+        st = sup.status()
+        moves = [(e["from"], e["to"], e["ts"]) for e in st["events"]
+                 if e["rank"] == 0]
+        check([m[:2] for m in moves] == [("alive", "dead"),
+                                         ("dead", "healing"),
+                                         ("healing", "alive")]
+              and st["restarts_used"] == 1, f"supervisor: {st}")
+        t_dead, t_restored = moves[0][2], moves[2][2]
+        bundle = st["last_postmortem"]
+        manifest = json.load(open(os.path.join(bundle, "manifest.json")))
+        ring = json.load(open(os.path.join(bundle, "flight_rank0.json")))
+        coord = json.load(open(os.path.join(bundle,
+                                            "flight_coordinator.json")))
+        tele = json.load(open(os.path.join(bundle, "telemetry.json")))
+        died_on = [e for e in coord["events"] if e["t"] == "send"
+                   and e.get("type") == "execute"
+                   and e["ts"] <= t_dead][-1]
+        last = ring["events"][-1]
+        check(manifest["dead_ranks"] == [0], f"bundle {manifest}")
+        check(last["t"] == "dispatch" and last["msg_id"]
+              == died_on["msg_id"], f"rank 0's ring ends {last}, the "
+              f"cell it died on {died_on}")
+        mem0 = hbm_totals(tele["0"][-1])
+        check(mem0 and mem0["in_use"] > 0, f"telemetry {tele['0'][-1:]}")
+        out = nb.run("%dist_postmortem --last")
+        check("dead    : ranks [0]" in out and "rank 0 [DEAD]" in out
+              and "rank 0: hbm " in out, f"%dist_postmortem: {out}")
+        status = nb.run("%dist_supervise status")
+        check(f"restarts 1/3 in window · heals 1 ok" in status, status)
+        nb.run(SUP_SETUP_CELL)
+        check(nb.pull("rebuilt")[0] == [], "the heal rebuilt kernels")
+        nb.run(SUP_STEP_FN_CELL)
+        nb.run("cs.reset_launch_counts()\nheal34 = [float(step(params, "
+               "batch)) for _ in range(2)]\nheal_counts = "
+               "cs.launch_counts()")
+        heal34, hc = nb.pull("heal34"), nb.pull("heal_counts")
+        free_after = torch.cuda.mem_get_info(0)[0]
+        want = {"k1": 4 * N_LAYERS_SMOL, "k2": 2 * N_LAYERS_SMOL,
+                "k3": 2 * N_LAYERS_SMOL}
+        for r in ranks:
+            check(heal34[r] == ref34[r], f"rank {r}: steps 3-4 after the "
+                  f"heal {heal34[r]} != uninterrupted {ref34[r]}")
+            check({k: hc[r][k] for k in want} == want, f"rank {r}: {hc[r]}")
+        nb.run(SUP_TIMED_CELL.format(n=SUP_TIMED_STEPS))
+        armed_ms = nb.pull("step_ms")[0]
+        rows["heal"] = dict(
+            losses_34=heal34[0], losses_equal_bitwise=True,
+            launches_2_steps={k: hc[0][k] for k in want},
+            death_to_bundle_s=manifest["created_unix"] - t_dead,
+            death_to_ready_s=t_ready - t_dead,
+            death_to_restored_s=t_restored - t_dead,
+            free_gb_before_kill=free_before / 1e9,
+            free_gb_after_heal=free_after / 1e9,
+            transitions=[m[:2] for m in moves],
+            bundle_files=sorted(os.listdir(bundle)),
+            rank0_last_hbm_gb=mem0["in_use"] / 1e9)
+        # The healed world serves phase 17's requests.
+        nb.run(NOTEBOOK_SERVE_CELL)
+        served, outputs = nb.pull("served"), nb.pull("outputs")
+        for r in ranks:
+            s = served[r]
+            check(s["rebuilt"] == [] and s["steps"] > 0
+                  and s["k4"] == N_LAYERS_SMOL * s["steps"],
+                  f"rank {r}: K4 {s['k4']} over {s['steps']} steps")
+            check(outputs[r] == outputs_ref, f"rank {r}: the healed "
+                  "world's streams differ from phase 17's")
+        rows["heal"]["serve"] = dict(k4_launches=served[0]["k4"],
+                                     decode_steps=served[0]["steps"],
+                                     tokens_equal=True)
+        nb.run("%dist_supervise off")
+
+        # 5. %dist_guard on phase 22's guarded step.
+        nb.run(GUARD_WORKER_CELL)
+        out = nb.run("%dist_guard status")
+        check(all(f"🔹 rank {r}: step 2 · skips 0" in out for r in ranks),
+              f"%dist_guard status: {out}")
+        audit = nb.run("%dist_guard audit")
+        check(all(f"🔹 rank {r}: step 2 · skips 0" in audit
+                  for r in ranks) and "audits 1 (last @2: ok)" in audit
+              and "✅ audit fanned out to every rank" in audit,
+              f"%dist_guard audit: {audit}")
+        rows["guard"] = dict(status=out.strip(), audit=audit.strip())
+        out = nb.run("%dist_shutdown")
+        check(f"✅ shut down {n} workers" in out, out)
+
+        # 7. A step with the watchdog off (NBD_HANG=0 at spawn).
+        os.environ["NBD_HANG"] = "0"
+        out = nb.run(f"%dist_init -n {n} --backend gpu -t 600")
+        check(DistributedMagics._watchdog is None, "NBD_HANG=0 armed it")
+        nb.run(SUP_SETUP_CELL)
+        nb.run(SUP_INIT_CELL)
+        nb.run(SUP_STEP_FN_CELL)
+        nb.run(SUP_TIMED_CELL.format(n=SUP_TIMED_STEPS))
+        off_ms = nb.pull("step_ms")[0]
+        rows["watchdog_cost"] = dict(
+            armed_ms=armed_ms, off_ms=off_ms,
+            armed_median_ms=sorted(armed_ms)[len(armed_ms) // 2],
+            off_median_ms=sorted(off_ms)[len(off_ms) // 2])
+        out = nb.run("%dist_shutdown")
+        check(f"✅ shut down {n} workers" in out, out)
+    finally:
+        if DistributedMagics._pm is not None:
+            DistributedMagics.shutdown_all()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"supervision_cells_n{n}.json").write_text(
+            json.dumps(nb.log, indent=1))
+    rows.update(ranks=n, seconds=time.perf_counter() - ts)
+    say("supervision", **{k: v for k, v in rows.items() if k != "guard"})
+    return rows
+
+
+def phase_supervision_mesh(n=MESH_WORLD):
+    """Phase 25, item 6, ``n`` NCCL ranks (one a card): ``if rank !=
+    n - 1: dist.all_reduce(t)`` then ``t.item()``.  Ranks 0..n-2 block
+    at ``.item()`` behind a collective rank n-1 never joins: the
+    watchdog names it, dumps the stacks and heals the world well inside
+    the 120 s NCCL timeout; the healed group all-reduces again."""
+    import os
+
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    from nbdistributed_tpu_torch.observability import flightrec
+
+    ts = time.perf_counter()
+    skip = n - 1
+    saved_env = {k: os.environ.get(k) for k in (*SUP_ENV, "NBD_HANG",
+                                                "NBD_METRICS_PORT")}
+    os.environ.update(SUP_ENV)
+    os.environ.pop("NBD_HANG", None)
+    os.environ.pop("NBD_METRICS_PORT", None)
+    nb = NotebookSession()
+    try:
+        out = nb.run(f"%dist_init -n {n} --backend gpu -t 600")
+        check(f"{n} workers ready (backend=gpu" in out, out)
+        run_dir = flightrec.run_dir(create=False)
+        # One all-reduce every rank joins first: the NCCL communicator
+        # is up, so the hung cell's all_reduce returns at enqueue and
+        # ranks 0..n-2 block at .item() (the first collective on the
+        # group blocks inside all_reduce, in the communicator's set-up).
+        nb.run("t = torch.ones(1, device=device)\ndist.all_reduce(t)\n"
+               "warm = t.item()")
+        warm = nb.pull("warm")
+        check(warm == {r: float(n) for r in range(n)}, f"warm-up {warm}")
+        nb.run("%dist_lint off")
+        out = nb.run("%dist_watchdog on --escalate warn,dump,heal")
+        check("ladder warn→dump→heal" in out, out)
+        old_pm = DistributedMagics._pm
+        wd = DistributedMagics._watchdog
+        th, box = _cell_in_thread(nb, SUP_HANG_CELL.format(skip=skip))
+        try:
+            # Each rank crosses the skew window on its own pings: the
+            # assessment names every stuck rank within a ping or two.
+            full = _poll(lambda: next(
+                (dict(v) for v in wd.last_verdicts
+                 if v["ranks"] == list(range(skip))), None),
+                "a verdict naming every stuck rank", timeout=60,
+                every=0.02)
+            t_full = time.time()
+        finally:
+            th.join(120)
+        check(not th.is_alive(), "the hung cell never came back")
+        t0, t_back = box["t0"], box["t1"]
+        _poll(lambda: DistributedMagics._pm is not None
+              and DistributedMagics._pm is not old_pm
+              and DistributedMagics._comm is not None
+              and len(DistributedMagics._comm.connected_ranks()) == n
+              and not DistributedMagics._healing, "the healed world")
+        t_healed = time.time()
+        verdict = [e for e in _wd_events("verdict") if e["ts"] >= t0][0]
+        dump = [e for e in _wd_events("escalation", "dump")
+                if e["ts"] >= t0][-1]
+        heal = [e for e in _wd_events("escalation", "heal")
+                if e["ts"] >= t0][-1]
+        check(verdict["kind"] == full["kind"] == "skew"
+              and set(verdict["ranks"]) <= set(range(skip))
+              and full["peers"] == [skip]
+              and full["detail"].startswith(
+                  f"ranks [{skip}] finished the cell but rank(s) "
+                  f"{list(range(skip))} are stuck inside all_reduce #"),
+              f"verdicts {verdict}, {full}")
+        stuck_at = {}
+        for r in range(skip):
+            text, t_stack = _stack_text(run_dir, r)
+            stuck_at[r] = text.count(f'File "<rank {r}>", line '
+                                     f'{SUP_HANG_LINE}')
+            check(f'File "<rank {r}>", line {SUP_HANG_LINE}' in text,
+                  f"rank {r}'s stacks do not name the .item() line: "
+                  f"{text[-1500:]}")
+        check(t_healed - t0 < 60, f"healed {t_healed - t0:.1f} s after "
+              "the hang began")
+        out = nb.run("t = torch.ones(1, device=device)\ndist.all_reduce(t)"
+                     "\nsummed = t.item()")
+        sums = nb.pull("summed")
+        check(sums == {r: float(n) for r in range(n)},
+              f"all_reduce after the heal: {sums}")
+        out = nb.run("%dist_shutdown")
+        check(f"✅ shut down {n} workers" in out, out)
+    finally:
+        if DistributedMagics._pm is not None:
+            DistributedMagics.shutdown_all()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"supervision_mesh_cells_n{n}.json").write_text(
+            json.dumps(nb.log, indent=1))
+    row = dict(ranks=n, verdict_s=verdict["ts"] - t0,
+               first_verdict_ranks=verdict["ranks"],
+               dumps_at_the_item_line=stuck_at,
+               all_stuck_ranks_named_s=t_full - t0,
+               dump_to_stack_file_s=t_stack - dump["ts"],
+               heal_started_s=heal["ts"] - t0,
+               cell_returned_s=t_back - t0, healed_s=t_healed - t0,
+               detail=full["detail"],
+               seconds=time.perf_counter() - ts)
+    say("supervision_mesh", **row)
+    return row
+
+
 def smol_135m_config_fp32():
     import torch
     from nbdistributed_tpu_torch.models import smol_135m_config
@@ -5453,9 +6067,9 @@ def gpu_name_and_power():
 
 def main_mesh_nccl() -> int:
     """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks, phase 22's
-    guarded replicas and phases 23 and 24's notebook, alone on four
-    cards, one NCCL rank each, against the references they compute
-    first on card 0."""
+    guarded replicas, phases 23 and 24's notebook and phase 25's hung
+    collective, alone on four cards, one NCCL rank each, against the
+    references they compute first on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -5484,12 +6098,13 @@ def main_mesh_nccl() -> int:
     refs = notebook_refs()
     notebook = phase_notebook(*refs, n=MESH_WORLD)
     notebook_async = phase_notebook_async(*refs, n=MESH_WORLD)
+    supervision_mesh = phase_supervision_mesh()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
          "train_sp": train_sp, "train_pp": train_pp, "guard": guard,
-         "notebook": notebook, "notebook_async": notebook_async},
-        indent=1))
+         "notebook": notebook, "notebook_async": notebook_async,
+         "supervision_mesh": supervision_mesh}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5549,6 +6164,7 @@ def main() -> int:
     notebook = phase_notebook(dense["outputs"], train["losses"][0])
     notebook_async = phase_notebook_async(dense["outputs"],
                                           train["losses"][0])
+    supervision = phase_supervision(dense["outputs"], train["losses"][0])
     timing = phase_timing()
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5582,7 +6198,9 @@ def main() -> int:
                    for name, row in mesh.items() if name != "seconds"},
                 "notebook_serve": notebook["serve"]["k4_launches"],
                 "notebook_async_serve":
-                    notebook_async["serve"]["k4_launches"]}
+                    notebook_async["serve"]["k4_launches"],
+                "supervision_healed_serve":
+                    supervision["heal"]["serve"]["k4_launches"]}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "train": train["k1"],
@@ -5613,6 +6231,14 @@ def main() -> int:
         # Phase 24: the training steps streamed through the window.
         paths["notebook_async_train"] = \
             notebook_async["train"]["launches_async"][k]
+        # Phase 25: the steps scraped mid-cell, steps 3-4 after the
+        # heal (rank 0).
+        paths["supervision_scrape"] = supervision["scrape"]["launches"][k]
+        paths["supervision_healed_train"] = \
+            supervision["heal"]["launches_2_steps"][k]
+    # Phase 25's stalled loop launched K1 until the interrupt.
+    k1_paths["supervision_stall_loop"] = \
+        supervision["stall"]["loop_k1_launches"]
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -5669,7 +6295,8 @@ def main() -> int:
          "train_mesh": train_mesh, "hop_kernels": hop_err,
          "train_sp": train_sp, "remat_dots": remat_dots,
          "train_pp": train_pp, "guard": guard, "notebook": notebook,
-         "notebook_async": notebook_async}, indent=1))
+         "notebook_async": notebook_async, "supervision": supervision},
+        indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

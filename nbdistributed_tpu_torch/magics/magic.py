@@ -15,15 +15,20 @@ stream through the async in-flight window (``%%distributed --async``,
 ``NBD_ASYNC_WINDOW``, ``%dist_wait``; ``messaging/pipeline.py``);
 ``%dist_chaos``, ``%dist_profile``, ``%dist_trace``, ``%dist_metrics``,
 ``%dist_lat`` and ``%dist_top`` observe and perturb the control plane.
-Names, options and printed text follow the JAX package; its TPU
-options become their GPU forms (``--backend gpu``, ``--gpu-ids``).
+Supervision and diagnosis: the hang watchdog ``%dist_init`` arms
+(``%dist_watchdog``, ``%dist_doctor``, ``%%distributed --deadline``,
+``%dist_status``'s stalled state), ``%dist_heal``, the auto-heal
+``%dist_supervise``, postmortem bundles (``%dist_postmortem``, and one
+taken when a rank dies unsupervised), ``%dist_guard`` and the scrape
+endpoint under ``NBD_METRICS_PORT``.  Names, options and printed text
+follow the JAX package; its TPU options become their GPU forms
+(``--backend gpu``, ``--gpu-ids``).
 
 Magics whose modules have not been ported yet stay registered and raise
 :class:`NotImplementedError` naming their ROADMAP entry (``_DEFERRED``),
-as do the options of those modules (``%%distributed --deadline``,
-``--priority``; ``%dist_init --hosts``, ``--agents``,
-``--coordinator-addr``, ``--chips-per-worker``, ``--attach``;
-``%dist_lint self``).
+as do the options of those modules (``%%distributed --priority``;
+``%dist_init --hosts``, ``--agents``, ``--coordinator-addr``,
+``--chips-per-worker``, ``--attach``; ``%dist_lint self``).
 
 This module does not import IPython.  Each magic is a plain method of
 :class:`DistributedMagics` taking the magic's line (and its cell), with
@@ -57,9 +62,6 @@ _COLLECTIVE_TOKENS = re.compile(
 
 # The ROADMAP entry each not-yet-ported magic lands with.
 _DEFERRED = {
-    "dist_heal": "A5.4", "dist_supervise": "A5.4",
-    "dist_watchdog": "A5.4", "dist_doctor": "A5.4",
-    "dist_postmortem": "A5.4", "dist_guard": "A5.4",
     "dist_attach": "A5.6", "dist_pool": "A5.6", "dist_serve": "A5.6",
     "dist_gc": "A5.6",
 }
@@ -113,10 +115,15 @@ footprints and dependency DAG) · %dist_chaos (fault injection) ·
 %dist_profile start/stop (torch.profiler) · %dist_trace
 start/stop/save (Perfetto) · %dist_metrics · %dist_lat (per-cell
 stage attribution + waterfall) · %dist_top (live device telemetry) ·
-%timeline_show · %timeline_sidecar (in-notebook persistence) ·
-%dist_shutdown (fleet teardown) · %dist_reset
+%dist_watchdog (hang watchdog: skew/stall/--deadline verdicts, ladder
+warn→dump→interrupt→heal; armed at init unless NBD_HANG=0) ·
+%dist_doctor (stuck-cell report: positions, skew, stacks, flight
+events) · %%distributed --deadline S · %dist_heal [--restore ckpt] ·
+%dist_supervise on|off|status (auto-heal: respawn + restore the last
+checkpoint) · %dist_postmortem [--last] (crash bundles) · %dist_guard
+status|on|off|audit · %timeline_show · %timeline_sidecar (in-notebook
+persistence) · %dist_shutdown (fleet teardown) · %dist_reset
 Not ported yet (they raise, naming their ROADMAP entry):
-%dist_heal/supervise/watchdog/doctor/postmortem/guard (A5.4) ·
 %dist_attach/pool/serve/gc (A5.6) · %dist_lint self (A5.7)
 """
 
@@ -200,8 +207,9 @@ _PARSERS = {
                   "an error-severity hazard (rank-conditional "
                   "collective, subset collective, desyncing exit)"),
         _arg("--deadline", type=float, default=None,
-             help="per-cell budget for the hang watchdog (not ported: "
-                  "raises, A5.4)"),
+             help="per-cell budget in seconds: the hang watchdog "
+                  "escalates (warn → dump → interrupt → heal, per "
+                  "its ladder) when any rank is still busy past it"),
         _arg("--priority", type=int, default=None,
              help="pool-scheduling priority in tenant mode (not "
                   "ported: raises, A5.6)"),
@@ -404,6 +412,66 @@ _PARSERS = {
              help="also write the full JSON snapshot (coordinator + "
                   "per-rank) to this path"),
     ),
+    "dist_heal": _parser(
+        "dist_heal",
+        _arg("--restore", default=None,
+             help="checkpoint directory to %%dist_restore once the "
+                  "world is back"),
+        _arg("--force", action="store_true",
+             help="rebuild even when every worker looks alive"),
+    ),
+    "dist_supervise": _parser(
+        "dist_supervise",
+        _arg("command", nargs="?", default="status",
+             choices=["on", "off", "status"]),
+        _arg("--max-restarts", type=int, default=3,
+             help="restart budget inside --window seconds"),
+        _arg("--window", type=float, default=600.0,
+             help="restart-budget window in seconds"),
+        _arg("--degraded-after", type=float, default=6.0,
+             help="heartbeat staleness (s) before a rank is flagged "
+                  "degraded (slow/wedged — NOT restarted)"),
+        _arg("--no-auto", action="store_true",
+             help="observe and log transitions only; never heal"),
+    ),
+    "dist_guard": _parser(
+        "dist_guard",
+        _arg("command", nargs="?", default="status",
+             choices=["status", "on", "off", "audit"]),
+    ),
+    "dist_watchdog": _parser(
+        "dist_watchdog",
+        _arg("command", nargs="?", default="status",
+             choices=["on", "off", "status"]),
+        _arg("--skew", type=float, default=None,
+             help="seconds a rank may lag its peers' collective "
+                  "position before the cell is flagged HUNG"),
+        _arg("--stall", type=float, default=None,
+             help="seconds a rank may stay busy with zero collective "
+                  "progress before the cell is flagged HUNG"),
+        _arg("--poll", type=float, default=None,
+             help="watchdog poll cadence in seconds"),
+        _arg("--grace", type=float, default=None,
+             help="pause between escalation ladder steps"),
+        _arg("--escalate", default=None,
+             help="comma-separated ladder from: warn,dump,interrupt,"
+                  "heal (default warn,dump)"),
+    ),
+    "dist_doctor": _parser(
+        "dist_doctor",
+        _arg("--save", default=None,
+             help="also write the report to this path"),
+        _arg("--no-stacks", action="store_true",
+             help="skip the SIGUSR1 stack dump (read-only diagnosis)"),
+    ),
+    "dist_postmortem": _parser(
+        "dist_postmortem",
+        _arg("--last", action="store_true",
+             help="show the newest bundle's report instead of "
+                  "capturing a fresh one"),
+        _arg("--save", default=None,
+             help="capture the bundle into this directory"),
+    ),
     "dist_lat": _parser(
         "dist_lat",
         _arg("--last", type=int, default=0,
@@ -427,10 +495,15 @@ class DistributedMagics:
     _instance = None
     _proxy_registry: dict = {}
     _sidecar: str | None = None
+    # Last successful %dist_init line — %dist_heal replays it after a
+    # crash (kept across %dist_reset on purpose: healing after a reset
+    # is the common recovery flow).
     _last_init_line: str | None = None
-    # Last checkpoint path a %dist_checkpoint COMPLETED writing.
-    # Background saves park their path in _bg_ckpt_path until a
-    # --status poll confirms every rank finished.
+    # Last checkpoint path a %dist_checkpoint COMPLETED writing — the
+    # auto-heal supervisor restores it after a respawn.  Background
+    # saves park their path in _bg_ckpt_path until a --status poll
+    # confirms every rank finished (an in-flight or failed save must
+    # never become the heal target).
     _last_ckpt_path: str | None = None
     _bg_ckpt_path: str | None = None
     # Ranks whose in-flight background save has reported "done": the
@@ -449,6 +522,21 @@ class DistributedMagics:
     # NBD_LINT knob at use time; %dist_lint warn|strict|off pins it.
     _lint_mode: str | None = None
     _async_exec = None          # messaging.pipeline.AsyncExecutor | None
+
+    # Active auto-heal supervisor (resilience/supervisor.py), or None.
+    _supervisor = None
+    # Live scrape endpoint (observability/httpd.py), or None — started
+    # by %dist_init when NBD_METRICS_PORT is set; closed on shutdown.
+    _metrics_httpd = None
+    # Active hang watchdog (resilience/watchdog.py), or None.  Armed by
+    # %dist_init when NBD_HANG enables it (default on, ladder
+    # warn→dump); reconfigured by %dist_watchdog.
+    _watchdog = None
+    # True while %dist_heal is tearing down + respawning: shutdown_all
+    # must NOT discard the watchdog then — the replayed %dist_init
+    # re-binds the SAME instance, preserving a %dist_watchdog-
+    # customized policy and the counters/event history.
+    _healing: bool = False
 
     _cell_hooks: tuple | None = None
 
@@ -538,6 +626,18 @@ class DistributedMagics:
 
     @classmethod
     def reset_class_state(cls) -> None:
+        if cls._supervisor is not None:
+            cls._supervisor.stop()
+            cls._supervisor = None
+        if cls._watchdog is not None:
+            cls._watchdog.stop()
+            cls._watchdog = None
+        if cls._metrics_httpd is not None:
+            try:
+                cls._metrics_httpd.close()
+            except Exception:
+                pass
+            cls._metrics_httpd = None
         # In-flight background-save tracking is world-specific (per-
         # rank doneness): stale entries from a previous (possibly
         # larger) world must not promote a half-written checkpoint in
@@ -591,6 +691,7 @@ class DistributedMagics:
                       if text.endswith("\n") else "\n")
 
     def _run_on_ranks(self, code: str, ranks: list[int], kind: str,
+                      deadline_s: float | None = None,
                       vet_s: float | None = None,
                       repeat: int | None = None,
                       until: str | None = None):
@@ -633,6 +734,11 @@ class DistributedMagics:
                 # BEFORE the control plane would hang on replies that
                 # cannot come.
                 payload = {"code": code, "target_ranks": list(ranks)}
+                if deadline_s is not None:
+                    # The worker echoes this back on heartbeats so
+                    # the hang watchdog can enforce the budget with
+                    # no coordinator-side bookkeeping.
+                    payload["deadline_s"] = deadline_s
                 if repeat is not None:
                     # Worker-side step loop: compile once, run k
                     # steps, report per-step progress on heartbeats.
@@ -757,9 +863,6 @@ class DistributedMagics:
                               "--coordinator-addr", "A5.5")
         if args.chips_per_worker != 1:
             raise _not_ported("%dist_init --chips-per-worker", "A5.5")
-        if _knobs.get_int("NBD_METRICS_PORT", 0):
-            raise _not_ported("the scrape endpoint (NBD_METRICS_PORT)",
-                              "A5.4")
         if self._running():
             print(f"⚠️ {self._world} workers already running. "
                   "%dist_shutdown first.")
@@ -845,23 +948,402 @@ class DistributedMagics:
                         token=session_token, epoch=1,
                         pids={r: p.pid for r, p in pm.processes.items()},
                         backend=pm.backend, dist_port=pm.dist_port,
-                        init_line=line))
+                        init_line=line,
+                        supervised=DistributedMagics._supervisor
+                        is not None))
             except OSError as e:
                 print(f"⚠️ session manifest not written ({e})")
         if DistributedMagics._last_init_line != line:
             # A DIFFERENT world configuration invalidates the previous
-            # world's checkpoint as a restore target.
+            # world's checkpoint as an auto-heal restore target (its
+            # rank layout / model state need not fit this world).  A
+            # same-line re-init — the heal replay path — keeps it.
             DistributedMagics._last_ckpt_path = None
         DistributedMagics._last_init_line = line
         self._enable_auto_mode()
+        self._maybe_start_watchdog()
+        self._maybe_start_metrics_httpd()
         print(_BANNER.format(n=num_workers,
                              backend=pm.backend,
                              secs=time.time() - t0))
 
+    def _maybe_start_metrics_httpd(self) -> None:
+        """Start the live scrape endpoint when NBD_METRICS_PORT asks
+        for one: /metrics (Prometheus), /healthz, /latency.json over
+        this kernel's coordinator.  Loopback-bound and ungated."""
+        port = _knobs.get_int("NBD_METRICS_PORT", 0)
+        if not port or DistributedMagics._metrics_httpd is not None \
+                or self._comm is None:
+            return
+        from ..observability import httpd as obs_httpd
+        try:
+            DistributedMagics._metrics_httpd = obs_httpd.start_for_comm(
+                self._comm, port=port)
+            print(f"📈 scrape endpoint: http://127.0.0.1:"
+                  f"{DistributedMagics._metrics_httpd.port}/metrics "
+                  f"(/healthz, /latency.json)")
+        except OSError as e:
+            print(f"⚠️ metrics endpoint not started "
+                  f"(NBD_METRICS_PORT={port}): {e}")
+
     def _announce_death(self, rank: int, rc: int | None) -> None:
         # Runs on the monitor thread; a print is best-effort context.
         print(f"\n💀 worker {rank} exited (code {rc}). "
-              "%dist_status / %dist_reset")
+              "%dist_status / %dist_heal [--restore ckpt] / %dist_reset")
+        # Automatic postmortem: recover the dead rank's flight ring and
+        # last telemetry NOW, while the evidence is fresh.  When a
+        # supervisor is attached it owns capture (on its own thread,
+        # before the heal destroys the world); otherwise this monitor-
+        # thread capture is the only shot.
+        if DistributedMagics._supervisor is None \
+                and DistributedMagics._comm is not None:
+            from ..observability import postmortem as pm_mod
+            manifest = pm_mod.capture(
+                DistributedMagics._comm, [rank],
+                reason=f"worker {rank} exited (code {rc})")
+            if manifest is not None:
+                print(f"🛩  postmortem bundle → {manifest['dir']} "
+                      f"(%dist_postmortem --last)")
+
+    def dist_heal(self, line):
+        """Recover from worker death: tear the remnants down, respawn
+        the world with the SAME ``%dist_init`` configuration, and
+        optionally restore a checkpoint into the fresh namespaces.
+
+        A ``torch.distributed`` process group is fixed-membership — a
+        dead rank cannot rejoin a live communicator — so recovery is a
+        full restart + state restore: pair with periodic
+        ``%dist_checkpoint path names --background`` and healing costs
+        one respawn plus one restore, not a lost session.  Each rank
+        respawns on its GPU (a rank that cannot get its card fails the
+        heal) and joins a fresh rendezvous port; the restore binds new
+        tensors on each leaf's recorded device, so re-run the cell that
+        builds the step function after it."""
+        args = _parse("dist_heal", line)
+        replay = DistributedMagics._last_init_line
+        if replay is None:
+            print("❌ nothing to heal from: no successful %dist_init "
+                  "recorded in this session")
+            return
+        dead: list[int] = []
+        pm = DistributedMagics._pm
+        if pm is not None and self._running():
+            alive = set(pm.alive_ranks())
+            dead = sorted(set(range(self._world)) - alive)
+            if not dead and not args.force:
+                print(f"✅ all {self._world} workers alive; nothing to "
+                      f"heal (--force rebuilds anyway)")
+                return
+        print(f"🩹 healing: dead ranks {dead if dead else '(world down)'}"
+              f" — rebuilding with: %dist_init {replay}")
+        sup = DistributedMagics._supervisor  # survives a manual heal
+        DistributedMagics._healing = True    # so does the watchdog
+        try:
+            # Tears down this kernel's fleet only (the process groups
+            # of its workers), as %dist_shutdown does.
+            self.shutdown_all()
+            self.dist_init(replay)
+        finally:
+            DistributedMagics._healing = False
+        if not self._running():
+            print("❌ heal failed: the replayed %dist_init did not "
+                  "bring the world up")
+            if sup is not None and not sup.on_own_thread():
+                print("⚠️ supervision was stopped by this heal and is "
+                      "now OFF — %dist_supervise on after recovery")
+            return
+        if args.restore:
+            self.dist_restore(args.restore)
+        if sup is not None and not sup.on_own_thread():
+            # Manual heal with supervision active: re-bind the
+            # supervisor to the fresh world (shutdown_all stopped it).
+            # The supervisor-driven path re-binds itself from the heal
+            # callback's return value instead.
+            sup.attach(self._comm, self._pm)
+            DistributedMagics._supervisor = sup
+
+    # ==================================================================
+    # resilience: auto-heal supervision, the training guard
+
+    def _supervised_heal(self, force: bool = False):
+        """Heal callback the supervisor runs on worker death: replay
+        the recorded %dist_init, restore the last checkpoint (when one
+        was taken), hand the fresh (comm, pm) back for re-binding.
+        ``force``: rebuild a world whose workers are all alive — the
+        watchdog's heal rung (:meth:`_watchdog_heal`), whose hung ranks
+        are alive by definition."""
+        line = "--force" if force else ""
+        ckpt = DistributedMagics._last_ckpt_path
+        if ckpt:
+            # Verbatim, NOT shlex-quoted: arg_split keeps quote
+            # characters inside the token (non-posix), so
+            # _last_ckpt_path already holds exactly the token the user
+            # typed; re-emitting it unchanged reproduces the same token
+            # through dist_heal's parse.
+            line += f" --restore {ckpt}"
+        print("\n🛡  supervisor: auto-healing...")
+        self.dist_heal(line.strip())
+        if not self._running():
+            raise RuntimeError("auto-heal failed: the replayed "
+                               "%dist_init did not bring the world up")
+        return DistributedMagics._comm, DistributedMagics._pm
+
+    def _watchdog_heal(self):
+        """The watchdog's heal rung: a forced :meth:`_supervised_heal`.
+        The JAX package wires the unforced callback, whose
+        ``%dist_heal`` finds every hung rank alive, rebuilds nothing and
+        hands the same world back; the watchdog then re-detects the
+        hang and heals "again" every poll (ROADMAP queue A)."""
+        return self._supervised_heal(force=True)
+
+    def dist_supervise(self, line):
+        """Auto-heal supervisor: watches process deaths + heartbeat
+        staleness; on death, takes a postmortem bundle, replays
+        %dist_init and restores the last %dist_checkpoint, within a
+        capped restart budget.  ``%dist_supervise on [knobs] | off |
+        status``; every transition also shows in %dist_status."""
+        from ..resilience.supervisor import Supervisor, SupervisorPolicy
+        args = _parse("dist_supervise", line)
+        sup = DistributedMagics._supervisor
+        if args.command == "off":
+            if sup is None:
+                print("supervisor: not running")
+                return
+            sup.stop()
+            DistributedMagics._supervisor = None
+            print("✅ supervisor stopped")
+            self._note_supervised(False)
+            return
+        if args.command == "status":
+            if sup is None:
+                print("supervisor: not running (%dist_supervise on)")
+            else:
+                print(sup.describe())
+            return
+        if not self._require_cluster():
+            return
+        if sup is not None:
+            sup.stop()
+        policy = SupervisorPolicy(
+            degraded_after_s=args.degraded_after,
+            max_restarts=args.max_restarts,
+            restart_window_s=args.window,
+            auto_heal=not args.no_auto)
+        sup = Supervisor(policy, heal=self._supervised_heal)
+        sup.attach(self._comm, self._pm)
+        DistributedMagics._supervisor = sup
+        self._note_supervised(True)
+        print(f"✅ supervising {self._world} workers: auto-heal "
+              f"{'ON' if policy.auto_heal else 'OFF'}, budget "
+              f"{policy.max_restarts} restarts/{policy.restart_window_s:.0f}s, "
+              f"degraded after {policy.degraded_after_s:.0f}s silence"
+              + ("" if DistributedMagics._last_ckpt_path else
+                 " · no checkpoint yet — heal will restore nothing "
+                 "(%dist_checkpoint to protect state)"))
+
+    @staticmethod
+    def _note_supervised(on: bool) -> None:
+        """Record the supervision flag in the session manifest (its
+        reattach, %dist_attach, is A5.6)."""
+        from ..resilience import session as session_mod
+        d = _knobs.get_str("NBD_RUN_DIR")
+        if d:
+            session_mod.update_manifest(d, supervised=on)
+
+    def dist_guard(self, line):
+        """Training-integrity guard control: ``%dist_guard`` reports
+        each rank's TrainGuard (skips, audits, repairs, rollbacks,
+        quarantine suspects); ``on``/``off`` toggles the host-side
+        machinery; ``audit`` forces a replica-consistency audit now on
+        every rank (the fan-out is what keeps the audit's all-gather
+        aligned)."""
+        args = _parse("dist_guard", line)
+        if not self._require_cluster():
+            return
+        action = args.command
+        try:
+            resps = self._comm.send_to_all("guard", {"action": action},
+                                           timeout=60)
+        except Exception as e:
+            print(f"❌ guard {action} failed: {e}")
+            return
+        for r in sorted(resps):
+            d = resps[r].data or {}
+            if d.get("error"):
+                print(f"🔹 rank {r}: ⚠ {d['error']}")
+                continue
+            if not d.get("active"):
+                print(f"🔹 rank {r}: enabled={d.get('enabled')} · "
+                      f"no live TrainGuard")
+                continue
+            line_out = (f"🔹 rank {r}: step {d.get('step')} · "
+                        f"skips {d.get('skips')} "
+                        f"(streak {d.get('skip_streak')}/"
+                        f"{d.get('skip_budget')}) · "
+                        f"audits {d.get('audits')} "
+                        f"(last @{d.get('last_audit_step')}: "
+                        f"{d.get('last_verdict')}) · "
+                        f"repairs {d.get('repairs')} · "
+                        f"rollbacks {d.get('rollbacks')}")
+            if d.get("suspects"):
+                line_out += f" · 🔶 suspects {d['suspects']}"
+            print(line_out)
+        if action == "audit":
+            print("✅ audit fanned out to every rank")
+        elif action in ("on", "off"):
+            print(f"✅ guard {action}")
+
+    # ==================================================================
+    # hang watchdog + stuck-cell doctor
+
+    def _maybe_start_watchdog(self) -> None:
+        """Arm (or, after a heal, re-bind) the hang watchdog for the
+        world that just came up.  Policy comes from the NBD_HANG_* env
+        knobs (NBD_HANG=0 disables; %dist_watchdog reconfigures)."""
+        from ..resilience.watchdog import HangPolicy, HangWatchdog
+        wd = DistributedMagics._watchdog
+        if wd is not None:
+            # Heal path: the surviving watchdog re-binds to the fresh
+            # world, keeping any %dist_watchdog-customized policy —
+            # before any env parsing, so it never keeps watching the
+            # torn-down world's comm/pm.
+            wd.attach(self._comm, self._pm)
+            return
+        try:
+            policy = HangPolicy.from_env()
+        except ValueError as e:
+            print(f"⚠️ hang watchdog NOT started: {e}")
+            return
+        if not policy.enabled:
+            return
+        wd = HangWatchdog(policy, heal=self._watchdog_heal)
+        wd.attach(self._comm, self._pm)
+        DistributedMagics._watchdog = wd
+
+    @staticmethod
+    def _hang_piggyback_off() -> bool:
+        """Workers gate the heartbeat collective-position piggyback on
+        NBD_HANG at SPAWN time: with it off, a coordinator-side
+        watchdog can only ever see coarse busy state (stall detection;
+        no skew, no --deadline)."""
+        return not _knobs.get_bool("NBD_HANG", True)
+
+    def dist_watchdog(self, line):
+        """Collective hang watchdog: compares every rank's position in
+        the collective stream (piggybacked on heartbeats; the seeded
+        ``dist``'s collectives count) and flags a cell HUNG — cross-rank
+        skew, absolute stall, or a blown ``%%distributed --deadline`` —
+        distinct from merely slow, then walks the escalation ladder:
+        warn → stack-dump (SIGUSR1) → interrupt → heal.
+        ``%dist_watchdog on [knobs] | off | status``; armed at
+        %dist_init unless NBD_HANG=0.
+
+        On NCCL, ``interrupt`` breaks a cell looping in Python, and its
+        worker survives; it cannot break a rank blocked in CUDA behind
+        a collective its peer never joined (the SIGINT waits for the
+        main thread to return to Python, and the collective stays
+        enqueued): only ``heal`` clears that.  The process group's
+        timeout (120 s) bounds every NCCL collective as well: when it
+        fires, torch aborts the communicator and the rank exits, which
+        the supervisor reads as a death.  So with ``heal`` on the
+        ladder, keep ``--stall``/``--skew`` plus the ladder's grace
+        steps well inside 120 s (the default stall window is 120 s)."""
+        from ..resilience.watchdog import (HangPolicy, HangWatchdog,
+                                           parse_ladder)
+        args = _parse("dist_watchdog", line)
+        wd = DistributedMagics._watchdog
+        if args.command != "on" and any(
+                v is not None for v in (args.skew, args.stall,
+                                        args.poll, args.grace,
+                                        args.escalate)):
+            # Knobs without 'on' would be parsed and silently dropped
+            # — the user would believe the policy changed.
+            print("❌ policy flags require the 'on' subcommand "
+                  "(%dist_watchdog on --stall ...); nothing changed")
+            return
+        if args.command == "off":
+            if wd is None:
+                print("hang watchdog: not running")
+                return
+            wd.stop()
+            DistributedMagics._watchdog = None
+            print("✅ hang watchdog stopped")
+            return
+        if args.command == "status":
+            if wd is None:
+                print("hang watchdog: not running (%dist_watchdog on)")
+            else:
+                print(wd.describe())
+            return
+        if not self._require_cluster():
+            return
+        # Lenient env parse: a typo'd NBD_HANG_ESCALATE must not wedge
+        # the one command that can fix it.
+        base = (wd.policy if wd is not None
+                else HangPolicy.from_env_lenient())
+        try:
+            policy = HangPolicy(
+                enabled=True,
+                poll_s=args.poll if args.poll is not None
+                else base.poll_s,
+                skew_s=args.skew if args.skew is not None
+                else base.skew_s,
+                stall_s=args.stall if args.stall is not None
+                else base.stall_s,
+                grace_s=args.grace if args.grace is not None
+                else base.grace_s,
+                escalate=parse_ladder(args.escalate.strip("'\""))
+                if args.escalate is not None else base.escalate)
+        except ValueError as e:
+            print(f"❌ {e}")
+            return
+        if wd is not None:
+            # Reconfigure the LIVE instance: a policy change mid-hang
+            # must not zero ladder progress, counters, or history.
+            wd.set_policy(policy)
+        else:
+            wd = HangWatchdog(policy, heal=self._watchdog_heal)
+            wd.attach(self._comm, self._pm)
+            DistributedMagics._watchdog = wd
+        print(f"✅ hang watchdog ON: {policy.describe()}")
+        if self._hang_piggyback_off():
+            print("   ⚠ NBD_HANG=0: workers spawned with it send no "
+                  "collective positions — skew/--deadline detection "
+                  "is unavailable (coarse busy-stall only); unset "
+                  "NBD_HANG and re-%dist_init for full detection")
+        if "heal" in policy.escalate \
+                and not DistributedMagics._last_ckpt_path:
+            print("   · no checkpoint yet — a heal step would restore "
+                  "nothing (%dist_checkpoint to protect state)")
+
+    def dist_doctor(self, line):
+        """The stuck-cell doctor: one report naming the lagging
+        rank(s) and the divergence point — per-rank collective
+        positions and busy ages, the skew table, in-flight requests,
+        watchdog verdicts, freshly dumped all-thread stacks (SIGUSR1 →
+        faulthandler, per-rank files under the run dir), and each
+        flight ring's last events.  Works mid-hang: nothing here goes
+        through the workers' (possibly wedged) serial request
+        loops."""
+        if self._pm is None or self._comm is None:
+            print("❌ No cluster. %dist_init to start one.")
+            return
+        from ..resilience.watchdog import hang_report
+        args = _parse("dist_doctor", line)
+        ex = DistributedMagics._async_exec
+        report = hang_report(self._comm, self._pm,
+                             DistributedMagics._watchdog,
+                             dump_stacks=not args.no_stacks,
+                             async_window=(ex.snapshot()
+                                           if ex is not None else None))
+        print(report)
+        if args.save:
+            try:
+                with open(args.save, "w") as f:
+                    f.write(report + "\n")
+                print(f"✅ report → {args.save}")
+            except OSError as e:
+                print(f"❌ could not write {args.save}: {e}")
 
     # ==================================================================
     # pre-dispatch cell vetting
@@ -1184,7 +1666,8 @@ class DistributedMagics:
             self._sync_ide_quietly()
 
     def _run_async(self, code: str, ranks: list[int], *,
-                   repeat=None, until=None, vet_s=None):
+                   deadline_s=None, repeat=None, until=None,
+                   vet_s=None):
         """Submit one cell through the async window and return its
         CellFuture (the cell magic's return value — IPython's display
         hook echoes the pending handle; the executor resolves it when
@@ -1205,8 +1688,9 @@ class DistributedMagics:
         self._timeline.finish(rec, None)
         try:
             fut = ex.submit_cell(
-                code, ranks, entry=entry, sha=sha, repeat=repeat,
-                until=until, vet_s=vet_s)
+                code, ranks, entry=entry, sha=sha,
+                deadline_s=deadline_s, repeat=repeat, until=until,
+                vet_s=vet_s)
         except KeyboardInterrupt:
             print("🛑 interrupted while held at the window gate — "
                   "nothing was submitted (%dist_wait drains the "
@@ -1229,10 +1713,12 @@ class DistributedMagics:
 
     def distributed(self, line, cell):
         """Run the cell on every worker (reference: magic.py:1042-1129).
-        ``--async`` streams the cell through the bounded in-flight
-        window and returns a pending future; ``--strict`` blocks it on
-        an error-severity finding; ``--repeat K [--until EXPR]``
-        compiles once and loops worker-side."""
+        ``--deadline 60`` arms a per-cell budget the hang watchdog
+        enforces through its escalation ladder.  ``--async`` streams
+        the cell through the bounded in-flight window and returns a
+        pending future; ``--strict`` blocks it on an error-severity
+        finding; ``--repeat K [--until EXPR]`` compiles once and loops
+        worker-side."""
         self._warn_unconsumed_async()
         if not self._require_cluster():
             return
@@ -1241,8 +1727,6 @@ class DistributedMagics:
         except Exception as e:
             print(f"❌ {e}")
             return
-        if args.deadline is not None:
-            raise _not_ported("%%distributed --deadline", "A5.4")
         if args.priority is not None:
             raise _not_ported("%%distributed --priority", "A5.6")
         if args.use_async and args.use_sync:
@@ -1265,6 +1749,15 @@ class DistributedMagics:
         if args.repeat is not None and args.repeat < 1:
             print("❌ --repeat needs K >= 1")
             return
+        if args.deadline is not None:
+            if DistributedMagics._watchdog is None:
+                print("⚠️ --deadline set but the hang watchdog is off "
+                      "(%dist_watchdog on) — the budget will not be "
+                      "enforced")
+            elif self._hang_piggyback_off():
+                print("⚠️ --deadline set but workers were spawned "
+                      "with NBD_HANG=0 (no heartbeat piggyback) — "
+                      "the budget will not be enforced")
         t_vet = time.monotonic()
         if not self._vet_cell(cell, list(range(self._world)),
                               strict=args.strict):
@@ -1278,10 +1771,12 @@ class DistributedMagics:
             # the replies land.  Its admission gate consults the
             # footprint _vet_cell just recorded.
             return self._run_async(
-                cell, list(range(self._world)), repeat=args.repeat,
+                cell, list(range(self._world)),
+                deadline_s=args.deadline, repeat=args.repeat,
                 until=args.until, vet_s=time.monotonic() - t_vet)
         result = self._run_on_ranks(cell, list(range(self._world)),
                                     kind="distributed",
+                                    deadline_s=args.deadline,
                                     vet_s=time.monotonic() - t_vet,
                                     repeat=args.repeat,
                                     until=args.until)
@@ -1445,6 +1940,13 @@ class DistributedMagics:
                         and now - ping[0] < 3 * HEARTBEAT_INTERVAL_S):
                     busy[r] = {"type": ping[1].get("busy_type"),
                                "s": ping[1]["busy_s"] + (now - ping[0])}
+                    col = ping[1].get("col")
+                    # Seconds since the rank last ENTERED a collective
+                    # — a long cell actively advancing through
+                    # collectives is busy, never stalled.
+                    busy[r]["col_age"] = (
+                        (col.get("age") or 0) + (now - ping[0])
+                        if col else None)
         idle = [r for r in alive if r not in busy]
         if self._comm is not None and idle:
             try:
@@ -1464,6 +1966,28 @@ class DistributedMagics:
                   f" · epoch {self._comm.session_epoch}")
         connected = (set(self._comm.connected_ranks())
                      if self._comm is not None else None)
+        # Stall threshold for the ⚠ state: the active watchdog's
+        # verdicts, else the env-configured window — a rank busy beyond
+        # it is rendered stalled even without a watchdog.
+        wd = DistributedMagics._watchdog
+        stalled: set = set()
+        if wd is not None:
+            # An armed watchdog is the authority: a rank is stalled
+            # when its current assessment says HUNG, never merely
+            # long-busy (the "distinct from slow" contract).
+            for v in wd.last_verdicts:
+                stalled.update(v.get("ranks") or ())
+        else:
+            from ..resilience.watchdog import HangPolicy
+            pol = HangPolicy.from_env_lenient()
+            # NBD_HANG=0 turns hang detection OFF everywhere — a long
+            # legitimate cell must then render busy, never stalled.
+            if pol.enabled:
+                for r, b in busy.items():
+                    if b["s"] > pol.stall_s and (
+                            b.get("col_age") is None
+                            or b["col_age"] > pol.stall_s):
+                        stalled.add(r)
         for rank_id in sorted(proc_status):
             p = proc_status[rank_id]
             if not p["running"]:
@@ -1471,6 +1995,11 @@ class DistributedMagics:
             elif connected is not None and rank_id not in connected:
                 # Process alive but not attached to THIS coordinator.
                 state = "◌ orphaned"
+            elif rank_id in stalled:
+                # Alive and heartbeating, but stuck by the watchdog's
+                # assessment (or, unarmed, busy past the stall window
+                # with zero collective progress).
+                state = "⚠ stalled"
             else:
                 state = "● running"
             line_txt = f"├─ Rank {rank_id}: pid {p['pid']} {state}"
@@ -1533,6 +2062,11 @@ class DistributedMagics:
                          if snap["errored"] else "")
                       + (f", held {snap['held_total']}×"
                          if snap["held_total"] else ""))
+        sup = DistributedMagics._supervisor
+        if sup is not None:
+            print(sup.describe())
+        if wd is not None:
+            print(wd.describe())
         plan = self._comm.fault_plan() if self._comm is not None else None
         if plan is not None:
             print(f"💥 chaos active (coordinator side): {plan.counters}")
@@ -2387,6 +2921,9 @@ class DistributedMagics:
         from ..observability.telemetry import hbm_totals
         from ..runtime.worker import HEARTBEAT_INTERVAL_S
         comm, pm = self._comm, self._pm
+        sup_states = {}
+        if DistributedMagics._supervisor is not None:
+            sup_states = DistributedMagics._supervisor.status()["states"]
         proc = pm.get_status()
         now = time.time()
         print(f"⏱  cluster top · {self._world} workers · backend="
@@ -2413,6 +2950,8 @@ class DistributedMagics:
             tel = comm.last_telemetry(r) or {}
             if not p.get("running", False):
                 state = f"✖ dead({p.get('returncode')})"
+            elif sup_states.get(r) in ("degraded", "healing"):
+                state = "◐ " + sup_states[r]
             elif (ping is not None
                     and now - ping[0] > 3 * HEARTBEAT_INTERVAL_S):
                 state = "◐ stale"
@@ -2484,28 +3023,79 @@ class DistributedMagics:
               f"run dir {_knobs.get_str('NBD_RUN_DIR', '(unset)')}")
 
     # ==================================================================
+    # crash postmortems
+
+    def dist_postmortem(self, line):
+        """Crash postmortems from the always-on flight recorder.
+
+        Default: capture a fresh bundle NOW — recover every process's
+        flight ring (including rings left by dead/SIGKILLed workers),
+        attach the last heartbeat telemetry per rank, coordinator
+        spans, and fault-plan decisions, merge everything into one
+        clock-aligned Chrome trace, and print the report.  ``--last``
+        re-prints the newest existing bundle (e.g. the one the
+        supervisor captured before auto-healing); ``--save DIR``
+        captures into a directory of your choosing."""
+        args = _parse("dist_postmortem", line)
+        from ..observability import postmortem as pm_mod
+        if args.last:
+            sup = DistributedMagics._supervisor
+            bundle = None
+            if sup is not None and sup.last_postmortem is not None:
+                bundle = sup.last_postmortem["dir"]
+            else:
+                bundles = pm_mod.list_bundles()
+                bundle = bundles[-1] if bundles else None
+            if bundle is None:
+                print("❌ no postmortem bundle captured yet in this "
+                      "run (%dist_postmortem captures one on demand)")
+                return
+            try:
+                with open(os.path.join(bundle, "report.txt")) as f:
+                    print(f.read())
+            except OSError as e:
+                print(f"❌ could not read {bundle}: {e}")
+            return
+        if self._comm is None:
+            print("❌ no coordinator in this session — use "
+                  "%dist_postmortem --last to view an existing bundle")
+            return
+        dead = []
+        if self._pm is not None:
+            alive = set(self._pm.alive_ranks())
+            dead = sorted(set(range(self._world)) - alive)
+        # A capture taken mid-hang keeps the doctor's diagnosis next
+        # to the black boxes (read-only: no stack-dump signal here —
+        # the bundle must not perturb what it records).
+        hang = None
+        wd = DistributedMagics._watchdog
+        if wd is not None and (wd.last_verdicts or wd.status()["active"]):
+            from ..resilience.watchdog import hang_report
+            try:
+                hang = hang_report(self._comm, self._pm, wd,
+                                   dump_stacks=False)
+            except Exception:
+                hang = None
+        manifest = pm_mod.capture(self._comm, dead, out_dir=args.save,
+                                  reason="on demand (%dist_postmortem)",
+                                  hang_report=hang)
+        if manifest is None:
+            print("❌ postmortem capture failed (is the run directory "
+                  "writable?)")
+            return
+        try:
+            with open(os.path.join(manifest["dir"], "report.txt")) as f:
+                print(f.read())
+        except OSError:
+            pass
+        print(f"✅ bundle → {manifest['dir']} (trace.json loads in "
+              f"ui.perfetto.dev)")
+
+    # ==================================================================
     # magics of later slices: registered, raising with their entry
 
     def _deferred(self, name: str):
         raise _not_ported(f"%{name}", _DEFERRED[name])
-
-    def dist_heal(self, line):
-        self._deferred("dist_heal")
-
-    def dist_supervise(self, line):
-        self._deferred("dist_supervise")
-
-    def dist_watchdog(self, line):
-        self._deferred("dist_watchdog")
-
-    def dist_doctor(self, line):
-        self._deferred("dist_doctor")
-
-    def dist_postmortem(self, line):
-        self._deferred("dist_postmortem")
-
-    def dist_guard(self, line):
-        self._deferred("dist_guard")
 
     def dist_attach(self, line):
         self._deferred("dist_attach")
@@ -2604,8 +3194,31 @@ class DistributedMagics:
     @classmethod
     def shutdown_all(cls) -> None:
         """Polite tier: control-plane shutdown broadcast, then process
-        teardown (reference: magic.py:1005-1036)."""
-        # An in-flight background save dies with its world.
+        teardown (reference: magic.py:1005-1036).  Stops the
+        supervisor, the watchdog and the scrape endpoint — except that
+        a heal keeps the watchdog (it re-binds to the healed world) and
+        a supervisor or watchdog tearing down from its own thread keeps
+        itself."""
+        sup = cls._supervisor
+        if sup is not None and not sup.on_own_thread():
+            # A user-initiated shutdown ends supervision; when the
+            # SUPERVISOR is the caller (mid-heal, tearing down the old
+            # world before respawning), it must stay alive.
+            sup.stop()
+            cls._supervisor = None
+        wd = cls._watchdog
+        if wd is not None and not wd.on_own_thread() \
+                and not cls._healing:
+            # Same own-thread rule: a watchdog-driven heal goes through
+            # this teardown; the watchdog re-binds to the healed world
+            # instead of stopping itself mid-ladder.  During ANY
+            # %dist_heal (_healing) the instance likewise survives so
+            # the replayed %dist_init re-binds it.
+            wd.stop()
+            cls._watchdog = None
+        # An in-flight background save dies with its world; its
+        # per-rank doneness must not leak into the next world and
+        # promote a half-written checkpoint as the heal target.
         cls._clear_bg_ckpt()
         if cls._pm is not None:
             cls._pm.quiesce()  # planned exits are not deaths
@@ -2624,6 +3237,12 @@ class DistributedMagics:
                 cls._pm.shutdown()
             except Exception:
                 pass
+        if cls._metrics_httpd is not None:
+            try:
+                cls._metrics_httpd.close()
+            except Exception:
+                pass
+            cls._metrics_httpd = None
         inst = cls._instance
         if inst is not None:
             try:

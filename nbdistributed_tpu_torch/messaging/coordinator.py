@@ -1070,5 +1070,25 @@ class CommunicationManager:
     # ------------------------------------------------------------------
 
     def shutdown(self) -> None:
-        """Tear down the listener (reference: communication.py:372-389)."""
+        """Tear down the listener (reference: communication.py:372-389)
+        and fail every request still pending: its ranks are about to be
+        torn down with this manager, so no reply will come.  (The JAX
+        package's shutdown leaves them to their timeout: a cell the
+        hang watchdog heals under stays blocked in the notebook for its
+        ``-t``, forever without one.)"""
         self._listener.close()
+        with self._lock:
+            stale = list(self._pending.items())
+            self._pending.clear()
+        for mid, p in stale:
+            failure = WorkerDied(f"request {mid} aborted: the coordinator "
+                                 "shut down while it was pending")
+            failure.msg_id = mid
+            p.failure = failure
+            p.event.set()
+            cb = p.on_done
+            if cb is not None:
+                try:
+                    cb()
+                except Exception:
+                    pass

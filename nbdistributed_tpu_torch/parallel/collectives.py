@@ -33,6 +33,7 @@ from ..observability.spans import maybe_span as _maybe_span
 from ..runtime.collective_guard import check as _guard_check
 from ..runtime.collective_guard import done as _guard_done
 from ..runtime.collective_guard import nested as _guard_nested
+from ..runtime.tracked_dist import completion_probe as _completion_probe
 
 __all__ = ["all_gather", "all_reduce", "all_reduce_quantized", "barrier",
            "broadcast", "gather", "rank", "reduce", "reduce_scatter",
@@ -58,16 +59,20 @@ def _instrumented(name: str):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
             t0 = time.perf_counter()
+            probe = None
             try:
                 with _maybe_span(f"collective/{name}", kind="collective"):
                     out = fn(*args, **kwargs)
+                # An NCCL op returned at enqueue: the guard keeps it in
+                # flight until the card has done it.
+                probe = _completion_probe()
             finally:
                 # Mark the guard's progress stream not-in-flight even
                 # when the op raised (hazard error, interrupt) — the
                 # watchdog must not keep seeing a long-dead entry as
                 # "still inside".  Nested composite internals are
                 # suppressed by the guard itself.
-                _guard_done(name)
+                _guard_done(name, probe)
             calls.inc()
             hist.observe(time.perf_counter() - t0)
             return out

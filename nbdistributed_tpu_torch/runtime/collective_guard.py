@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import threading
 import time
 
 
@@ -67,6 +68,11 @@ _state: dict = {"targets": None, "world": 0, "ops": 0, "nested": 0}
 # may block — how a test freezes a rank "inside" a collective.
 _snap: tuple | None = None
 _freeze_hook = None
+# The in-flight entry's completion probe, ``(seq, callable)`` (None:
+# done on return).  ``_lock`` orders the heartbeat thread's "probe
+# says complete" write after any newer entry the main thread made.
+_probe = None
+_lock = threading.Lock()
 
 
 def set_freeze_hook(fn) -> None:
@@ -85,10 +91,22 @@ def progress() -> dict | None:
     still inside it, seconds since entry (monotonic clock), and the
     current cell's op count.  ``None`` before the first collective
     (keeps idle pings small)."""
+    global _snap
     s = _snap
     if s is None:
         return None
     seq, op, t, in_flight = s
+    pr = _probe
+    if in_flight and pr is not None and pr[0] == seq:
+        try:
+            complete = bool(pr[1]())
+        except Exception:
+            complete = True     # a dead probe must not pin "in"
+        if complete:
+            with _lock:
+                if _snap is s:
+                    _snap = (seq, op, t, False)
+                    in_flight = False
     return {"seq": seq, "op": op, "in": in_flight,
             "age": round(time.monotonic() - t, 3),
             "cops": _state["ops"]}
@@ -133,22 +151,34 @@ def cell_hash(code: str) -> str:
     return hashlib.sha1(code.encode()).hexdigest()[:12]
 
 
-def check(op: str) -> None:
-    """Entry hook for each eager world-collective.  Advances the
-    progress stream (the watchdog's skew signal) BEFORE the hazard
-    check so even a call that raises is on record, then runs the
-    chaos freeze hook — which may block this rank right here, the
-    deterministic stand-in for "wedged inside a collective"."""
-    global _snap
+def enter(op: str) -> bool:
+    """Advance the progress stream for one world-collective entry and
+    run the chaos freeze hook — which may block this rank right here,
+    the deterministic stand-in for "wedged inside a collective".  No
+    hazard check: the seeded ``dist``'s entry point.  Returns False
+    (nothing recorded) inside a composite."""
+    global _snap, _probe
     if _state["nested"]:
-        return                  # implementation detail of a composite
+        return False            # implementation detail of a composite
     _state["ops"] += 1
-    prev = _snap
-    seq = (prev[0] if prev is not None else 0) + 1
-    _snap = (seq, op, time.monotonic(), True)
+    with _lock:
+        prev = _snap
+        seq = (prev[0] if prev is not None else 0) + 1
+        _probe = None
+        _snap = (seq, op, time.monotonic(), True)
     fz = _freeze_hook
     if fz is not None:
         fz(op, seq)
+    return True
+
+
+def check(op: str) -> None:
+    """Entry hook for each eager world-collective.  Advances the
+    progress stream (the watchdog's skew signal) BEFORE the hazard
+    check so even a call that raises is on record, then the hazard
+    check."""
+    if not enter(op):
+        return
     targets, world = _state["targets"], _state["world"]
     if targets is not None and world and len(targets) < world:
         raise CollectiveHazardError(
@@ -160,22 +190,38 @@ def check(op: str) -> None:
             f"cells to rank-local work.")
 
 
-def done(op: str) -> None:
+def done(op: str, probe=None) -> None:
     """Exit hook for each eager world-collective (called by the
     ``_instrumented`` wrapper in a ``finally``, so an op that raised
     — hazard error, interrupt — is still marked not-in-flight).
-    Nested composite internals are suppressed like :func:`check`."""
-    global _snap
+    ``probe``: a zero-argument callable true once the collective's work
+    has completed (an NCCL op returns at enqueue); the entry then stays
+    in flight until :func:`progress` finds it true.  Nested composite
+    internals are suppressed like :func:`check`."""
+    global _snap, _probe
     if _state["nested"]:
         return
-    s = _snap
-    if s is not None and s[3]:
-        _snap = (s[0], s[1], s[2], False)
+    if probe is not None:
+        try:
+            pending = not probe()
+        except Exception:
+            pending = False
+        if pending:
+            s = _snap
+            if s is not None and s[3]:
+                _probe = (s[0], probe)
+            return
+    with _lock:
+        s = _snap
+        if s is not None and s[3]:
+            _probe = None
+            _snap = (s[0], s[1], s[2], False)
 
 
 def reset_progress() -> None:
     """Test helper: forget the progress stream (and any freeze hook)
     so suites that re-enter worlds start from seq 0."""
-    global _snap, _freeze_hook
+    global _snap, _freeze_hook, _probe
     _snap = None
     _freeze_hook = None
+    _probe = None

@@ -366,7 +366,6 @@ class DistributedWorker:
         the pipeline's ``pipeline_forward`` and ``shard_stage_params``."""
         import numpy as np
         import torch
-        import torch.distributed as dist
 
         from .. import models
         from ..parallel import collectives, expert, mesh as mesh_mod
@@ -376,11 +375,14 @@ class DistributedWorker:
         from ..parallel.tensor_parallel import apply_shardings
         from ..parallel.ulysses import ulysses_attention
         from ..utils import data as data_mod
+        from .tracked_dist import TrackedDist
 
         ns = {
             "torch": torch,
             "np": np,
-            "dist": dist,
+            # torch.distributed, its world collectives on the hang
+            # watchdog's progress stream (runtime/tracked_dist.py).
+            "dist": TrackedDist(),
             "rank": self.rank,
             "world_size": self.world_size,
             "gpu_id": self.gpu_id if self.backend == "gpu" else None,
