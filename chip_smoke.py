@@ -292,7 +292,29 @@ Phases (each prints one or more lines; any failure exits non-zero):
    ``%dist_guard status`` and ``audit`` on phase 22's guarded step;
    the step's time with the watchdog armed against a world spawned
    with ``NBD_HANG=0``.  Cells go to
-   ``chiprun_out/supervision_cells_n<ranks>.json``.
+   ``chiprun_out/supervision_cells_n<ranks>.json``;
+26. (run after phase 25) the gateway's tenant plane: ``%dist_pool
+   start -n 1 --backend gpu --mesh-slots 1 --queue-depth 2
+   --tenant-inflight 2 --max-tenants 3`` spawns a gateway daemon and
+   its GPU rank; tenant alice (``%dist_attach --tenant alice``, the
+   magics) runs phase 11's step as two ``%%distributed`` cells, losses
+   equal to phase 11's to the last bit, K1/K2/K3 60/30/30 a step;
+   tenant bob (a raw ``TenantClient``) serves phase 17's requests in
+   his namespace, streams equal, K4 once per layer per decode step,
+   alice's names not in his namespace; admission: a fourth tenant's
+   hello refused, carol's cells queued at positions 1 and 2 while bob
+   holds the mesh (``%dist_pool status`` naming rank 0 busy for bob),
+   her third rejected at her in-flight cap, alice's ``--priority 0``
+   cell shed with its visible verdict; alice's connection dropped
+   mid-cell, her result parked and delivered exactly once at
+   ``%dist_attach --tenant alice`` (epoch 2), a third connection
+   fencing the second; a single-kernel session in a child process
+   (``%dist_init -n 1``, a CUDA tensor, a running cell) SIGKILLed and
+   adopted by ``%dist_attach``: the tensor's checksum unchanged, the
+   cell's output delivered once, ``%dist_gc --dry-run`` keeping the
+   live pool's run dir; ``%dist_pool stop``: the daemon and every rank
+   gone, free card memory back within 1 GB.  Cells go to
+   ``chiprun_out/pool_cells_n1.json``.
 
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
@@ -306,8 +328,8 @@ mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
 (``train_remat_dots``) and phase 22's (``train_guard_*``,
 ``train_checkpoint``, ``cluster_guard``), phase 23's
 (``notebook_serve``, ``notebook_train``), phase 24's
-(``notebook_async_serve``, ``notebook_async_train``) and phase 25's
-(``supervision_*``).
+(``notebook_async_serve``, ``notebook_async_train``), phase 25's
+(``supervision_*``) and phase 26's (``pool_train``, ``pool_serve``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
 ranks, phase 22's guarded replicas, phases 23 and 24
@@ -316,7 +338,11 @@ phase 25's hung collective (``if rank != 3: dist.all_reduce(t)`` then
 ``t.item()``, ``%dist_lint off``, ladder warn,dump,heal: a ``skew``
 verdict naming the ranks stuck inside the all-reduce and rank 3 that
 finished, their stacks at the ``.item()`` line, the world healed well
-inside the 120 s NCCL timeout and all-reducing 4.0) alone on four
+inside the 120 s NCCL timeout and all-reducing 4.0) and phase 26's
+resized pool (2 NCCL ranks resized to 4 and back: a tenant's
+all-reduce summed after each flip, an all-reduce queued across the
+first flip delivered as a stale verdict, a ``%dist_pool template`` replayed on each new fleet, a
+resize to 5 refused with the pool still answering) alone on four
 cards, one NCCL rank per card (what one card cannot show: NCCL, its
 ``reduce_scatter_tensor``, its point-to-point ring and pipeline hops
 overlapping compute, ``all_to_all_single``, and the links between
@@ -2540,6 +2566,7 @@ TRAIN_MESH_S = 512
 TRAIN_MESH_LOSS_RTOL = 1e-5
 TRAIN_MESH_LEAF_RTOL = 1e-4
 TRAIN_MESH_BATCH_SEED = 9
+TRAIN_MESH_MOE_LAYERS = 1
 # Largest first: the Mixtral ranks need the card that the SmolLM2 jobs
 # leave cached.  The ZeRO-2 batch is 8 rows without segments, so that
 # each dp4 rank has one row per microbatch and the mean over the two
@@ -2564,8 +2591,12 @@ def train_mesh_cfg(job):
     from nbdistributed_tpu_torch.models import smol_135m_config
     if job["model"] == "smol":
         return smol_135m_config(dtype=torch.float32, remat=True)
-    return mixtral_cfg(dtype=torch.float32, capacity_factor=MOE_LOSSLESS,
-                       moe_dispatch="dropless")
+    # One of Mixtral's layers: the script's time budget (PERF.md §4).
+    from nbdistributed_tpu_torch.models import mixtral_8x7b_config
+    return mixtral_8x7b_config(n_layers=TRAIN_MESH_MOE_LAYERS,
+                               dtype=torch.float32,
+                               capacity_factor=MOE_LOSSLESS,
+                               moe_dispatch="dropless")
 
 
 def train_mesh_batch(job, cfg):
@@ -2932,8 +2963,9 @@ TRAIN_SP_JOBS = (
          mesh={"sp": 4}, B=1, S=ZIGZAG_S),
 )
 # Depth cut to fit four ranks of fp32 weights, gradients and AdamW
-# moments on one card beside the reference (PERF.md, phase 20).
-SP_LAYERS = {"mistral": 2, "tinyllama": 4, "mixtral": 1}
+# moments on one card beside the reference (PERF.md, phase 20); Mistral
+# at 1 layer for the script's time budget (PERF.md §4).
+SP_LAYERS = {"mistral": 1, "tinyllama": 4, "mixtral": 1}
 
 
 def phase_hop_kernels():
@@ -5343,7 +5375,7 @@ def phase_supervision(outputs_ref, loss_ref, n=1):
                            if e["ts"] >= box["t0"]], "the stack dump")
             t_dump = [e for e in _wd_events("escalation", "dump")
                       if e["ts"] >= box["t0"]][-1]["ts"]
-            stacks, t_stack = _poll(
+            stacks, _ = _poll(
                 lambda: (lambda s: s if f'File "<rank 0>", line '
                          f'{SUP_STALL_LINE}' in s[0] else None)(
                     _stack_text(run_dir, 0)), "the loop's line in the "
@@ -5384,7 +5416,9 @@ def phase_supervision(outputs_ref, loss_ref, n=1):
               f"after the interrupt: loss {after!r}, launches {counts}")
         rows["stall"] = dict(
             verdict_s=verdict["ts"] - box["t0"],
-            dump_to_stack_file_s=t_stack - t_dump,
+            # A bound, not the write's time: when a 10 ms poll first
+            # read the loop's line in the stack file.  (The file's
+            # mtime ticks coarser than a dump of a few ms.)
             dump_to_stack_seen_s=t_seen - t_dump,
             interrupt_to_reply_ms=1e3 * (box["t1"] - t_int),
             loop_k1_launches=stall_k1, loss_after=after,
@@ -5634,7 +5668,7 @@ def phase_supervision_mesh(n=MESH_WORLD):
               f"verdicts {verdict}, {full}")
         stuck_at = {}
         for r in range(skip):
-            text, t_stack = _stack_text(run_dir, r)
+            text, _ = _stack_text(run_dir, r)
             stuck_at[r] = text.count(f'File "<rank {r}>", line '
                                      f'{SUP_HANG_LINE}')
             check(f'File "<rank {r}>", line {SUP_HANG_LINE}' in text,
@@ -5664,13 +5698,615 @@ def phase_supervision_mesh(n=MESH_WORLD):
                first_verdict_ranks=verdict["ranks"],
                dumps_at_the_item_line=stuck_at,
                all_stuck_ranks_named_s=t_full - t0,
-               dump_to_stack_file_s=t_stack - dump["ts"],
+               dump_s=dump["ts"] - t0,
                heal_started_s=heal["ts"] - t0,
                cell_returned_s=t_back - t0, healed_s=t_healed - t0,
                detail=full["detail"],
                seconds=time.perf_counter() - ts)
     say("supervision_mesh", **row)
     return row
+
+
+# Phase 26: the gateway's tenant plane.  `%dist_pool start` spawns a
+# gateway daemon owning one GPU rank; tenant alice (this script, through
+# the magics) trains phase 11's step in her cells, tenant bob (a raw
+# TenantClient) serves phase 17's requests in his; admission, a tenant
+# kernel's crash and the stale-epoch fence are driven on the live pool;
+# a single-kernel session is SIGKILLed and adopted by %dist_attach; and
+# %dist_pool stop leaves nothing behind.  Item 7 (the resize, four
+# cards) runs under --mesh-nccl.
+
+POOL_RUNS = ROOT / "build" / "pool_runs"
+POOL_TRAIN_STEPS = 2
+POOL_RT_CELLS = 20
+POOL_HOLD_S = 6.0
+
+POOL_TRAIN_SETUP_CELL = """\
+import chip_smoke as cs
+from nbdistributed_tpu_torch.models import (AdamW, init_params,
+                                            make_train_step, param_leaves,
+                                            smol_135m_config)
+from nbdistributed_tpu_torch.ops import _build
+torch.backends.cuda.matmul.allow_tf32 = False
+rebuilt = sorted(_build.build_all())
+tcfg = smol_135m_config(remat=True)
+params = init_params(tcfg, 0, device=device)
+batch = cs.packed_batch(tcfg, cs.TRAIN_B, tcfg.max_seq_len,
+                        cs.TRAIN_BATCH_SEED)
+step = make_train_step(tcfg, AdamW(param_leaves(params), lr=1e-3))
+alice = {"losses": [], "launches": [], "rebuilt": rebuilt,
+         "device": str(params["embed"].device)}
+"""
+
+POOL_TRAIN_STEP_CELL = """\
+cs.reset_launch_counts()
+alice["losses"].append(float(step(params, batch)))
+alice["launches"].append(cs.launch_counts())
+repr(alice)
+"""
+
+POOL_SERVE_CELL = """\
+import chip_smoke as cs
+from nbdistributed_tpu_torch.models import init_params, smol_135m_config
+from nbdistributed_tpu_torch.ops import decode as _decode
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = smol_135m_config()
+params = init_params(cfg, 0, device=device)
+prompts = cs.make_requests(cfg)
+cs.reset_launch_counts()
+outputs, steps, wall, _, _ = cs.serve(params, cfg, prompts)
+served = {**cs.launch_counts(), "k4": _decode.flash_decode_attention.launches,
+          "steps": steps, "wall_s": wall, "outputs": outputs,
+          "names": sorted(n for n in dir() if not n.startswith("_"))}
+del params
+torch.cuda.empty_cache()
+repr(served)
+"""
+
+# The single-kernel session the smoke SIGKILLs: a child Python process
+# driving the magics (%dist_init -n 1 on the card), which leaves a CUDA
+# tensor and a cell still running.  argv: run dir, checkout, status file.
+POOL_KERNEL = r'''
+import json, os, sys, time
+os.environ["NBD_RUN_DIR"] = sys.argv[1]
+sys.path.insert(0, sys.argv[2])
+from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+
+class Shell:
+    def __init__(self):
+        self.user_ns = {}
+        self.input_transformers_cleanup = []
+
+m = DistributedMagics(Shell())
+m.dist_init("-n 1 --backend gpu -t 600")
+m.distributed("", """\
+g = torch.Generator(device=device).manual_seed(5)
+kept = torch.randn(1 << 24, device=device, generator=g)
+def checksum(t):
+    return int(t.view(torch.int32).to(torch.int64).sum())
+hits = 0
+ck = checksum(kept)
+""")
+m.dist_pull("ck")
+comm = DistributedMagics._comm
+mid = comm.post([0], "execute", {
+    "code": "hits += 1\nimport time\ntime.sleep(4.0)\nhits",
+    "target_ranks": [0]})
+with open(sys.argv[3] + ".tmp", "w") as f:
+    json.dump({"mid": mid, "checksum": int(m.shell.user_ns["ck"]),
+               "pids": [p.pid for p in DistributedMagics._pm
+                        .processes.values()]}, f)
+os.replace(sys.argv[3] + ".tmp", sys.argv[3])
+time.sleep(600)
+'''
+
+
+def _lit(results, rank="0"):
+    """The literal a tenant cell's last expression printed on ``rank``."""
+    import ast
+    return ast.literal_eval(ast.literal_eval(results[rank]["output"]))
+
+
+def pool_cell(nb, code, line=""):
+    """``%%distributed`` in tenant mode on the stand-in shell: the
+    printed text (logged as phase 23's cells are) and the per-rank
+    results the magic returns."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = nb.magics.distributed(line, code)
+    out = buf.getvalue()
+    nb.log.append({"cell": f"%%distributed {line}\n{code}", "out": out})
+    return out, res
+
+
+def _proc_gone(pid):
+    """Exited: no /proc entry, or a zombie its parent has not reaped."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def phase_pool(outputs_ref, losses_ref):
+    """Phase 26, one card: items 1-6.  ``outputs_ref``: phase 17's
+    in-process bf16 streams; ``losses_ref``: phase 11's step losses."""
+    import os
+    import shutil
+    import signal
+    import statistics
+    import threading
+
+    import torch
+    from nbdistributed_tpu_torch.gateway import daemon as gw
+    from nbdistributed_tpu_torch.gateway.client import (CellSubmitError,
+                                                        GatewayGone,
+                                                        TenantClient,
+                                                        TenantFenced)
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    from nbdistributed_tpu_torch.resilience import session
+
+    ts = time.perf_counter()
+    saved_run_dir = os.environ.get("NBD_RUN_DIR")
+    shutil.rmtree(POOL_RUNS, ignore_errors=True)
+    run_dir = str(POOL_RUNS / "pool")
+    single_dir = str(POOL_RUNS / "single")
+    os.makedirs(single_dir)
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    nb = NotebookSession()
+    clients, kernel = [], None
+    rows: dict = {}
+
+    def attach(name, **kw):
+        m = gw.read_gateway_manifest(run_dir)
+        t0 = time.perf_counter()
+        c = TenantClient(m["tenant_plane"]["host"],
+                         m["tenant_plane"]["port"], name,
+                         pool_token=m["pool_token"], **kw)
+        clients.append(c)
+        return c, 1e3 * (time.perf_counter() - t0)
+
+    def outs(data):
+        return {r: (d or {}).get("output")
+                for r, d in (data.get("results") or {}).items()}
+
+    try:
+        # -- the pool -------------------------------------------------
+        t0 = time.perf_counter()
+        out = nb.run(f"%dist_pool start -n 1 --backend gpu --mesh-slots 1 "
+                     f"--queue-depth 2 --tenant-inflight 2 --max-tenants 3 "
+                     f"--run-dir {run_dir}")
+        start_s = time.perf_counter() - t0
+        check("✅ pool up" in out, f"%dist_pool start: {out}")
+        manifest = gw.read_gateway_manifest(run_dir)
+        daemon_pid = manifest["pid"]
+        rank_pids = list(session.read_manifest(run_dir)["pids"].values())
+        check(len(rank_pids) == 1, f"pool ranks {rank_pids}")
+
+        # -- item 1: alice trains phase 11's step in her cells ---------
+        t0 = time.perf_counter()
+        out = nb.run(f"%dist_attach --tenant alice {run_dir}")
+        alice_attach_ms = 1e3 * (time.perf_counter() - t0)
+        check(f"🤝 attached to pool {run_dir} as tenant 'alice' (epoch 1, "
+              "1 ranks" in out, f"%dist_attach --tenant: {out}")
+        out, res = pool_cell(nb, POOL_TRAIN_SETUP_CELL)
+        check(res is not None and "❌" not in out, f"setup cell: {out}")
+        for _ in range(POOL_TRAIN_STEPS):
+            out, res = pool_cell(nb, POOL_TRAIN_STEP_CELL)
+            check(res is not None and "❌" not in out, f"step cell: {out}")
+        alice = _lit(res)
+        want = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
+                "k3": N_LAYERS_SMOL}
+        check(alice["rebuilt"] == [] and alice["device"] == "cuda:0",
+              f"alice's rank rebuilt {alice['rebuilt']}, on "
+              f"{alice['device']}")
+        check(all(c == want for c in alice["launches"]),
+              f"alice's steps launched {alice['launches']}, want {want}")
+        check(alice["losses"] == losses_ref[:POOL_TRAIN_STEPS],
+              f"alice's losses {alice['losses']} != phase 11's "
+              f"{losses_ref[:POOL_TRAIN_STEPS]}")
+        rows["alice"] = dict(losses=alice["losses"], launches=want,
+                             steps=POOL_TRAIN_STEPS, losses_equal=True,
+                             attach_ms=alice_attach_ms)
+        say("pool_alice", **rows["alice"])
+
+        # -- item 2: bob serves phase 17's requests in his namespace ---
+        bob, hello_ms = attach("bob")
+        t0 = time.perf_counter()
+        res = bob.execute(POOL_SERVE_CELL)
+        serve_cell_s = time.perf_counter() - t0
+        check(res.get("status") == "ok", f"bob's serving cell: {res}")
+        served = _lit(res["results"])
+        check(served["outputs"] == outputs_ref, "bob's streams differ from "
+              "the in-process server's")
+        check(served["k4"] == N_LAYERS_SMOL * served["steps"]
+              and served["steps"] > 0, f"bob's K4 launched {served['k4']} "
+              f"times over {served['steps']} decode steps")
+        check("alice" not in served["names"] and "step" not in
+              served["names"] and "tcfg" not in served["names"],
+              f"alice's names in bob's namespace: {served['names']}")
+        check(outs(bob.execute("'params' in dir()")) == {"0": "False"},
+              "bob's del did not hold")
+        _, res = pool_cell(nb, "'prompts' in dir(), len(alice['losses'])")
+        check(res["0"]["output"] == f"(False, {POOL_TRAIN_STEPS})",
+              f"alice's namespace: {res}")
+        n_tok = sum(len(o) for o in outputs_ref)
+        rows["bob"] = dict(k4_launches=served["k4"],
+                           k1_launches=served["k1"],
+                           decode_steps=served["steps"],
+                           want_k4=N_LAYERS_SMOL * served["steps"],
+                           tokens=n_tok, worker_wall_s=served["wall_s"],
+                           tokens_per_s=n_tok / served["wall_s"],
+                           cell_s=serve_cell_s, tokens_equal=True,
+                           hello_ms=hello_ms)
+        say("pool_bob", **rows["bob"])
+
+        # -- item 3: admission ----------------------------------------
+        carol, _ = attach("carol")
+        try:
+            attach("dave")
+            check(False, "a fourth tenant was admitted")
+        except RuntimeError as e:
+            check("max_tenants=3" in str(e), f"hello refusal: {e}")
+        holder = threading.Thread(target=lambda: bob.execute(
+            f"import time\ntime.sleep({POOL_HOLD_S})"))
+        holder.start()
+        _poll(lambda: bob.pool_status()["scheduler"]["active"] == 1,
+              "bob's cell holding the mesh slot")
+
+        # The pool's view while bob holds the mesh: both tenants, and
+        # rank 0 busy for bob (off its 2 s heartbeats).
+        def busy_bob():
+            out = nb.run("%dist_pool status")
+            return out if "rank 0: ⚙ execute" in out \
+                and "· tenant bob" in out else None
+        status = _poll(busy_bob, "rank 0 busy for tenant bob",
+                       POOL_HOLD_S, 0.1)
+        check("alice*" in status and "\nbob " in status
+              and "\ncarol " in status, f"%dist_pool status: {status}")
+        positions, results = [], []
+        carols = []
+        for i in range(2):
+            t = threading.Thread(target=lambda i=i: results.append(
+                carol.execute(f"{i} + 1", priority=1, on_queued=lambda n:
+                              positions.append(n["position"]))))
+            t.start()
+            carols.append(t)
+            _poll(lambda: len(positions) == i + 1, "carol's queued notice")
+        try:
+            carol.execute("3")
+            check(False, "carol's third cell was admitted past her cap")
+        except CellSubmitError as e:
+            rejected = e.verdict
+        out, res = pool_cell(nb, "never = 1", "--priority 0")
+        check(res is None and "🪓 cell shed under overload" in out,
+              f"alice's priority-0 cell under overload: {out}")
+        holder.join(60)
+        for t in carols:
+            t.join(60)
+        check(sorted(positions) == [1, 2]
+              and rejected["status"] == "rejected"
+              and rejected["reason"] == "tenant-inflight-cap"
+              and sorted(outs(r)["0"] for r in results) == ["1", "2"],
+              f"positions {positions}, rejected {rejected}, "
+              f"results {results}")
+        sched = bob.pool_status()["scheduler"]["tenants"]
+        check(sched["alice"]["shed"] == 1, f"shed counts {sched}")
+        rows["admission"] = dict(queued_positions=sorted(positions),
+                                 rejected=rejected["reason"],
+                                 shed_tenant="alice",
+                                 refused_hello="max_tenants=3")
+        say("pool_admission", **rows["admission"])
+        carol.close(detach=True)
+
+        # -- item 4: alice's kernel crashes mid-cell -------------------
+        a1 = DistributedMagics._tenant
+        lost = []
+
+        def inflight():
+            try:
+                a1.execute("import time\ntime.sleep(2)\n'alice-parked'")
+            except GatewayGone:
+                lost.append(True)
+        th = threading.Thread(target=inflight)
+        th.start()
+        _poll(lambda: bob.pool_status()["scheduler"]["active"] == 1,
+              "alice's in-flight cell")
+        a1._ch.close()                   # the kernel dies
+        th.join(60)
+        DistributedMagics._tenant = None  # ... and a new one starts
+        DistributedMagics._pool_info = None
+        _poll(lambda: bob.pool_status()["tenants"]["tenants"]["alice"][
+            "parked"] == 1, "alice's parked result", 60)
+        t0 = time.perf_counter()
+        out = nb.run(f"%dist_attach --tenant alice {run_dir}")
+        reattach_s = time.perf_counter() - t0
+        check(f"🔗 reattached to pool {run_dir} as tenant 'alice' (epoch "
+              "2" in out and out.count("finished while detached: "
+                                       "'alice-parked'") == 1,
+              f"reattach: {out}")
+        a2 = DistributedMagics._tenant
+        check(a2.drain() == {}, "a second drain found results")
+        st = bob.pool_status()["tenants"]["tenants"]["alice"]
+        check(st["parked"] == 0 and st["parked_total"] == 1
+              and st["reattaches"] == 1 and lost == [True],
+              f"alice's row {st}")
+        # A third kernel resumes alice: the second's next request is
+        # fenced.
+        a3, _ = attach("alice", token=a2.token)
+        try:
+            a2.execute("1")
+            check(False, "the stale connection's cell ran")
+        except TenantFenced:
+            pass
+        out, res = pool_cell(nb, "1")
+        check(res is None and "⛔" in out, f"fenced magic cell: {out}")
+        check(outs(a3.execute("len(alice['losses'])")) == {
+            "0": str(POOL_TRAIN_STEPS)}, "alice's namespace after the "
+              "reattaches")
+        rows["crash"] = dict(reattach_and_drain_s=reattach_s,
+                             parked_total=1, epochs=[1, 2, 3],
+                             fenced=True)
+        say("pool_crash", **rows["crash"])
+
+        # Round trips of a trivial tenant cell (raw client, no magics).
+        rt = []
+        for _ in range(POOL_RT_CELLS):
+            t0 = time.perf_counter()
+            a3.execute("1")
+            rt.append(time.perf_counter() - t0)
+        a3.execute("del params, batch, step\ntorch.cuda.empty_cache()")
+        a3.close(detach=True)
+        bob.close(detach=True)
+
+        # -- item 5: a single-kernel session, SIGKILLed and adopted ----
+        nb2 = NotebookSession()          # a fresh kernel: no tenant
+        status_path = os.path.join(single_dir, "kernel.json")
+        log = open(OUT_DIR / "pool_kernel_stdout.txt", "w")
+        kernel = subprocess.Popen(
+            [sys.executable, "-c", POOL_KERNEL, single_dir, str(ROOT),
+             status_path], stdout=log, stderr=subprocess.STDOUT)
+        _poll(lambda: os.path.exists(status_path)
+              or kernel.poll() is not None, "the single-kernel session",
+              300, 0.2)
+        check(os.path.exists(status_path),
+              "the single-kernel session died before its cell: "
+              + (OUT_DIR / "pool_kernel_stdout.txt").read_text()[-2000:])
+        info = json.load(open(status_path))
+        time.sleep(0.5)                   # the cell is mid-flight
+        os.kill(kernel.pid, signal.SIGKILL)
+        kernel.wait(60)
+        t0 = time.perf_counter()
+        out = nb2.run(f"%dist_attach {single_dir}")
+        adopt_s = time.perf_counter() - t0
+        check(f"🔗 reattached to 1 workers (epoch 2, run {single_dir}"
+              in out, f"%dist_attach: {out}")
+        check(out.count(f"📬 rank 0 · interrupted cell {info['mid'][:8]}… "
+                        "finished while orphaned: 1") == 1,
+              f"the interrupted cell's output: {out}")
+        nb2.run("%%distributed\nafter = checksum(kept)\n"
+                "on = str(kept.device)")
+        after, on = nb2.pull("after"), nb2.pull("on")
+        check(after == {0: info["checksum"]} and on == {0: "cuda:0"},
+              f"the adopted rank's tensor: {after} vs {info['checksum']} "
+              f"on {on}")
+        nb2.run("%%distributed\nhits_now = hits")
+        check(nb2.pull("hits_now") == {0: 1}, "the interrupted cell ran "
+              "twice")
+        comm = DistributedMagics._comm
+        check(all(not d for d in session.drain_mailboxes(comm).values()),
+              "a second drain found results")
+        out = nb2.run(f"%dist_gc --dry-run --root {POOL_RUNS}")
+        check(f"= kept {run_dir} — live gateway daemon (pid {daemon_pid})"
+              in out and f"= kept {single_dir} — current session's run dir"
+              in out, f"%dist_gc --dry-run: {out}")
+        out = nb2.run("%dist_shutdown")
+        check("✅ shut down 1 workers" in out, f"%dist_shutdown: {out}")
+        rows["single_kernel"] = dict(adopt_and_drain_s=adopt_s,
+                                     checksum=after[0], bitwise=True,
+                                     delivered_once=True)
+        say("pool_single_kernel", **rows["single_kernel"])
+
+        # -- item 6: teardown -----------------------------------------
+        t0 = time.perf_counter()
+        out = nb2.run(f"%dist_pool stop --run-dir {run_dir}")
+        check(f"🛑 pool {run_dir}: stopping" in out, f"stop: {out}")
+        _poll(lambda: all(_proc_gone(p) for p in [daemon_pid, *rank_pids,
+                                                   *info["pids"]]),
+              "the daemon's and every rank's exit", 60, 0.05)
+        stop_s = time.perf_counter() - t0
+        check(gw.read_gateway_manifest(run_dir) is None,
+              "the gateway manifest outlived the pool")
+
+        def memory_back():
+            torch.cuda.synchronize()
+            return free_before - torch.cuda.mem_get_info()[0] < 1e9
+        _poll(memory_back, "the card's free memory", 30, 0.2)
+        free_after = torch.cuda.mem_get_info()[0]
+    finally:
+        for c in clients:
+            try:
+                c.close()
+            except Exception:
+                pass
+        if kernel is not None and kernel.poll() is None:
+            kernel.kill()
+        if DistributedMagics._pm is not None:
+            DistributedMagics.shutdown_all()
+        m = gw.read_gateway_manifest(run_dir)
+        if m is not None and gw.gateway_alive(m):
+            from nbdistributed_tpu_torch.gateway.client import \
+                pool_shutdown
+            try:
+                pool_shutdown("127.0.0.1", m["tenant_plane"]["port"],
+                              m["pool_token"])
+            except Exception:
+                pass
+        DistributedMagics.reset_class_state()
+        if saved_run_dir is None:
+            os.environ.pop("NBD_RUN_DIR", None)
+        else:
+            os.environ["NBD_RUN_DIR"] = saved_run_dir
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "pool_cells_n1.json").write_text(
+            json.dumps(nb.log, indent=1))
+    rows.update(ranks=1, start_to_ready_s=start_s,
+                tenant_cell_ms_median=1e3 * statistics.median(rt),
+                tenant_cell_ms=[1e3 * x for x in rt], stop_s=stop_s,
+                free_gb_before=free_before / 1e9,
+                free_gb_after=free_after / 1e9,
+                seconds=time.perf_counter() - ts)
+    say("pool", **{k: v for k, v in rows.items()
+                   if k in ("start_to_ready_s", "tenant_cell_ms_median",
+                            "stop_s", "free_gb_before", "free_gb_after",
+                            "seconds")})
+    return rows
+
+
+POOL_SUM_CELL = """\
+t = torch.full((4,), float(rank + 1), device=device)
+dist.all_reduce(t)
+float(t[0])
+"""
+
+
+def phase_pool_mesh(n=2, grow=MESH_WORLD):
+    """Phase 26, item 7, four cards: a pool of ``n`` NCCL ranks resized
+    ``n`` → ``grow`` → ``n``, a tenant's all-reduce checked after each
+    flip, an all-reduce queued across the first flip delivered as a
+    stale verdict (run nowhere), a template replayed on each new fleet,
+    and a resize past the cards refused with the pool still answering."""
+    import shutil
+    import threading
+
+    from nbdistributed_tpu_torch.gateway import daemon as gw
+    from nbdistributed_tpu_torch.gateway.client import TenantClient
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+
+    ts = time.perf_counter()
+    run_dir = str(POOL_RUNS / "mesh")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    nb = NotebookSession()
+    tpl = ROOT / "build" / "pool_template.py"
+    tpl.parent.mkdir(exist_ok=True)
+    tpl.write_text("shared['warm'] = str(torch.ones(1, device=device)"
+                   ".device)\n")
+    client = None
+    rows: dict = {}
+
+    def summed(world):
+        res = client.execute(POOL_SUM_CELL)
+        got = {r: d.get("output") for r, d in res["results"].items()}
+        want = {str(r): repr(float(world * (world + 1) // 2))
+                for r in range(world)}
+        check(got == want, f"all_reduce on {world} ranks: {got}")
+
+    def warm(world):
+        res = client.execute("shared.get('warm')")
+        got = {r: d.get("output") for r, d in res["results"].items()}
+        check(got == {str(r): repr(f"cuda:{r}") for r in range(world)},
+              f"template on {world} ranks: {got}")
+
+    try:
+        t0 = time.perf_counter()
+        out = nb.run(f"%dist_pool start -n {n} --backend gpu --mesh-slots 1 "
+                     f"--run-dir {run_dir}")
+        start_s = time.perf_counter() - t0
+        check("✅ pool up" in out, out)
+        m = gw.read_gateway_manifest(run_dir)
+        client = TenantClient(m["tenant_plane"]["host"],
+                              m["tenant_plane"]["port"], "mesh",
+                              pool_token=m["pool_token"])
+        summed(n)
+        out = nb.run(f"%dist_pool template --file {tpl} --name warm "
+                     f"--run-dir {run_dir}")
+        check(f"✅ template 'warm' ran on ranks {list(range(n))}" in out,
+              out)
+        warm(n)
+        box, positions = {}, []
+        slow = threading.Thread(target=lambda: box.update(
+            slow=client.execute("import time\ntime.sleep(3)\n'slow'")))
+        slow.start()
+        _poll(lambda: client.pool_status()["scheduler"]["active"] == 1,
+              "the slow cell")
+        queued = threading.Thread(target=lambda: box.update(
+            queued=client.execute("shared['queued'] = rank\n"
+                                  + POOL_SUM_CELL, on_queued=lambda q:
+                                  positions.append(q["position"]))))
+        queued.start()
+        _poll(lambda: positions, "the queued notice")
+        flips = []
+        for world, epoch in ((grow, 2), (n, 3)):
+            out = nb.run(f"%dist_pool resize -n {world} --run-dir {run_dir}")
+            check(f"✅ resized: {world} ranks · epoch {epoch} · generation "
+                  f"{epoch} · drain" in out and "TIMED OUT" not in out,
+                  f"resize to {world}: {out}")
+            st = client.pool_status()
+            flips.append(dict(to=world, epoch=epoch,
+                              **{k: v for k, v in _resize_numbers(out)
+                                 .items()}))
+            if world == grow:
+                slow.join(60)
+                queued.join(120)
+                # Stamped at submit with epoch 1, as in the JAX
+                # package: ranks 0..n-1 of the new fleet refuse it as
+                # stale, and nothing of it runs on part of the world.
+                got = {r: (d.get("stale_epoch"),
+                           d.get("error", "").startswith(
+                               "stale coordinator epoch 1 "))
+                       for r, d in box["queued"]["results"].items()}
+                check(got == {str(r): (True, True) for r in range(n)},
+                      f"the cell queued across the flip: {box}")
+                res = client.execute("(shared.get('queued'),)")
+                check({d.get("output") for d in res["results"].values()}
+                      == {"(None,)"}, f"the stale cell ran: {res}")
+            check(st["world_size"] == world and st["epoch"] == epoch,
+                  f"pool status after the flip: {st['world_size']}, "
+                  f"{st['epoch']}")
+            summed(world)
+            warm(world)
+        out = nb.run(f"%dist_pool resize -n {grow + 1} --run-dir {run_dir}",
+                     ok=False)
+        check(f"❌ a gpu pool runs one rank a GPU and this host has {grow}: "
+              f"{grow + 1} ranks refused" in out, f"resize past the cards: "
+              f"{out}")
+        summed(n)
+        out = nb.run(f"%dist_pool stop --run-dir {run_dir}")
+        check(f"🛑 pool {run_dir}: stopping" in out, out)
+        _poll(lambda: gw.read_gateway_manifest(run_dir) is None,
+              "the pool's stop", 60)
+    finally:
+        if client is not None:
+            client.close()
+        m = gw.read_gateway_manifest(run_dir)
+        if m is not None and gw.gateway_alive(m):
+            from nbdistributed_tpu_torch.gateway.client import \
+                pool_shutdown
+            try:
+                pool_shutdown("127.0.0.1", m["tenant_plane"]["port"],
+                              m["pool_token"])
+            except Exception:
+                pass
+        DistributedMagics.reset_class_state()
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"pool_mesh_cells_n{grow}.json").write_text(
+            json.dumps(nb.log, indent=1))
+    rows = dict(ranks=[n, grow, n], start_to_ready_s=start_s, flips=flips,
+                queued_across_flip="stale", template_replayed=True,
+                refused=grow + 1, seconds=time.perf_counter() - ts)
+    say("pool_mesh", **rows)
+    return rows
+
+
+def _resize_numbers(out):
+    """The drain and total seconds ``%dist_pool resize`` printed."""
+    import re
+    m = re.search(r"drain ([0-9.]+)s.* · total ([0-9.]+)s", out)
+    check(m is not None, f"resize output: {out}")
+    return dict(drain_s=float(m.group(1)), wall_s=float(m.group(2)))
 
 
 def smol_135m_config_fp32():
@@ -6067,9 +6703,10 @@ def gpu_name_and_power():
 
 def main_mesh_nccl() -> int:
     """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks, phase 22's
-    guarded replicas, phases 23 and 24's notebook and phase 25's hung
-    collective, alone on four cards, one NCCL rank each, against the
-    references they compute first on card 0."""
+    guarded replicas, phases 23 and 24's notebook, phase 25's hung
+    collective and phase 26's resized pool, alone on four cards, one
+    NCCL rank each, against the references they compute first on card
+    0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -6099,12 +6736,14 @@ def main_mesh_nccl() -> int:
     notebook = phase_notebook(*refs, n=MESH_WORLD)
     notebook_async = phase_notebook_async(*refs, n=MESH_WORLD)
     supervision_mesh = phase_supervision_mesh()
+    pool_mesh = phase_pool_mesh()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
          "train_sp": train_sp, "train_pp": train_pp, "guard": guard,
          "notebook": notebook, "notebook_async": notebook_async,
-         "supervision_mesh": supervision_mesh}, indent=1))
+         "supervision_mesh": supervision_mesh, "pool_mesh": pool_mesh},
+        indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6133,39 +6772,53 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda,
         ptxas=ptxas)
 
-    k1_err = phase_k1()
-    k4_err = phase_k4()
-    k23_err = phase_k23()
-    counts, prompts, params, dense = phase_main_path()
-    profile_row = phase_profile(params)
-    cluster = phase_cluster(prompts, dense)
-    hf_row = phase_hf(params)
-    params32, solo32 = phase_fp32(prompts)
-    beyond, seconds = serving_beyond_dense(params, prompts, dense, params32,
-                                           solo32)
+    # Each phase's seconds, for the time budget (PERF.md section 4).
+    phase_s: dict = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = time.perf_counter() - t
+
+    k1_err = timed("k1", phase_k1)
+    k4_err = timed("k4", phase_k4)
+    k23_err = timed("k23", phase_k23)
+    counts, prompts, params, dense = timed("main_path", phase_main_path)
+    profile_row = timed("profile", phase_profile, params)
+    cluster = timed("cluster", phase_cluster, prompts, dense)
+    hf_row = timed("hf", phase_hf, params)
+    params32, solo32 = timed("fp32", phase_fp32, prompts)
+    beyond, seconds = timed("serving_beyond_dense", serving_beyond_dense,
+                            params, prompts, dense, params32, solo32)
     del params, params32
     torch.cuda.empty_cache()
-    train, train_profile = phase_train()
+    train, train_profile = timed("train", phase_train)
     torch.cuda.empty_cache()
-    train_fp32 = phase_train_fp32_vs_plain()
+    train_fp32 = timed("train_fp32", phase_train_fp32_vs_plain)
     torch.cuda.empty_cache()
-    lora_losses = phase_lora()
+    lora_losses = timed("lora", phase_lora)
     torch.cuda.empty_cache()
-    moe = phase_moe()
+    moe = timed("moe", phase_moe)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(prompts, solo32, moe["fp32"]["solo"])
-    train_mesh = phase_train_mesh()
-    hop_err = phase_hop_kernels()
-    train_sp = phase_train_sp()
-    remat_dots = phase_remat_dots()
-    train_pp = phase_train_pp()
-    guard = phase_guard()
+    mesh = timed("mesh", phase_mesh, prompts, solo32, moe["fp32"]["solo"])
+    train_mesh = timed("train_mesh", phase_train_mesh)
+    hop_err = timed("hop_kernels", phase_hop_kernels)
+    train_sp = timed("train_sp", phase_train_sp)
+    remat_dots = timed("remat_dots", phase_remat_dots)
+    train_pp = timed("train_pp", phase_train_pp)
+    guard = timed("guard", phase_guard)
     torch.cuda.empty_cache()
-    notebook = phase_notebook(dense["outputs"], train["losses"][0])
-    notebook_async = phase_notebook_async(dense["outputs"],
-                                          train["losses"][0])
-    supervision = phase_supervision(dense["outputs"], train["losses"][0])
-    timing = phase_timing()
+    notebook = timed("notebook", phase_notebook, dense["outputs"],
+                     train["losses"][0])
+    notebook_async = timed("notebook_async", phase_notebook_async,
+                           dense["outputs"], train["losses"][0])
+    supervision = timed("supervision", phase_supervision, dense["outputs"],
+                        train["losses"][0])
+    pool = timed("pool", phase_pool, dense["outputs"], train["losses"])
+    timing = timed("timing", phase_timing)
+    say("phase_seconds", total=time.perf_counter() - t0, **phase_s)
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -6200,7 +6853,8 @@ def main() -> int:
                 "notebook_async_serve":
                     notebook_async["serve"]["k4_launches"],
                 "supervision_healed_serve":
-                    supervision["heal"]["serve"]["k4_launches"]}
+                    supervision["heal"]["serve"]["k4_launches"],
+                "pool_serve": pool["bob"]["k4_launches"]}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "train": train["k1"],
@@ -6236,6 +6890,9 @@ def main() -> int:
         paths["supervision_scrape"] = supervision["scrape"]["launches"][k]
         paths["supervision_healed_train"] = \
             supervision["heal"]["launches_2_steps"][k]
+        # Phase 26: tenant alice's steps on the pool's rank.
+        paths["pool_train"] = \
+            POOL_TRAIN_STEPS * pool["alice"]["launches"][k]
     # Phase 25's stalled loop launched K1 until the interrupt.
     k1_paths["supervision_stall_loop"] = \
         supervision["stall"]["loop_k1_launches"]
@@ -6295,8 +6952,8 @@ def main() -> int:
          "train_mesh": train_mesh, "hop_kernels": hop_err,
          "train_sp": train_sp, "remat_dots": remat_dots,
          "train_pp": train_pp, "guard": guard, "notebook": notebook,
-         "notebook_async": notebook_async, "supervision": supervision},
-        indent=1))
+         "notebook_async": notebook_async, "supervision": supervision,
+         "pool": pool, "phase_seconds": phase_s}, indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

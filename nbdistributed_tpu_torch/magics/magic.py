@@ -24,11 +24,17 @@ endpoint under ``NBD_METRICS_PORT``.  Names, options and printed text
 follow the JAX package; its TPU options become their GPU forms
 (``--backend gpu``, ``--gpu-ids``).
 
+Durable sessions and the gateway's tenant plane: ``%dist_attach`` (a
+surviving fleet, or ``--tenant NAME`` on a pool), ``%dist_init
+--attach``, ``%dist_pool start|status|stop|resize|template``,
+``%%distributed --priority`` in tenant mode and ``%dist_gc``; in tenant
+mode ``%dist_status``, ``%dist_top`` and ``%dist_lat`` read the pool.
+
 Magics whose modules have not been ported yet stay registered and raise
 :class:`NotImplementedError` naming their ROADMAP entry (``_DEFERRED``),
-as do the options of those modules (``%%distributed --priority``;
+as do the options of those modules (``%dist_pool migrate``;
 ``%dist_init --hosts``, ``--agents``, ``--coordinator-addr``,
-``--chips-per-worker``, ``--attach``; ``%dist_lint self``).
+``--chips-per-worker``; ``%dist_lint self``).
 
 This module does not import IPython.  Each magic is a plain method of
 :class:`DistributedMagics` taking the magic's line (and its cell), with
@@ -61,10 +67,7 @@ _COLLECTIVE_TOKENS = re.compile(
     r"sync_global_devices|shard_map|dist\.(?:scatter|gather|reduce))\b")
 
 # The ROADMAP entry each not-yet-ported magic lands with.
-_DEFERRED = {
-    "dist_attach": "A5.6", "dist_pool": "A5.6", "dist_serve": "A5.6",
-    "dist_gc": "A5.6",
-}
+_DEFERRED = {"dist_serve": "A5.6b"}
 
 
 # The longest %dist_shutdown / %dist_reset wait for the async window:
@@ -121,10 +124,14 @@ warn→dump→interrupt→heal; armed at init unless NBD_HANG=0) ·
 events) · %%distributed --deadline S · %dist_heal [--restore ckpt] ·
 %dist_supervise on|off|status (auto-heal: respawn + restore the last
 checkpoint) · %dist_postmortem [--last] (crash bundles) · %dist_guard
-status|on|off|audit · %timeline_show · %timeline_sidecar (in-notebook
-persistence) · %dist_shutdown (fleet teardown) · %dist_reset
+status|on|off|audit · %dist_attach [RUN_DIR] (reattach a surviving
+fleet; --tenant NAME joins a pool) · %dist_pool start|status|stop|
+resize|template (shared multi-tenant GPU pool; %%distributed --priority
+in tenant mode) · %dist_gc [--dry-run] (stale run dirs) ·
+%timeline_show · %timeline_sidecar (in-notebook persistence) ·
+%dist_shutdown (fleet teardown) · %dist_reset
 Not ported yet (they raise, naming their ROADMAP entry):
-%dist_attach/pool/serve/gc (A5.6) · %dist_lint self (A5.7)
+%dist_serve, %dist_pool migrate (A5.6b) · %dist_lint self (A5.7)
 """
 
 
@@ -198,7 +205,9 @@ _PARSERS = {
              help="host-agent endpoints (not ported: raises)"),
         _arg("--attach", nargs="?", const="", default=None,
              dest="attach_dir",
-             help="reattach to a surviving fleet (not ported: raises)"),
+             help="reattach to a surviving fleet instead of spawning "
+                  "one (optionally naming its run dir) — alias for "
+                  "%%dist_attach"),
     ),
     "distributed": _parser(
         "distributed",
@@ -211,8 +220,9 @@ _PARSERS = {
                   "escalates (warn → dump → interrupt → heal, per "
                   "its ladder) when any rank is still busy past it"),
         _arg("--priority", type=int, default=None,
-             help="pool-scheduling priority in tenant mode (not "
-                  "ported: raises, A5.6)"),
+             help="tenant mode only: this cell's pool-scheduling "
+                  "priority (higher dispatches first in fair mode; "
+                  "default: the tenant's attach-time priority)"),
         _arg("--async", dest="use_async", action="store_true",
              help="stream this cell through the async in-flight "
                   "window and return a pending CellFuture instead "
@@ -472,6 +482,88 @@ _PARSERS = {
         _arg("--save", default=None,
              help="capture the bundle into this directory"),
     ),
+    "dist_attach": _parser(
+        "dist_attach",
+        _arg("run_dir", nargs="?", default=None,
+             help="session run directory (default: NBD_RUN_DIR, else "
+                  "the newest manifest with live pids under the runs "
+                  "root)"),
+        _arg("-t", "--timeout", type=float, default=None,
+             help="per-request timeout for the new manager (default: "
+                  "none — training mode)"),
+        _arg("--attach-timeout", type=float, default=90.0,
+             help="seconds to wait for orphaned workers to dial back"),
+        _arg("--tenant", default=None,
+             help="attach to a GATEWAY POOL as this tenant name "
+                  "(%%dist_pool start spawns one) instead of adopting "
+                  "a single-kernel fleet; reattaching under the same "
+                  "name resumes the tenant session and drains its "
+                  "parked results exactly once"),
+        _arg("--priority", type=int, default=None,
+             help="tenant scheduling priority in the pool's "
+                  "fair-share queue (higher wins; tenant mode "
+                  "only).  Omitted on a reattach = keep the "
+                  "tenant's current priority (new tenants get 0)"),
+    ),
+    "dist_gc": _parser(
+        "dist_gc",
+        _arg("--dry-run", action="store_true",
+             help="list what would be swept without removing anything"),
+        _arg("--ttl", type=float, default=None,
+             help="stale age in seconds (default: NBD_GC_TTL_S, "
+                  "else 6h)"),
+        _arg("--root", default=None,
+             help="runs root to sweep (default: <tmpdir>/nbd_runs)"),
+    ),
+    "dist_pool": _parser(
+        "dist_pool",
+        _arg("command", nargs="?", default="status",
+             choices=["start", "status", "stop", "resize", "migrate",
+                      "template"]),
+        _arg("-n", "--workers", type=int, default=2,
+             help="pool world size (start / resize target)"),
+        _arg("--backend", default="gpu", choices=["auto", "cpu", "gpu"],
+             help="gpu (default): one GPU a rank, at most one rank a "
+                  "card; cpu: gloo; auto: the GPU, raising on a host "
+                  "without one"),
+        _arg("--run-dir", default=None,
+             help="pool run dir (start: minted when omitted; "
+                  "status/stop: discovery override)"),
+        _arg("--max-tenants", type=int, default=None),
+        _arg("--sched", default=None, choices=[None, "fifo", "fair"]),
+        _arg("--mesh-slots", type=int, default=None),
+        _arg("--queue-depth", type=int, default=None),
+        _arg("--tenant-inflight", type=int, default=None),
+        _arg("--effects", action="store_true",
+             help="effects-aware admission: with --mesh-slots > 1, "
+                  "only cells PROVEN collective-free may overlap a "
+                  "collective-bearing cell (NBD_POOL_SCHED_EFFECTS)"),
+        _arg("--metrics-port", type=int, default=None,
+             help="start: serve GET /metrics (Prometheus), /healthz "
+                  "and /latency.json on this port, token-gated with "
+                  "the pool token (default: NBD_METRICS_PORT; "
+                  "0 = off)"),
+        _arg("--start-timeout", type=float, default=240.0,
+             help="seconds to wait for the daemon's readiness line"),
+        _arg("--autoscale", default=None, nargs="?", const="show",
+             metavar="MIN:MAX",
+             help="start: arm the pressure-driven autoscaler with "
+                  "this worker band (thresholds from the "
+                  "NBD_AUTOSCALE_* knobs); status: render the "
+                  "decision audit trail (no value needed)"),
+        _arg("--tenant", default=None,
+             help="migrate: the tenant to move (A5.6b: raises)"),
+        _arg("--to", dest="dest", default=None,
+             help="migrate: destination pool run dir (A5.6b: raises)"),
+        _arg("--force", action="store_true",
+             help="migrate: move an ATTACHED tenant too (A5.6b: "
+                  "raises)"),
+        _arg("--name", default="default",
+             help="template: template name"),
+        _arg("--file", dest="tpl_file", default=None,
+             help="template: file whose contents become the "
+                  "warm-start template cell (omit to list)"),
+    ),
     "dist_lat": _parser(
         "dist_lat",
         _arg("--last", type=int, default=0,
@@ -522,6 +614,16 @@ class DistributedMagics:
     # NBD_LINT knob at use time; %dist_lint warn|strict|off pins it.
     _lint_mode: str | None = None
     _async_exec = None          # messaging.pipeline.AsyncExecutor | None
+
+    # True when this kernel joined the fleet via %dist_attach rather
+    # than spawning it (durable sessions) — surfaced in %dist_status.
+    _attached: bool = False
+    # Tenant mode (gateway pools): this kernel is attached to a shared
+    # pool as one tenant (`%dist_attach --tenant NAME`).  The client
+    # replaces (comm, pm) — cells route through the gateway's
+    # scheduler, and %dist_status/%dist_top render the pool view.
+    _tenant = None              # gateway.client.TenantClient | None
+    _pool_info: dict | None = None   # the gateway manifest we attached to
 
     # Active auto-heal supervisor (resilience/supervisor.py), or None.
     _supervisor = None
@@ -643,10 +745,12 @@ class DistributedMagics:
         # larger) world must not promote a half-written checkpoint in
         # the next one.
         cls._clear_bg_ckpt()
+        cls._drop_tenant_state()
         cls._async_exec = None
         cls._comm = None
         cls._pm = None
         cls._world = 0
+        cls._attached = False
         cls._auto_active = False
         cls._timeline = Timeline()
         cls._active_display = None
@@ -669,7 +773,18 @@ class DistributedMagics:
 
     def _require_cluster(self) -> bool:
         if not self._running():
-            print("❌ No distributed cluster. Run %dist_init first.")
+            if DistributedMagics._tenant is not None:
+                # "%dist_init first" would be circular advice here —
+                # %dist_init itself refuses in tenant mode.
+                print(f"❌ attached to a gateway pool as tenant "
+                      f"{DistributedMagics._tenant.name!r} — only "
+                      "%%distributed cells run on a pool (subset "
+                      "%%rank, %sync, interrupts and friends need a "
+                      "dedicated fleet: %dist_shutdown to detach, "
+                      "then %dist_init).")
+            else:
+                print("❌ No distributed cluster. Run %dist_init "
+                      "first.")
             return False
         return True
 
@@ -856,13 +971,21 @@ class DistributedMagics:
         (reference: magic.py:397-536)."""
         args = _parse("dist_init", line)
         if args.attach_dir is not None:
-            raise _not_ported("%dist_init --attach", "A5.6")
+            return self.dist_attach(args.attach_dir)
         if (args.hosts or args.agents
                 or args.coordinator_addr != "127.0.0.1"):
             raise _not_ported("%dist_init --hosts/--agents/"
                               "--coordinator-addr", "A5.5")
         if args.chips_per_worker != 1:
             raise _not_ported("%dist_init --chips-per-worker", "A5.5")
+        if DistributedMagics._tenant is not None:
+            # Tenant mode routes every cell to the pool; a second
+            # local fleet here would spawn, hold GPUs, and never
+            # receive a cell.
+            print(f"⚠️ attached to a gateway pool as tenant "
+                  f"{DistributedMagics._tenant.name!r} — "
+                  "%dist_shutdown (detaches, pool survives) first.")
+            return
         if self._running():
             print(f"⚠️ {self._world} workers already running. "
                   "%dist_shutdown first.")
@@ -926,8 +1049,9 @@ class DistributedMagics:
         DistributedMagics._comm = comm
         DistributedMagics._pm = pm
         DistributedMagics._world = num_workers
-        # Session manifest: the run dir's record of this fleet (its
-        # reattach through %dist_attach is A5.6).
+        DistributedMagics._attached = False
+        # Session manifest: the run dir's record of this fleet, which
+        # %dist_attach reads to adopt it after this kernel dies.
         from ..observability import flightrec as _flightrec
         _rd = _flightrec.run_dir()
         _existing = session_mod.read_manifest(_rd)
@@ -1143,8 +1267,8 @@ class DistributedMagics:
 
     @staticmethod
     def _note_supervised(on: bool) -> None:
-        """Record the supervision flag in the session manifest (its
-        reattach, %dist_attach, is A5.6)."""
+        """Record the supervision flag in the session manifest:
+        ``%dist_attach`` re-arms supervision when it says so."""
         from ..resilience import session as session_mod
         d = _knobs.get_str("NBD_RUN_DIR")
         if d:
@@ -1718,8 +1842,26 @@ class DistributedMagics:
         the cell through the bounded in-flight window and returns a
         pending future; ``--strict`` blocks it on an error-severity
         finding; ``--repeat K [--until EXPR]`` compiles once and loops
-        worker-side."""
+        worker-side.  In tenant mode (``%dist_attach --tenant``) the
+        cell is submitted to the gateway pool instead — same vetting,
+        explicit queued/shed verdicts, ``--priority``, per-tenant
+        isolated namespace."""
         self._warn_unconsumed_async()
+        if DistributedMagics._tenant is not None:
+            try:
+                args = _parse("distributed", line)
+            except Exception as e:
+                print(f"❌ {e}")
+                return
+            if args.use_async or args.repeat is not None:
+                print("⚠️ --async/--repeat are single-kernel options "
+                      "(the pool's scheduler owns tenant-mode "
+                      "overlap) — dispatching synchronously")
+            if not self._vet_cell(cell, list(range(self._world)),
+                                  strict=args.strict):
+                return
+            return self._run_on_pool(cell, priority=args.priority,
+                                     deadline_s=args.deadline)
         if not self._require_cluster():
             return
         try:
@@ -1728,7 +1870,8 @@ class DistributedMagics:
             print(f"❌ {e}")
             return
         if args.priority is not None:
-            raise _not_ported("%%distributed --priority", "A5.6")
+            print("⚠️ --priority only applies in tenant (pool) mode "
+                  "— ignored")
         if args.use_async and args.use_sync:
             print("❌ choose one of --async / --sync")
             return
@@ -1919,7 +2062,23 @@ class DistributedMagics:
         """Cluster tree report (reference: magic.py:743-809): per rank
         its process, its device (``cuda:i`` and the card's name, from
         the worker's ``get_status``), its memory and the process
-        group's backend."""
+        group's backend.  In tenant mode this is the POOL view:
+        scheduler queue, tenant table (this tenant starred),
+        tenant-attributed busy ranks."""
+        if DistributedMagics._tenant is not None:
+            client = DistributedMagics._tenant
+            info = DistributedMagics._pool_info or {}
+            print(f"🌐 tenant {client.name!r} @ pool "
+                  f"{info.get('run_dir', '?')} · epoch "
+                  f"{client.epoch} · "
+                  f"{'alive' if client.alive else '💀 gateway gone'}")
+            try:
+                st = client.pool_status()
+            except Exception as e:
+                print(f"   (pool status unavailable: {e})")
+                return
+            self._render_pool_status(st, info.get("run_dir"))
+            return
         if self._pm is None:
             print("❌ No cluster. %dist_init to start one.")
             return
@@ -1961,9 +2120,12 @@ class DistributedMagics:
         if self._comm is not None and getattr(self._comm,
                                               "session_token", None):
             from ..resilience import session as session_mod
+            ttl = _knobs.get_raw("NBD_ORPHAN_TTL_S") or "600"
             print(f"🔑 session: run {_knobs.get_str('NBD_RUN_DIR', '-')}"
                   f" · token {session_mod.token_fingerprint(self._comm.session_token)}"
-                  f" · epoch {self._comm.session_epoch}")
+                  f" · epoch {self._comm.session_epoch}"
+                  f" · {'attached' if DistributedMagics._attached else 'orphan-capable'}"
+                  f" (orphan TTL {ttl}s)")
         connected = (set(self._comm.connected_ranks())
                      if self._comm is not None else None)
         # Stall threshold for the ⚠ state: the active watchdog's
@@ -2885,14 +3047,36 @@ class DistributedMagics:
         coordinator and workers and clock-corrected onto one
         timebase.  Default: per-stage p50/p95/p99 table over the
         recent-cells ring (``NBD_LAT_RING``); ``--last N`` adds an
-        ASCII waterfall per cell.  ``NBD_LAT=0`` disables stamping
-        entirely."""
+        ASCII waterfall per cell.  In tenant mode the observatory
+        lives in the gateway daemon — this reads its pool-status
+        latency block.  ``NBD_LAT=0`` disables stamping entirely."""
         args = _parse("dist_lat", line)
         from ..observability import latency as lat_mod
-        if self._comm is None:
-            print("❌ No cluster. %dist_init first.")
+        if DistributedMagics._tenant is not None:
+            client = DistributedMagics._tenant
+            try:
+                st = client.pool_status()
+            except Exception as e:
+                print(f"❌ pool status failed: {e}")
+                return
+            block = st.get("latency") or {}
+            n_recs = len(block.get("records") or ())
+            if args.last > n_recs or (args.save and n_recs
+                                      < lat_mod.DEFAULT_RING):
+                # The gateway ships a bounded tail of its ring in the
+                # status payload — say so instead of silently
+                # rendering/saving fewer records than asked for.
+                print(f"ℹ️ tenant mode: the gateway's status payload "
+                      f"carries its last {n_recs} record(s); the full "
+                      f"ring is on the daemon's /latency.json "
+                      f"(%dist_pool start --metrics-port)")
+        elif self._comm is not None:
+            block = self._comm.lat.status_block(
+                records=max(args.last, 32))
+        else:
+            print("❌ No cluster. %dist_init (or %dist_attach "
+                  "--tenant) first.")
             return
-        block = self._comm.lat.status_block(records=max(args.last, 32))
         print(lat_mod.format_stage_table(block.get("summary") or {}))
         if args.last:
             recs = (block.get("records") or [])[-args.last:]
@@ -2914,7 +3098,9 @@ class DistributedMagics:
         heartbeat piggybacks and the process table, so it renders
         instantly even while every worker is busy mid-cell (a
         ``get_status`` probe would stall behind the serial request
-        loop)."""
+        loop).  In tenant mode the pool view is the dashboard."""
+        if DistributedMagics._tenant is not None:
+            return self.dist_status(line)
         if self._pm is None or self._comm is None:
             print("❌ No cluster. %dist_init to start one.")
             return
@@ -3092,22 +3278,740 @@ class DistributedMagics:
               f"ui.perfetto.dev)")
 
     # ==================================================================
+    # durable sessions: reattach + stale-run GC
+
+    def dist_attach(self, line):
+        """Reattach this kernel to a fleet that survived its
+        coordinator's death (durable sessions), or — with
+        ``--tenant NAME`` — attach to a shared gateway pool as one
+        tenant of many.
+
+        The single-kernel path reads the session manifest under the
+        run dir, adopts the worker pids, re-binds the control
+        endpoint, bumps the session epoch (fencing out any stale
+        coordinator), verifies the session token with a per-rank
+        hello, and drains results the workers parked while orphaned —
+        the interrupted cell's output is redelivered exactly once, and
+        every worker's namespace and CUDA tensors are exactly as the
+        crash left them.  The tenant path does the same dance against
+        the gateway: a reattach under the same name proves the tenant
+        token, bumps the TENANT epoch (fencing the crashed kernel's
+        old connection), and drains the tenant's own parked-result
+        partition exactly once."""
+        from ..resilience import session as session_mod
+        args = _parse("dist_attach", line)
+        if self._running() or DistributedMagics._tenant is not None:
+            what = ("tenant " + DistributedMagics._tenant.name
+                    if DistributedMagics._tenant is not None
+                    else f"{self._world} workers")
+            print(f"⚠️ already attached ({what}). "
+                  "%dist_shutdown first.")
+            return
+        t0 = time.time()
+        run_dir = (args.run_dir or "").strip().strip("'\"") or None
+        if args.tenant:
+            return self._attach_tenant(
+                run_dir, args.tenant.strip().strip("'\""),
+                priority=args.priority, timeout=args.timeout)
+        try:
+            comm, pm, manifest, hello = session_mod.attach(
+                run_dir, attach_timeout=args.attach_timeout,
+                request_timeout=args.timeout)
+        except Exception as e:
+            print(f"❌ attach failed: {e}")
+            return
+        pm.add_death_callback(self._announce_death)
+        comm.set_output_callback(self._feed_stream)
+        comm.set_host_map(pm.hosts)
+        DistributedMagics._comm = comm
+        DistributedMagics._pm = pm
+        DistributedMagics._world = comm.num_workers
+        DistributedMagics._attached = True
+        if manifest.get("init_line") is not None:
+            # %dist_heal replays the ORIGINAL init of this session.
+            DistributedMagics._last_init_line = manifest["init_line"]
+        self._enable_auto_mode()
+        sizes = sorted({(m.data or {}).get("namespace_size") or 0
+                        for m in hello.values()})
+        print(f"🔗 reattached to {comm.num_workers} workers "
+              f"(epoch {comm.session_epoch}, "
+              f"run {_knobs.get_str('NBD_RUN_DIR')}, "
+              f"{time.time() - t0:.1f}s) — namespaces intact "
+              f"({'/'.join(str(s) for s in sizes)} names/rank)")
+        # Exactly-once redelivery of results parked while orphaned.
+        if any((m.data or {}).get("parked") for m in hello.values()):
+            try:
+                drained = session_mod.drain_mailboxes(comm)
+            except Exception as e:
+                print(f"⚠️ mailbox drain failed: {e} — parked results "
+                      "remain claimable on the workers")
+                drained = {}
+            for r in sorted(drained):
+                for mid, res in drained[r].items():
+                    self._render_late_result(
+                        r, res, "finished while orphaned", mid=mid)
+        if manifest.get("supervised") \
+                and DistributedMagics._supervisor is None:
+            print("🛡  re-arming supervision (the session had "
+                  "%dist_supervise on)")
+            self.dist_supervise("on")
+        self._maybe_start_watchdog()
+        print("Every cell runs on ALL workers again. %dist_status "
+              "shows the session header.")
+
+    @staticmethod
+    def _render_late_result(rank, res, suffix: str, *, mid: str = "",
+                            prefix: str = "") -> None:
+        """One 📬 line for a cell result that outlived its waiter —
+        drained from a mailbox (orphaned/detached) or delivered late
+        after an interrupt.  The single render path for all three."""
+        res = res or {}
+        text = (res.get("error")
+                or str(res.get("output") or "").strip()
+                or "(no output)")
+        tag = f" {mid[:8]}…" if mid else ""
+        print(f"{prefix}📬 rank {rank} · interrupted cell{tag} "
+              f"{suffix}: {text}")
+
+    def _render_drained_reply(self, mid, res, suffix: str, *,
+                              prefix: str = "") -> None:
+        """Render one claimed/late reply: per-rank lines when it
+        carries results, else its gateway-level verdict.  The crash
+        verdicts (worker death, request timeout, shed) have no
+        ``results`` key, and the claim that surfaced them was
+        destructive — the verdict renders here or nowhere."""
+        res = res or {}
+        results = res.get("results") or {}
+        if not results:
+            text = (res.get("error")
+                    or f"status={res.get('status') or '?'} "
+                       "(no output)")
+            tag = f" {mid[:8]}…" if mid else ""
+            print(f"{prefix}📬 interrupted cell{tag} {suffix}: {text}")
+            return
+        first = True
+        for r in sorted(results, key=int):
+            self._render_late_result(r, results[r], suffix, mid=mid,
+                                     prefix=prefix if first else "")
+            first = False
+
+    def dist_gc(self, line):
+        """Sweep abandoned session run dirs: siblings whose manifest
+        (or directory) is older than the TTL and whose recorded pids
+        are all dead.  The current session's run dir, any dir with a
+        live pid, and any dir a live gateway daemon owns are never
+        touched."""
+        from ..resilience import session as session_mod
+        args = _parse("dist_gc", line)
+        root = (args.root or "").strip().strip("'\"") or None
+        res = session_mod.gc_runs(root, ttl_s=args.ttl,
+                                  dry_run=args.dry_run)
+        verb = "would sweep" if args.dry_run else "swept"
+        print(f"🧹 {verb} {len(res['swept'])} stale run dir(s) under "
+              f"{res['root']} (ttl {res['ttl_s']:.0f}s) · "
+              f"kept {len(res['kept'])}")
+        for d in res["swept"]:
+            print(f"   - {d}")
+        if args.dry_run:
+            # Say WHY each survivor was skipped — "my pool's run dir
+            # vanished" and "why is this old dir still here" get the
+            # same one-line answer.
+            for d in res["kept"]:
+                why = res.get("kept_why", {}).get(d)
+                print(f"   = kept {d}" + (f" — {why}" if why else ""))
+        for e in res["errors"]:
+            print(f"   ⚠ {e}")
+
+    # ==================================================================
+    # session gateway: tenant attach + %dist_pool
+
+    @classmethod
+    def _drop_tenant_state(cls, *, detach: bool = False) -> str | None:
+        """The one tenant-teardown path (reset, %dist_shutdown,
+        %dist_pool stop): close the client, clear the pool
+        bookkeeping.  Returns the tenant name, or None when this
+        kernel was not attached."""
+        t = cls._tenant
+        if t is None:
+            return None
+        try:
+            t.close(detach=detach)
+        except Exception:
+            pass
+        cls._tenant = None
+        cls._pool_info = None
+        cls._world = 0
+        cls._attached = False
+        return t.name
+
+    def _attach_tenant(self, run_dir, name, *, priority=None,
+                       timeout=None):
+        from ..gateway import daemon as gw_mod
+        from ..gateway.client import TenantClient
+        d = gw_mod.discover_gateway(run_dir)
+        if d is None:
+            print("❌ no gateway pool found"
+                  + (f" in {run_dir}" if run_dir else
+                     " (start one: %dist_pool start -n 4, or pass "
+                     "its run dir)"))
+            return
+        manifest = gw_mod.read_gateway_manifest(d)
+        if manifest is None or not gw_mod.gateway_alive(manifest):
+            print(f"❌ {d} has no live gateway daemon "
+                  "(%dist_pool status / %dist_gc --dry-run to "
+                  "inspect)")
+            return
+        plane = manifest.get("tenant_plane") or {}
+        # A prior session under this name: its token (recorded in the
+        # gateway manifest, same-filesystem trust like session.json)
+        # proves we RESUME it — the gateway bumps the tenant epoch and
+        # fences the crashed kernel's old connection.
+        token = ((manifest.get("tenants") or {}).get(name)
+                 or {}).get("token")
+        t0 = time.time()
+        try:
+            client = TenantClient(
+                plane.get("host") or "127.0.0.1",
+                int(plane.get("port") or 0), name, token=token,
+                pool_token=manifest.get("pool_token"),
+                priority=priority, on_stream=self._feed_stream,
+                hello_timeout=float(timeout) if timeout else 30.0)
+        except Exception as e:
+            print(f"❌ tenant attach failed: {e}")
+            return
+
+        def _on_parked(_d: dict) -> None:
+            # A cell that was in flight ACROSS the reattach just
+            # finished and parked — the hello's parked list predates
+            # it, so this nudge is the only signal it exists.  Drain
+            # off the reader thread: drain() waits on a reply the
+            # reader itself delivers.
+            def _drain_bg():
+                try:
+                    drained = client.drain()
+                except Exception:
+                    return   # stays claimable on the next attach
+                first = True
+                for mid, res in sorted(drained.items()):
+                    self._render_drained_reply(
+                        mid, res, "finished while reattaching",
+                        prefix="\n" if first else "")
+                    first = False
+            threading.Thread(target=_drain_bg, daemon=True,
+                             name="nbd-parked-drain").start()
+
+        client.on_parked = _on_parked
+        DistributedMagics._tenant = client
+        DistributedMagics._pool_info = {"run_dir": d, **manifest}
+        DistributedMagics._world = client.world_size
+        DistributedMagics._attached = True
+        verb = ("🔗 reattached" if client.attach_status == "reattached"
+                else "🤝 attached")
+        pol = client.policy or {}
+        print(f"{verb} to pool {d} as tenant {name!r} "
+              f"(epoch {client.epoch}, {client.world_size} ranks, "
+              f"sched {pol.get('mode', '?')}, "
+              f"{time.time() - t0:.1f}s)")
+        if client.parked:
+            # Exactly-once redelivery of results that finished while
+            # this tenant had no kernel.
+            def _late_drain(claimed: dict) -> None:
+                # The drain reply outlived its waiter (timeout or
+                # Ctrl-C mid-attach).  The gateway's claim was already
+                # destructive, so render from the reader thread — the
+                # alternative is losing the results on both sides.
+                first = True
+                for mid, res in sorted(claimed.items()):
+                    self._render_drained_reply(
+                        mid, res, "finished while detached",
+                        prefix="\n" if first else "")
+                    first = False
+            try:
+                drained = client.drain(on_late=_late_drain)
+            except Exception as e:
+                print(f"⚠️ mailbox drain failed: {e} — parked results "
+                      "remain claimable on the gateway")
+                drained = {}
+            for mid, res in sorted(drained.items()):
+                self._render_drained_reply(mid, res,
+                                           "finished while detached")
+        print("Cells (%%distributed) now run on the POOL under this "
+              "tenant's isolated namespace; `shared` is the opt-in "
+              "cross-tenant dict. %dist_pool status shows the queue.")
+
+    def _pool_endpoint(self, run_dir=None):
+        """(manifest, run_dir) of the pool to administer: the attached
+        one first, else discovery."""
+        from ..gateway import daemon as gw_mod
+        if run_dir is None and DistributedMagics._pool_info is not None:
+            d = DistributedMagics._pool_info.get("run_dir")
+            m = gw_mod.read_gateway_manifest(d)
+            # No silent fallback to discovery here: a bare
+            # `%dist_pool stop` targets THE ATTACHED pool, and if its
+            # manifest is gone, discovering the newest other live pool
+            # would aim the shutdown at a pool the user never meant
+            # (possibly someone else's).  Name the problem instead.
+            if m is None:
+                print(f"⚠️ attached pool {d} has no readable manifest "
+                      "(daemon exited?) — pass --run-dir explicitly "
+                      "to administer a different pool")
+            return m, d
+        d = gw_mod.discover_gateway(run_dir)
+        if d is None:
+            return None, None
+        return gw_mod.read_gateway_manifest(d), d
+
+    def dist_pool(self, line):
+        """Gateway pool admin: ``%dist_pool start -n 4`` spawns a
+        gateway daemon owning a pooled fleet of GPU ranks that N
+        notebook kernels share (``%dist_attach --tenant NAME``);
+        ``status`` shows the scheduler queue, per-tenant counters, and
+        tenant-attributed per-rank busy state; ``stop`` shuts the
+        daemon and its workers down.  Elastic pools: ``resize -n N``
+        changes the world size via a drain-barrier epoch bump,
+        ``start --autoscale MIN:MAX`` arms the pressure-driven
+        autoscaler, and ``template --file CELL.py`` registers a
+        warm-start cell re-run on every resized fleet.  A ``gpu`` pool
+        holds at most one rank a card: a start or a resize past the
+        host's GPUs is refused.  ``migrate`` lands with the serving
+        plane (ROADMAP A5.6b) and raises.  Scheduling/admission
+        defaults come from the ``NBD_POOL_*``/``NBD_TENANT_*``
+        knobs."""
+        import subprocess
+        import sys as _sys
+
+        from ..gateway import daemon as gw_mod
+        args = _parse("dist_pool", line)
+        if args.command == "migrate":
+            raise _not_ported("%dist_pool migrate", "A5.6b")
+        if args.command == "start":
+            # "auto" is the GPU and raises on a host without one, as
+            # %dist_init --backend auto does: never the CPU unasked.
+            from ..manager import topology as _topo
+            backend = (_topo.detect_backend() if args.backend == "auto"
+                       else args.backend)
+            refusal = gw_mod.gpu_refusal(backend, args.workers)
+            if refusal:
+                print(f"❌ {refusal}")
+                return
+            run_dir = (args.run_dir or "").strip().strip("'\"")
+            if not run_dir:
+                from ..resilience import session as session_mod
+                root = session_mod.default_runs_root()
+                os.makedirs(root, exist_ok=True)
+                run_dir = tempfile.mkdtemp(prefix="pool-", dir=root)
+            os.makedirs(run_dir, exist_ok=True)
+            cmd = [_sys.executable, "-m",
+                   "nbdistributed_tpu_torch.gateway.daemon",
+                   "-n", str(args.workers), "--backend", backend,
+                   "--run-dir", run_dir]
+            for flag, v in (("--max-tenants", args.max_tenants),
+                            ("--sched", args.sched),
+                            ("--mesh-slots", args.mesh_slots),
+                            ("--queue-depth", args.queue_depth),
+                            ("--tenant-inflight",
+                             args.tenant_inflight),
+                            ("--metrics-port", args.metrics_port),
+                            ("--autoscale", args.autoscale)):
+                if v is not None:
+                    cmd += [flag, str(v)]
+            if args.effects:
+                cmd += ["--effects"]
+            env = dict(os.environ)
+            env.pop("NBD_RUN_DIR", None)  # the daemon owns its own
+            # The daemon imports this package: its checkout goes first
+            # on the daemon's path, whatever this kernel's cwd is.
+            root = os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))))
+            env["PYTHONPATH"] = os.pathsep.join(
+                [root] + [p for p in env.get("PYTHONPATH", "")
+                          .split(os.pathsep) if p])
+            print(f"🚀 starting gateway pool ({args.workers} workers, "
+                  f"backend={backend}) → {run_dir}")
+            # Daemon output goes to a log FILE, not a pipe: the
+            # daemon outlives this kernel by design and nobody would
+            # drain a pipe — one chatty dependency later the ~64 KiB
+            # buffer fills and every daemon write (and the pool with
+            # it) wedges.
+            log_path = os.path.join(run_dir, "gateway.log")
+            with open(log_path, "ab") as logf:
+                proc = subprocess.Popen(cmd, env=env, stdout=logf,
+                                        stderr=subprocess.STDOUT,
+                                        start_new_session=True)
+            deadline = time.time() + args.start_timeout
+            m = None
+            while time.time() < deadline:
+                if proc.poll() is not None:
+                    try:
+                        with open(log_path, "rb") as f:
+                            out = f.read().decode("utf-8", "replace")
+                    except OSError:
+                        out = ""
+                    print(f"❌ gateway daemon exited "
+                          f"({proc.returncode}):\n{out[-2000:]}")
+                    return
+                m = gw_mod.read_gateway_manifest(run_dir)
+                if gw_mod.gateway_alive(m):
+                    break
+                time.sleep(0.3)
+            if not gw_mod.gateway_alive(m):
+                # SIGTERM, not SIGKILL: the daemon installs its
+                # handlers before spawning, so a graceful stop reaps
+                # the half-started fleet — SIGKILL orphaned those
+                # workers (and the GPUs they held) until the orphan
+                # TTL expired.
+                proc.terminate()
+                try:
+                    proc.wait(timeout=15)
+                except Exception:
+                    proc.kill()
+                print("❌ gateway daemon never became ready "
+                      f"(waited {args.start_timeout:.0f}s)")
+                return
+            plane = m.get("tenant_plane") or {}
+            print(f"✅ pool up: pid {m.get('pid')} · tenant plane "
+                  f"{plane.get('host')}:{plane.get('port')} · "
+                  f"policy {m.get('policy')} · run dir {run_dir}")
+            met = m.get("metrics") or {}
+            if met:
+                print(f"📈 scrape endpoint: http://{met.get('host')}:"
+                      f"{met.get('port')}/metrics?token=<pool token> "
+                      f"(/healthz, /latency.json)")
+            print(f"   attach kernels with: %dist_attach --tenant "
+                  f"NAME {run_dir}")
+            return
+        manifest, d = self._pool_endpoint(
+            (args.run_dir or "").strip().strip("'\"") or None)
+        if manifest is None:
+            print("❌ no gateway pool found (start one: %dist_pool "
+                  "start -n 4)")
+            return
+        plane = manifest.get("tenant_plane") or {}
+        host = plane.get("host") or "127.0.0.1"
+        port = int(plane.get("port") or 0)
+        if args.command == "stop":
+            from ..gateway.client import pool_shutdown
+            try:
+                res = pool_shutdown(host, port,
+                                    manifest.get("pool_token"))
+            except Exception as e:
+                print(f"❌ pool stop failed: {e}")
+                return
+            attached_dir = (DistributedMagics._pool_info or {}).get(
+                "run_dir")
+            # Only tear down this kernel's attachment when the pool
+            # we just stopped IS the attached one (stop --run-dir X
+            # must not drop a live attachment to pool Y).
+            if (DistributedMagics._tenant is not None
+                    and attached_dir == d):
+                DistributedMagics._drop_tenant_state()
+            print(f"🛑 pool {d}: {res.get('status', res)}")
+            return
+        if args.command == "resize":
+            from ..gateway.client import pool_resize
+            print(f"🔧 resizing pool {d} → {args.workers} workers "
+                  f"(drain barrier + epoch bump — in-flight cells "
+                  f"finish first)...")
+            try:
+                res = pool_resize(host, port, manifest.get("pool_token"),
+                                  args.workers)
+            except Exception as e:
+                print(f"❌ pool resize failed: {e}")
+                return
+            if res.get("status") == "resized":
+                print(f"✅ resized: {res.get('world_size')} ranks · "
+                      f"epoch {res.get('epoch')} · generation "
+                      f"{res.get('generation')} · drain "
+                      f"{res.get('drain_s')}s"
+                      + ("" if res.get("drained") else
+                         " (drain TIMED OUT — in-flight cells were "
+                         "aborted with explicit verdicts)")
+                      + f" · total {res.get('wall_s')}s")
+                if (DistributedMagics._tenant is not None
+                        and (DistributedMagics._pool_info or {})
+                        .get("run_dir") == d):
+                    # This kernel's cells now span the new world.
+                    DistributedMagics._world = int(res["world_size"])
+            elif res.get("status") == "noop":
+                print(f"ℹ pool is already {res.get('world_size')} "
+                      f"ranks")
+            else:
+                print(f"❌ {res.get('error') or res}")
+            return
+        if args.command == "template":
+            from ..gateway.client import pool_template
+            code = None
+            if args.tpl_file:
+                path = args.tpl_file.strip().strip("'\"")
+                try:
+                    with open(path) as f:
+                        code = f.read()
+                except OSError as e:
+                    print(f"❌ cannot read {path}: {e}")
+                    return
+            try:
+                res = pool_template(host, port,
+                                    manifest.get("pool_token"),
+                                    code, name=args.name)
+            except Exception as e:
+                print(f"❌ pool template failed: {e}")
+                return
+            if code is None:
+                tpls = res.get("templates") or []
+                print(f"📋 templates: {', '.join(tpls) if tpls else '(none)'}"
+                      f" — register one with --file CELL.py; each "
+                      f"re-runs on every resized fleet so new workers "
+                      f"start warm")
+            elif res.get("status") == "ok":
+                print(f"✅ template {args.name!r} ran on ranks "
+                      f"{res.get('ranks')} — it will re-run after "
+                      f"every resize")
+            else:
+                print(f"❌ {res.get('error') or res.get('errors') or res}")
+            return
+        # status — the attached tenant connection only answers for
+        # ITS pool: `status --run-dir X` while attached to pool Y
+        # must probe X, not render Y's queue under X's run dir
+        # (same cross-pool guard as stop above).
+        attached_dir = (DistributedMagics._pool_info or {}).get(
+            "run_dir")
+        client = (DistributedMagics._tenant if attached_dir == d
+                  else None)
+        try:
+            if client is not None and client.alive:
+                st = client.pool_status()
+            else:
+                from ..gateway.client import pool_status_probe
+                st = pool_status_probe(host, port,
+                                       manifest.get("pool_token"))
+        except Exception as e:
+            print(f"❌ pool status failed: {e}")
+            return
+        self._render_pool_status(
+            st, d, show_autoscale=args.autoscale is not None)
+
+    def _render_pool_status(self, st: dict, run_dir, *,
+                            show_autoscale: bool = False) -> None:
+        sched = st.get("scheduler") or {}
+        pol = sched.get("policy") or {}
+        mem = st.get("membership") or {}
+        epoch_bit = (f" · epoch {st.get('epoch')} · gen "
+                     f"{mem.get('generation')}"
+                     if st.get("epoch") is not None else "")
+        print(f"🏊 pool {run_dir} · pid {st.get('pid')} · "
+              f"{st.get('world_size')} ranks{epoch_bit} · sched "
+              f"{pol.get('mode')} (slots {pol.get('mesh_slots')}, "
+              f"queue {sched.get('queued', 0)}/"
+              f"{pol.get('queue_depth') or '∞'}, active "
+              f"{sched.get('active', 0)}, shed "
+              f"{sched.get('shed_total', 0)} total)")
+        if st.get("autoscale"):
+            print(f"⚖ autoscale armed: {st['autoscale']}")
+        if show_autoscale:
+            self._render_autoscale_audit(
+                st.get("autoscale_decisions"))
+        trans = mem.get("transition")
+        if trans:
+            print(f"⚠ resize in flight: {trans.get('from_world')} → "
+                  f"{trans.get('to_world')} ranks (epoch "
+                  f"{trans.get('from_epoch')} → "
+                  f"{trans.get('to_epoch')}, reason: "
+                  f"{trans.get('reason')}) — queued cells hold, "
+                  f"in-flight cells drain")
+        lat = (st.get("latency") or {}).get("summary") or {}
+        if lat.get("count"):
+            e = lat.get("e2e_ms") or {}
+            q = (lat.get("stages") or {}).get("queue") or {}
+            x = (lat.get("stages") or {}).get("execute") or {}
+            print(f"⏱ cells: e2e p50/p99 {e.get('p50', 0)}/"
+                  f"{e.get('p99', 0)} ms · queue p99 "
+                  f"{q.get('p99', 0)} ms · execute p99 "
+                  f"{x.get('p99', 0)} ms "
+                  f"({lat['count']} recorded — %dist_lat for stages)")
+        if st.get("metrics_port"):
+            print(f"📈 scrape endpoint on port {st['metrics_port']} "
+                  f"(/metrics, /healthz, /latency.json — pool token)")
+        tenants = (st.get("tenants") or {}).get("tenants") or {}
+        me = (DistributedMagics._tenant.name
+              if DistributedMagics._tenant is not None else None)
+        if tenants:
+            hdr = (f"{'tenant':<14}{'state':<10}{'epoch':<7}"
+                   f"{'prio':<6}{'queued':<8}{'active':<8}"
+                   f"{'done':<7}{'shed':<6}{'rej':<5}{'parked':<7}")
+            print(hdr)
+            print("─" * len(hdr))
+            per = (sched.get("tenants") or {})
+            for name in sorted(tenants):
+                t = tenants[name]
+                s = per.get(name) or {}
+                mark = "*" if name == me else ""
+                state = ("attached" if t.get("attached")
+                         else "detached")
+                print(f"{(name + mark):<14}{state:<10}"
+                      f"{t.get('epoch', '-'):<7}"
+                      f"{t.get('priority', 0):<6}"
+                      f"{s.get('queued', 0):<8}{s.get('active', 0):<8}"
+                      f"{s.get('completed', 0):<7}"
+                      f"{s.get('shed', 0):<6}{s.get('rejected', 0):<5}"
+                      f"{t.get('parked', 0):<7}")
+        else:
+            print("(no tenants attached yet)")
+        ranks = st.get("ranks") or {}
+        mranks = mem.get("ranks") or {}
+        draining = {r for r, m in mranks.items()
+                    if m.get("state") == "draining"}
+        stalled: set = set()
+        for v in st.get("hang_verdicts") or ():
+            stalled.update(str(r) for r in v.get("ranks") or ())
+        # A draining rank is parked by the resize barrier ON PURPOSE —
+        # rendering it stalled would be exactly the watchdog
+        # mis-blame the drain path exists to prevent.
+        stalled -= draining
+        rows = [(r, v) for r, v in sorted(ranks.items(),
+                                          key=lambda kv:
+                                          int(kv[0]))
+                if v.get("busy_type") or r in draining or r in stalled
+                or (mranks.get(r) or {}).get("join_epoch", 1) > 1]
+        for r, v in rows:
+            who = (f" · tenant {v['tenant']}" if v.get("tenant")
+                   else "")
+            if r in draining:
+                busy = "⚠ draining"
+            elif r in stalled:
+                busy = "⚠ stalled"
+            elif v.get("busy_type"):
+                busy = f"⚙ {v['busy_type']} {v.get('busy_s', 0):.1f}s"
+            else:
+                busy = "idle"
+            je = (mranks.get(r) or {}).get("join_epoch")
+            joined = (f" · joined ep {je}"
+                      if je is not None and je > 1 else "")
+            print(f"   rank {r}: {busy}{joined}{who}")
+        for v in st.get("hang_verdicts") or ():
+            print(f"   ⚠ HUNG [{v.get('kind')}] {v.get('detail')}")
+
+    @staticmethod
+    def _render_autoscale_audit(decisions) -> None:
+        """The autoscaler decision audit trail: one row per recent
+        observation — pressure inputs, sustain/cooldown state,
+        verdict — newest last."""
+        decs = decisions or []
+        if not decs:
+            print("   (no autoscale audit records — arm the "
+                  "autoscaler with %dist_pool start --autoscale "
+                  "MIN:MAX)")
+            return
+        hdr = (f"   {'age':>6} {'world':>5} {'verdict':<8} "
+               f"{'target':>6} {'queued':>6} {'backlog':>7} "
+               f"{'p95':>7} {'sustain':>8} reason")
+        print(hdr)
+        print("   " + "─" * (len(hdr) - 3))
+        now = time.time()
+        for rec in decs[-12:]:
+            inp = rec.get("inputs") or {}
+            age = max(0.0, now - float(rec.get("ts") or now))
+            reason = rec.get("reason") \
+                or ", ".join(rec.get("pressure") or ()) or "-"
+            if rec.get("clamp"):
+                reason = f"[clamp] {reason}"
+            cd = rec.get("cooldown_s") or 0
+            if cd and rec.get("verdict") == "hold":
+                reason = f"cooldown {cd:.0f}s"
+            tgt = rec.get("target")
+            print(f"   {f'-{age:.0f}s':>6} "
+                  f"{rec.get('world', '-'):>5} "
+                  f"{rec.get('verdict', '-'):<8} "
+                  f"{tgt if tgt is not None else '-':>6} "
+                  f"{inp.get('queued', 0):>6} "
+                  f"{inp.get('backlog', 0):>7} "
+                  f"{inp.get('queue_p95_s', 0):>6.2f}s "
+                  f"{rec.get('sustain_s', 0):>7.1f}s {reason}")
+
+    def _run_on_pool(self, code: str, *, priority=None,
+                     deadline_s=None):
+        """Tenant-mode cell dispatch: submit to the gateway, surface
+        the explicit queue-position / shed / rejected verdicts, and
+        render per-rank results the way the single-kernel path does.
+        Returns the per-rank results, or None when the cell did not
+        run (a verdict, a fence, the gateway gone)."""
+        from ..gateway.client import (CellSubmitError, GatewayGone,
+                                      TenantFenced)
+        client = DistributedMagics._tenant
+        rec = self._timeline.start(code,
+                                   list(range(self._world or 0)),
+                                   kind="pool")
+
+        def _late(d: dict) -> None:
+            # The interrupted cell's terminal reply arrived on this
+            # still-live connection (so the gateway delivered it and
+            # nothing parked): render it instead of dropping it —
+            # including the no-results verdicts (worker death, request
+            # timeout, shed), which are exactly the crash outcomes.
+            self._render_drained_reply("", d, "finished", prefix="\n")
+
+        data = None
+        try:
+            data = client.execute(
+                code, priority=priority, deadline_s=deadline_s,
+                timeout=None,
+                on_queued=lambda n: print(
+                    f"⏳ pool busy — queued at position "
+                    f"{n.get('position')}"
+                    + (f"\n   🚧 {n['reason']}" if n.get("reason")
+                       else "")),
+                on_late=_late)
+        except CellSubmitError as e:
+            v = e.verdict
+            if v.get("status") == "shed":
+                print(f"🪓 {v.get('error')}")
+            else:
+                print(f"🚦 {v.get('error')}")
+            return None
+        except TenantFenced as e:
+            print(f"⛔ {e}\n   Another kernel reattached as tenant "
+                  f"{client.name!r}: this connection is fenced.")
+            return None
+        except GatewayGone as e:
+            print(f"💀 {e}\n   The pool (or its daemon) is gone — "
+                  "%dist_pool status, or %dist_attach --tenant "
+                  f"{client.name} once it is back.")
+            return None
+        except KeyboardInterrupt:
+            print("\n🛑 interrupt: the cell keeps running on the "
+                  "pool; its result will print here when it finishes "
+                  "(or parks for redelivery on the next attach if "
+                  "this kernel exits first)")
+            return None
+        except Exception as e:
+            print(f"❌ {type(e).__name__}: {e}")
+            return None
+        finally:
+            self._timeline.finish(rec, None)
+        # Only errors render from the reply: stdout AND the result
+        # repr already arrived live as tenant-routed stream_output
+        # frames (same contract as the single-kernel display path —
+        # printing the reply's "output" here would double everything).
+        data = data or {}
+        if data.get("error"):
+            # Gateway-level failure (worker death, request timeout):
+            # there are no per-rank results to render the error from —
+            # without this line the cell looks like a silent success.
+            print(f"❌ pool: {data['error']}")
+        results = data.get("results") or {}
+        for r in sorted(results, key=int):
+            d = results[r] or {}
+            if d.get("error"):
+                print(f"❌ rank {r}: {d['error']}")
+        return results
+
+    # ==================================================================
     # magics of later slices: registered, raising with their entry
 
     def _deferred(self, name: str):
         raise _not_ported(f"%{name}", _DEFERRED[name])
 
-    def dist_attach(self, line):
-        self._deferred("dist_attach")
-
-    def dist_pool(self, line):
-        self._deferred("dist_pool")
-
     def dist_serve(self, line):
         self._deferred("dist_serve")
-
-    def dist_gc(self, line):
-        self._deferred("dist_gc")
 
     # ==================================================================
     # timeline magics (reference: magic.py:1778-1870)
@@ -3220,6 +4124,11 @@ class DistributedMagics:
         # per-rank doneness must not leak into the next world and
         # promote a half-written checkpoint as the heal target.
         cls._clear_bg_ckpt()
+        if cls._comm is not None:
+            # A cell still waiting gets the shutdown's verdict now,
+            # before any rank is told to leave: a planned exit must not
+            # reach it first as a death.
+            cls._comm.fail_pending()
         if cls._pm is not None:
             cls._pm.quiesce()  # planned exits are not deaths
         if cls._comm is not None:
@@ -3301,7 +4210,17 @@ class DistributedMagics:
         pkills every worker on the host, which would take other
         kernels' fleets with it.  Streamed cells still in flight drain
         first (for at most ``_SHUTDOWN_DRAIN_S``), so their errors
-        surface instead of dying with the fleet."""
+        surface instead of dying with the fleet.  In tenant mode the
+        POOL belongs to every tenant: this kernel only detaches (its
+        in-flight results park for a later ``%dist_attach --tenant``;
+        ``%dist_pool stop`` ends the pool)."""
+        if DistributedMagics._tenant is not None:
+            name = DistributedMagics._drop_tenant_state(detach=True)
+            print(f"✅ detached tenant {name!r} from the pool (the "
+                  "pool keeps running — %dist_pool stop ends it; "
+                  f"%dist_attach --tenant {name} resumes this "
+                  "tenant)")
+            return
         had = self._world
         self._drain_async("%dist_shutdown", _SHUTDOWN_DRAIN_S)
         token, epoch = self._session_identity()

@@ -1070,13 +1070,22 @@ class CommunicationManager:
     # ------------------------------------------------------------------
 
     def shutdown(self) -> None:
-        """Tear down the listener (reference: communication.py:372-389)
-        and fail every request still pending: its ranks are about to be
-        torn down with this manager, so no reply will come.  (The JAX
-        package's shutdown leaves them to their timeout: a cell the
-        hang watchdog heals under stays blocked in the notebook for its
-        ``-t``, forever without one.)"""
+        """Fail every request still pending, then tear down the listener
+        (reference: communication.py:372-389): the pending requests'
+        ranks are about to be torn down with this manager, so no reply
+        will come.  (The JAX package's shutdown leaves them to their
+        timeout: a cell the hang watchdog heals under stays blocked in
+        the notebook for its ``-t``, forever without one.)"""
+        self.fail_pending()
         self._listener.close()
+
+    def fail_pending(self) -> None:
+        """Fail every pending request with the shutdown's verdict
+        ("aborted: the coordinator shut down while it was pending").
+        A teardown calls it BEFORE it tells the ranks to leave: a
+        rank's exit, or the listener's close, would otherwise fail the
+        request first as a death ("worker N died while a request was
+        pending"), depending on timing."""
         with self._lock:
             stale = list(self._pending.items())
             self._pending.clear()

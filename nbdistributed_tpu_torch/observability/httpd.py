@@ -23,7 +23,7 @@ scraped by a stock Prometheus — no shim, no notebook round-trip:
   stage records (:mod:`.latency`), the machine-readable twin of
   ``%dist_lat``.
 
-On a gateway pool (ROADMAP A5.6 in the port), ``/metrics`` and
+On a gateway pool (``gateway/daemon.py``), ``/metrics`` and
 ``/latency.json`` are **token-gated like the admin plane** (the pool token, via
 ``?token=…`` or ``Authorization: Bearer …``) — the manifest that
 tells a kernel where to attach also authorizes its scrapes.

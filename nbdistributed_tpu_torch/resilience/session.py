@@ -206,9 +206,11 @@ def gc_runs(root: str | None = None, *, ttl_s: float | None = None,
     no manifest exists) is older than ``ttl_s`` AND none of its
     manifest pids are alive — an orphaned-but-within-grace fleet keeps
     its dir no matter how old the manifest is.  The CURRENT run dir
-    (``NBD_RUN_DIR``) is never swept.  (The JAX package also keeps a
-    live gateway daemon's dir; the port has no gateway yet, ROADMAP
-    A5.)  Returns
+    (``NBD_RUN_DIR``) is never swept, and neither is a dir owned by a
+    **live gateway daemon** (pid-liveness probe on its
+    ``gateway.json`` — a pooled fleet may sit idle far past any TTL
+    while its tenants are away), nor one whose gateway manifest was
+    updated within the orphan TTL (a pool mid-resize).  Returns
     ``{"root", "swept": [...], "kept": [...], "kept_why": {dir:
     reason}, "errors": [...]}`` — ``kept_why`` is what ``%dist_gc
     --dry-run`` prints so a skip is explainable; with ``dry_run``
@@ -237,6 +239,40 @@ def gc_runs(root: str | None = None, *, ttl_s: float | None = None,
             kept_why[d] = "current session's run dir (NBD_RUN_DIR)"
             continue
         try:
+            # Live gateway daemons protect their run dir regardless of
+            # age: an idle pool's manifest can be arbitrarily old while
+            # the daemon (and its tenants' parked state) is live.
+            from ..gateway.daemon import (gateway_alive,
+                                          read_gateway_manifest)
+            gw = read_gateway_manifest(d)
+            if gateway_alive(gw):
+                kept.append(d)
+                kept_why[d] = (f"live gateway daemon "
+                               f"(pid {gw.get('pid')})")
+                continue
+            if gw is not None:
+                # Mid-resize/restart window: a resize is a drain +
+                # fleet restart under a bumped epoch, during which the
+                # daemon pid probe can race the restart and read
+                # "dead".  A manifest whose epoch/heartbeat was bumped
+                # within the orphan TTL is a pool in transition, not
+                # an abandoned one.
+                gw_ts = gw.get("updated_ts") or gw.get("created_ts") \
+                    or 0.0
+                orphan_ttl = knobs.get_float("NBD_ORPHAN_TTL_S", 600.0)
+                try:
+                    recent = (now - float(gw_ts)) <= orphan_ttl
+                except (TypeError, ValueError):
+                    recent = False
+                if recent:
+                    kept.append(d)
+                    kept_why[d] = (
+                        f"gateway manifest updated "
+                        f"{now - float(gw_ts):.0f}s ago (epoch "
+                        f"{gw.get('epoch', '?')}) — resize/restart "
+                        f"window, within orphan ttl "
+                        f"{orphan_ttl:.0f}s")
+                    continue
             mpath = manifest_path(d)
             ref = mpath if os.path.exists(mpath) else d
             age = now - os.path.getmtime(ref)

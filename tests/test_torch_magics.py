@@ -72,8 +72,7 @@ def test_extension_replaces_the_jax_magics_and_refuses(capsys):
         for line, entry in [("--hosts local,b", "A5.5"),
                             ("--agents b=1.2.3.4:5", "A5.5"),
                             ("--chips-per-worker 2", "A5.5"),
-                            ("--coordinator-addr 10.0.0.1", "A5.5"),
-                            ("--attach", "A5.6")]:
+                            ("--coordinator-addr 10.0.0.1", "A5.5")]:
             with pytest.raises(NotImplementedError, match=entry):
                 shell.run_line_magic("dist_init", f"-n 1 {line}")
         assert _magics()._comm is None
@@ -141,9 +140,12 @@ def test_init_banner_names_the_torch_namespace(ip, capsys):
                  "%dist_watchdog", "%dist_doctor", "--deadline S",
                  "%dist_heal [--restore ckpt]", "%dist_supervise",
                  "%dist_postmortem [--last]", "%dist_guard",
-                 "(A5.6)", "%dist_lint self (A5.7)"):
+                 "%dist_attach [RUN_DIR]", "%dist_pool start|status|stop|",
+                 "%dist_gc [--dry-run]", "%dist_serve, %dist_pool migrate "
+                 "(A5.6b)", "%dist_lint self (A5.7)"):
         assert name in text
     assert "jax" not in text.lower() and "A5.4" not in text
+    assert "(A5.6)" not in text
 
 
 def test_plain_cell_auto_distributes(ip, capsys):
@@ -354,12 +356,6 @@ def test_repeat_runs_the_cell_k_times_worker_side(ip, capsys):
     assert "--until requires --repeat" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("line,entry", [("--priority 1", "A5.6")])
-def test_distributed_options_of_later_entries_raise(ip, line, entry):
-    with pytest.raises(NotImplementedError, match=entry):
-        ip.run_cell_magic("distributed", line, "1")
-
-
 def test_distributed_strict_option(ip, capsys):
     """``--strict`` runs a clean cell and refuses an error-severity one
     before dispatch (its marker never reaches a worker)."""
@@ -488,9 +484,7 @@ def test_dist_lint_self_raises_naming_a57(ip):
         ip.run_line_magic("dist_lint", "self")
 
 
-@pytest.mark.parametrize("name,entry", [
-    ("dist_attach", "A5.6"), ("dist_pool", "A5.6"),
-    ("dist_serve", "A5.6"), ("dist_gc", "A5.6")])
+@pytest.mark.parametrize("name,entry", [("dist_serve", "A5.6b")])
 def test_deferred_magic_raises_naming_its_entry(ip, name, entry):
     with pytest.raises(NotImplementedError,
                        match=rf"%{name} .*ROADMAP {entry}$"):
