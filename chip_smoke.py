@@ -132,19 +132,20 @@ Phases (each prints one or more lines; any failure exits non-zero):
    no number is a link speed.
 
 19. (run after phase 18) training on a mesh: phase 18's ranks train,
-   each from seed 0 and guarded, SmolLM2-135M (30 layers, fp32, remat)
+   each from seed 0 and guarded, SmolLM2-135M (10 of its 30 layers,
+   fp32, remat)
    with Megatron rules on ``{"dp": 2, "tp": 2}`` (attention on every
    head on every tp rank: 9 and 3 heads do not divide 2) and with HSDP
-   rules on the same mesh (3 AdamW steps, B=4 x S=512 packed
+   rules on the same mesh (2 AdamW steps, B=4 x S=512 packed
    documents), ZeRO-2 on ``{"dp": 4}`` (accum_steps 2, B=8 x S=512, 3
    steps and a NaN batch between steps 2 and 3 that must be skipped
-   bitwise), and Mixtral (2 layers, full width, fp32, capacity factor
+   bitwise), and Mixtral (1 layer, full width, fp32, capacity factor
    4, dropless) with ``moe_loss_fn`` on ``{"ep": 4}`` (2 steps, B=1 x
    S=512).  Each is held to the single-process step on the whole tree
    and batch, run first in this process: every rank's losses equal, the
    losses within 1e-5 and each step's gradient norm within 1e-4
    relative, every leaf gathered from the shards within 1e-4 relative
-   L2; per rank per step K1/K2/K3 60/30/30 for SmolLM2 (x2 with
+   L2; per rank per step K1/K2/K3 20/10/10 for SmolLM2 (x2 with
    accumulation) and 2/2/2 for Mixtral, counts reset just before and
    read just after; the ZeRO moments a quarter of each leaf.  Rows: ms
    per step, collectives per step and peak memory per rank, host-bound
@@ -159,11 +160,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
    sides; K2/K3 from a whole-sequence lse and delta; a fully masked
    hop's gradients exactly zero).  Then phase 18's ranks, each job from
    seed 0 in fp32 and held to the single-process run here as phase 19
-   holds its jobs: SmolLM2-135M (30 layers, remat, packed documents,
+   holds its jobs: SmolLM2-135M (10 layers, remat, packed documents,
    B=2 x S=2048 on ``{"sp": 4}`` and B=4 on ``{"dp": 2, "sp": 2}``,
-   the ring, 2 AdamW steps), Mistral-7B (``mistral_7b_config``, 2 of 32
-   layers, window 4096, B=1 x S=8192 on sp4: the pruned plan of 3 hops
-   and one jump home), TinyLlama-1.1B (4 of 22 layers, Ulysses on
+   the ring, 2 AdamW steps), Mistral-7B (``mistral_7b_config``, 1 of 32
+   layers, window 4096, B=1 x S=8192 on sp4, 1 step: the pruned plan of
+   3 hops and one jump home), TinyLlama-1.1B (2 of 22 layers, Ulysses on
    ``{"sp": 2, "tp": 2}`` with Megatron rules), Mixtral (1 layer,
    dropless, capacity factor 4, ring on ``{"sp": 2, "ep": 2}``, one
    forward and backward without an optimizer), and Mistral's attention
@@ -179,30 +180,30 @@ Phases (each prints one or more lines; any failure exits non-zero):
    one step, this process) against full remat and none: the loss within
    1e-6 of full remat's, K1 60 (attention recomputed), K2 and K3 30;
    peak GB and ms of each.  Then phase 18's ranks, each job from seed 0
-   in fp32, AdamW lr 1e-4, 2 steps, held to the single-process step as
-   phase 19 holds its jobs (each step's gradient norm from an AdamW that
-   records it): Mistral-7B (``mistral_7b_config``, 4 of 32 layers, one a
-   stage, B=16 x S=512, 16 microbatches) on ``{"pp": 4}`` by GPipe
+   in fp32, AdamW lr 1e-4, held to the single-process step as phase 19
+   holds its jobs (each step's gradient norm from an AdamW that records
+   it): Mistral-7B (``mistral_7b_config``, 4 of 32 layers, one a stage,
+   B=16 x S=512, 16 microbatches, 1 step) on ``{"pp": 4}`` by GPipe
    (``make_pp_train_step``) and by 1F1B (``make_pp_1f1b_train_step``,
-   its losses within 1e-5 of GPipe's), and SmolLM2-135M (30 layers, 15 a
+   its losses within 1e-5 of GPipe's), and SmolLM2-135M (10 layers, 5 a
    stage) by 1F1B on ``{"dp": 2, "pp": 2}`` (``batch_axis="dp"``, B=8,
-   4 microbatches).  K1/K2/K3 per rank per step: the stage's layers per
-   microbatch, K1 twice under 1F1B but on the last stage.  And
+   4 microbatches, 2 steps).  K1/K2/K3 per rank per step: the stage's
+   layers per microbatch, K1 twice under 1F1B but on the last stage.  And
    ``allgather_matmul`` against ``all_gather`` and one product at a
    Megatron shape on ``{"tp": 4}`` (bf16, x 2048 x 4096 a rank, w
    4096 x 3584): C4's overlap, reported.  Rows: ms per step per rank,
    collectives per step, peak GB per rank, the phase's seconds.
 
 22. (run after phase 21) the training guard and per-rank checkpoints,
-   SmolLM2-135M at full depth and width, bf16, remat, B=4 x S=2048,
-   AdamW, from seed 0.  (1) Phase 18's ranks, each training on a mesh
+   SmolLM2-135M at full width, 10 of its 30 layers, bf16, remat, B=4
+   x S=2048, AdamW, from seed 0.  (1) Phase 18's ranks, each training on a mesh
    of its own (``make_mesh({"dp": 1}, ranks=[rank])``) with the same
    batches under ``TrainGuard(audit_every=2, snapshot_every=2)``, 6
    steps, fault-free and then with one bit of rank 1's ``wq`` flipped
    at step 3 by the process fault plan: every fault-free audit ``ok``,
    the step-4 audit names minority (1,) and root 0 with one repair, and
    every rank's final params and moments bitwise the fault-free run's;
-   K1/K2/K3 60/30/30 a rank a step.  (2) In this process, an inf scaled
+   K1/K2/K3 20/10/10 a rank a step.  (2) In this process, an inf scaled
    into four lm_head weights at step 3: steps 3-5 skipped with the
    params, moments and AdamW's step bitwise unchanged, the blown skip
    budget rolling back to the step-2 snapshot bitwise, steps 6-9
@@ -276,7 +277,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
    in ``stacks-rank0.*.txt``) and interrupted (a KeyboardInterrupt
    reply, the worker alive, ``%dist_doctor`` naming verdict, busy age,
    stack and flight events, the next step's loss phase 11's, K1/K2/K3
-   60/30/30); ``%%distributed --repeat 28 --deadline 3`` giving a
+   60/30/30); ``%%distributed --repeat 20 --deadline 3`` giving a
    ``deadline`` verdict with losses equal to the same cell's without
    it; two steps, ``%dist_checkpoint`` of params and optimizer, the
    uninterrupted steps 3-4, a restore, ``%dist_supervise on`` and rank
@@ -312,9 +313,30 @@ Phases (each prints one or more lines; any failure exits non-zero):
    (``%dist_init -n 1``, a CUDA tensor, a running cell) SIGKILLed and
    adopted by ``%dist_attach``: the tensor's checksum unchanged, the
    cell's output delivered once, ``%dist_gc --dry-run`` keeping the
-   live pool's run dir; ``%dist_pool stop``: the daemon and every rank
-   gone, free card memory back within 1 GB.  Cells go to
-   ``chiprun_out/pool_cells_n1.json``.
+   live pool's run dir.  Then the serving plane (items 8-12, after
+   alice, bob and carol have left): tenant srvadmin runs ``%dist_serve
+   start --spec SPEC`` (SmolLM2-135M, full width and depth, bf16, seed
+   0, ``--max-batch 8 --max-len 1024``) and phase 17's 12 requests (one
+   by ``%dist_serve submit --wait``), all completed with 32 tokens,
+   ``dup_dropped`` 0, K4 a positive multiple of 30 and at least 30 x 31
+   (counts reset and read by srvadmin's cells on the rank; prefill is
+   the plain cached attention, so K1's count is reported), the streams'
+   equality with phase 17's, tokens/s, TTFT/TPOT and ``%dist_serve
+   lat`` reported; the loadgen (3 rps for 10 s, Poisson, seed 0,
+   prompts of 16-200 tokens, 32 new) through ``tools/nbd_torch_serve.py``,
+   its report valid and nothing hung; a plane at ``--max-batch 1
+   --queue-depth 2 --inflight 2`` rejecting at the tenant's cap and
+   delivering a shed, and the serving tenant's cell refused naming
+   ``%dist_serve``; an fp32 plane stopped while a stream is mid-decode
+   and restarted, every request of its journal re-admitted and every
+   stream within the near-tie rule of solo ``generate``; and a tenant
+   moved with ``%dist_pool migrate`` to a second one-rank pool while
+   its streams are unfinished, whose plane adopts the journal and
+   finishes them (near-tie), the tenant reattached there with its token
+   and an epoch no lower, the first pool no longer knowing it.
+   ``%dist_pool stop``: both daemons and every rank gone, free card
+   memory back within 1 GB.  Cells go to ``chiprun_out/pool_cells_n1.json``
+   and ``pool_serve_cells_n1.json``.
 
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
@@ -329,7 +351,9 @@ mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
 ``train_checkpoint``, ``cluster_guard``), phase 23's
 (``notebook_serve``, ``notebook_train``), phase 24's
 (``notebook_async_serve``, ``notebook_async_train``), phase 25's
-(``supervision_*``) and phase 26's (``pool_train``, ``pool_serve``).
+(``supervision_*``) and phase 26's (``pool_train``, ``pool_serve``, and
+K4's ``serve_plane``, ``serve_plane_loadgen``, ``serve_plane_recovered``
+and ``serve_plane_migrated``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
 ranks, phase 22's guarded replicas, phases 23 and 24
@@ -342,7 +366,11 @@ inside the 120 s NCCL timeout and all-reducing 4.0) and phase 26's
 resized pool (2 NCCL ranks resized to 4 and back: a tenant's
 all-reduce summed after each flip, an all-reduce queued across the
 first flip delivered as a stale verdict, a ``%dist_pool template`` replayed on each new fleet, a
-resize to 5 refused with the pool still answering) alone on four
+resize to 5 refused with the pool still answering; then an fp32
+serving plane on both ranks, decode rank 1 SIGKILLed while it holds
+requests, the failover to rank 0 and the journal replay, a resize to
+4 while requests are in flight, every stream within the near-tie rule
+of solo ``generate`` and ``dup_dropped`` 0) alone on four
 cards, one NCCL rank per card (what one card cannot show: NCCL, its
 ``reduce_scatter_tensor``, its point-to-point ring and pipeline hops
 overlapping compute, ``all_to_all_single``, and the links between
@@ -2567,6 +2595,9 @@ TRAIN_MESH_LOSS_RTOL = 1e-5
 TRAIN_MESH_LEAF_RTOL = 1e-4
 TRAIN_MESH_BATCH_SEED = 9
 TRAIN_MESH_MOE_LAYERS = 1
+# SmolLM2's depth in phases 19-22 (10 of its 30 layers): the
+# script's time budget (PERF.md §4).  Every check holds per layer.
+MESH_SMOL_LAYERS = 10
 # Largest first: the Mixtral ranks need the card that the SmolLM2 jobs
 # leave cached.  The ZeRO-2 batch is 8 rows without segments, so that
 # each dp4 rank has one row per microbatch and the mean over the two
@@ -2577,9 +2608,9 @@ TRAIN_MESH_JOBS = (
          rules="moe", B=1, segments=True, steps=2),
     dict(name="train_mesh_megatron_dp2_tp2", model="smol",
          mesh={"dp": 2, "tp": 2}, rules="megatron", B=4, segments=True,
-         steps=3),
+         steps=2),
     dict(name="train_mesh_hsdp_dp2_tp2", model="smol",
-         mesh={"dp": 2, "tp": 2}, rules="hsdp", B=4, segments=True, steps=3),
+         mesh={"dp": 2, "tp": 2}, rules="hsdp", B=4, segments=True, steps=2),
     dict(name="train_mesh_zero2_dp4", model="smol", mesh={"dp": 4},
          rules=None, zero=True, accum=2, B=8, segments=False, steps=3,
          nan_after=2),
@@ -2590,7 +2621,8 @@ def train_mesh_cfg(job):
     import torch
     from nbdistributed_tpu_torch.models import smol_135m_config
     if job["model"] == "smol":
-        return smol_135m_config(dtype=torch.float32, remat=True)
+        return smol_135m_config(dtype=torch.float32, remat=True,
+                                n_layers=MESH_SMOL_LAYERS)
     # One of Mixtral's layers: the script's time budget (PERF.md §4).
     from nbdistributed_tpu_torch.models import mixtral_8x7b_config
     return mixtral_8x7b_config(n_layers=TRAIN_MESH_MOE_LAYERS,
@@ -2947,7 +2979,7 @@ ZIGZAG_BF16_REL_L2 = 1e-2
 TRAIN_SP_JOBS = (
     dict(name="train_sp_ring_window_mistral_sp4", model="mistral",
          mesh={"sp": 4}, method="ring", B=1, S=8192, segments=False,
-         steps=2),
+         steps=1),
     dict(name="grad_sp_moe_mixtral_sp2_ep2", model="mixtral",
          mesh={"sp": 2, "ep": 2}, method="ring", B=1, S=1024,
          segments=False, steps=1, grad_only=True),
@@ -2964,8 +2996,10 @@ TRAIN_SP_JOBS = (
 )
 # Depth cut to fit four ranks of fp32 weights, gradients and AdamW
 # moments on one card beside the reference (PERF.md, phase 20); Mistral
-# at 1 layer for the script's time budget (PERF.md §4).
-SP_LAYERS = {"mistral": 1, "tinyllama": 4, "mixtral": 1}
+# at 1 layer, TinyLlama at 2 and SmolLM2 at 10 for the script's time
+# budget (PERF.md §4).
+SP_LAYERS = {"mistral": 1, "tinyllama": 2, "mixtral": 1,
+             "smol": MESH_SMOL_LAYERS}
 
 
 def phase_hop_kernels():
@@ -3476,13 +3510,14 @@ TRAIN_PP_S = 512
 TRAIN_PP_LR = 1e-4
 # Depth cut 32 -> 4 (one layer a stage) so that four ranks' fp32
 # weights, gradients and AdamW moments fit one card beside the rest
-# (PERF.md, phase 21); widths are the published ones.  SmolLM2 at full
-# depth, 15 layers a stage.  Largest first, as in phase 19.
+# (PERF.md, phase 21); widths are the published ones.  SmolLM2 at
+# phases 19-20's depth (MESH_SMOL_LAYERS), half a stage, for the
+# script's time budget (PERF.md §4).  Largest first, as in phase 19.
 TRAIN_PP_JOBS = (
     dict(name="train_pp_gpipe_mistral_pp4", model="mistral",
-         mesh={"pp": 4}, schedule="gpipe", B=16, M=16, steps=2),
+         mesh={"pp": 4}, schedule="gpipe", B=16, M=16, steps=1),
     dict(name="train_pp_1f1b_mistral_pp4", model="mistral",
-         mesh={"pp": 4}, schedule="1f1b", B=16, M=16, steps=2),
+         mesh={"pp": 4}, schedule="1f1b", B=16, M=16, steps=1),
     dict(name="train_pp_1f1b_smol_dp2_pp2", model="smol",
          mesh={"dp": 2, "pp": 2}, schedule="1f1b", B=8, M=4, steps=2,
          batch_axis="dp"),
@@ -3502,7 +3537,7 @@ def train_pp_cfg(job):
     if job["model"] == "mistral":
         return mistral_7b_config(dtype=torch.float32,
                                  n_layers=PP_LAYERS["mistral"])
-    return smol_135m_config(dtype=torch.float32)
+    return smol_135m_config(dtype=torch.float32, n_layers=MESH_SMOL_LAYERS)
 
 
 def train_pp_batch(job, cfg):
@@ -3881,7 +3916,7 @@ CKPT_DIR = ROOT / "build" / "guard_ckpt"
 
 def guard_cfg():
     from nbdistributed_tpu_torch.models import smol_135m_config
-    return smol_135m_config(remat=True)
+    return smol_135m_config(remat=True, n_layers=MESH_SMOL_LAYERS)
 
 
 def guard_batches(cfg, n):
@@ -4003,7 +4038,7 @@ def phase_guard_replicas(backend="gloo"):
     the world).  Held: every fault-free audit ``ok`` on every rank; the
     faulted run's audit at step 4 names minority (1,) and root 0 with
     one repair on every rank; every rank's final params and moments
-    bitwise the fault-free run's; K1/K2/K3 60/30/30 a rank a step."""
+    bitwise the fault-free run's; K1/K2/K3 2L/L/L a rank a step."""
     ts = time.perf_counter()
     ranks = run_mesh_ranks([GUARD_JOB], backend)
     check(all(r["rebuilt"] == [] for r in ranks.values()),
@@ -4011,8 +4046,8 @@ def phase_guard_replicas(backend="gloo"):
           f"{[r['rebuilt'] for r in ranks.values()]}")
     per = [ranks[r][GUARD_JOB["name"]] for r in range(MESH_WORLD)]
     ref, got = per[0]["ref"], per[0]["faulted"]
-    want = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
-            "k3": N_LAYERS_SMOL}
+    L = guard_cfg().n_layers
+    want = {"k1": 2 * L, "k2": L, "k3": L}
     row = dict(
         steps=GUARD_STEPS, batch=TRAIN_B, seq=guard_cfg().max_seq_len,
         corrupt=GUARD_CORRUPT, audits_ref=[p["ref"]["audits"] for p in per],
@@ -4136,8 +4171,8 @@ def guard_rollback(cfg):
     check(rolled, "the rollback did not restore the step-2 state bitwise")
     check(all(abs(c["loss"]) < float("inf") for c in calls[6:]),
           f"losses after the rollback {row['losses'][6:]}")
-    want_k = {"k1": 2 * N_LAYERS_SMOL, "k2": N_LAYERS_SMOL,
-              "k3": N_LAYERS_SMOL}
+    want_k = {"k1": 2 * cfg.n_layers, "k2": cfg.n_layers,
+              "k3": cfg.n_layers}
     check(all(c["launches"] == want_k for c in calls),
           f"launches per step {[c['launches'] for c in calls]}")
     del g, params, opt, inner, kept
@@ -4400,8 +4435,8 @@ def phase_guard_worker():
     finally:
         pm.shutdown()
         comm.shutdown()
-    want = {"k1": 4 * N_LAYERS_SMOL, "k2": 2 * N_LAYERS_SMOL,
-            "k3": 2 * N_LAYERS_SMOL}
+    L = guard_cfg().n_layers
+    want = {"k1": 4 * L, "k2": 2 * L, "k3": 2 * L}
     row = dict(launched=state["launched"], want=want,
                rebuilt=state["rebuilt"], device=state["device"],
                losses=state["losses"], saved=saved.get("status"),
@@ -5146,7 +5181,7 @@ SUP_ENV = {"NBD_HANG_POLL_S": "0.25", "NBD_HANG_SKEW_S": "3",
            "NBD_HANG_STALL_S": "5", "NBD_HANG_GRACE_S": "2"}
 SUP_CKPT = ROOT / "build" / "supervision_ckpt"
 SUP_SCRAPE_STEPS = 8
-SUP_DEADLINE_STEPS = 28
+SUP_DEADLINE_STEPS = 20
 SUP_TIMED_STEPS = 6
 
 SUP_SETUP_CELL = """\
@@ -5830,9 +5865,11 @@ def _proc_gone(pid):
         return True
 
 
-def phase_pool(outputs_ref, losses_ref):
-    """Phase 26, one card: items 1-6.  ``outputs_ref``: phase 17's
-    in-process bf16 streams; ``losses_ref``: phase 11's step losses."""
+def phase_pool(outputs_ref, losses_ref, solo32):
+    """Phase 26, one card: items 1-5, the serving plane's items 8-12
+    (``pool_serving_plane``), then item 6.  ``outputs_ref``: phase 17's
+    in-process bf16 streams; ``losses_ref``: phase 11's step losses;
+    ``solo32``: phase 5's fp32 solo ``generate`` streams."""
     import os
     import shutil
     import signal
@@ -5857,7 +5894,7 @@ def phase_pool(outputs_ref, losses_ref):
     torch.cuda.synchronize()
     free_before = torch.cuda.mem_get_info()[0]
     nb = NotebookSession()
-    clients, kernel = [], None
+    clients, kernel, nb3 = [], None, None
     rows: dict = {}
 
     def attach(name, **kw):
@@ -6110,12 +6147,20 @@ def phase_pool(outputs_ref, losses_ref):
                                      delivered_once=True)
         say("pool_single_kernel", **rows["single_kernel"])
 
+        # -- items 8-12: the serving plane ----------------------------
+        t0 = time.perf_counter()
+        nb3 = NotebookSession()
+        plane, b_pids = pool_serving_plane(nb3, run_dir, attach,
+                                           outputs_ref, solo32)
+        rows.update(plane, serve_plane_seconds=time.perf_counter() - t0)
+
         # -- item 6: teardown -----------------------------------------
         t0 = time.perf_counter()
         out = nb2.run(f"%dist_pool stop --run-dir {run_dir}")
         check(f"🛑 pool {run_dir}: stopping" in out, f"stop: {out}")
         _poll(lambda: all(_proc_gone(p) for p in [daemon_pid, *rank_pids,
-                                                   *info["pids"]]),
+                                                   *info["pids"],
+                                                   *b_pids]),
               "the daemon's and every rank's exit", 60, 0.05)
         stop_s = time.perf_counter() - t0
         check(gw.read_gateway_manifest(run_dir) is None,
@@ -6153,6 +6198,9 @@ def phase_pool(outputs_ref, losses_ref):
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "pool_cells_n1.json").write_text(
             json.dumps(nb.log, indent=1))
+        if nb3 is not None:
+            (OUT_DIR / "pool_serve_cells_n1.json").write_text(
+                json.dumps(nb3.log, indent=1))
     rows.update(ranks=1, start_to_ready_s=start_s,
                 tenant_cell_ms_median=1e3 * statistics.median(rt),
                 tenant_cell_ms=[1e3 * x for x in rt], stop_s=stop_s,
@@ -6166,6 +6214,347 @@ def phase_pool(outputs_ref, losses_ref):
     return rows
 
 
+# The gateway's serving plane (phase 26, items 8-12): the model-spec
+# cells that bind SmolLM2-135M (full width and depth, seed 0) in a
+# serving tenant's namespace on every rank, and the cells another
+# tenant runs on the same rank to reset and read the launch counts
+# (the worker process's, which the serving tenant's DecodeServer bumps).
+SERVE_SPEC = """\
+import chip_smoke as cs
+from nbdistributed_tpu_torch.models import init_params, smol_135m_config
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = smol_135m_config({dtype})
+params = init_params(cfg, 0, device=device)
+"""
+SERVE_SPEC_BF16 = SERVE_SPEC.format(dtype="")
+SERVE_SPEC_FP32 = SERVE_SPEC.format(dtype="dtype=torch.float32")
+PLANE_RESET_CELL = "import chip_smoke as cs\ncs.reset_launch_counts()\n"
+PLANE_COUNTS_CELL = """\
+import chip_smoke as cs
+from nbdistributed_tpu_torch.ops import decode as _decode
+repr({**cs.launch_counts(), "k4": _decode.flash_decode_attention.launches})
+"""
+PLANE_NEW = 32
+# The kernels line's paths of the serving plane (K4's: its prefill is
+# the plain cached attention, so K1 is not on them).
+PLANE_PATHS = ("serve_plane", "serve_plane_loadgen", "serve_plane_recovered",
+               "serve_plane_migrated")
+PLANE_LOADGEN = dict(rps=3.0, duration_s=10.0, arrival="poisson", seed=0,
+                     prompt_len=(16, 200), max_new=(32, 32), vocab=49152)
+
+
+def plane_counts(client, reset=False):
+    """Reset (``reset=True``) or read the launch counts of ``client``'s
+    rank 0 with a cell of that tenant."""
+    res = client.execute(PLANE_RESET_CELL if reset else PLANE_COUNTS_CELL,
+                         target_ranks=[0])
+    check(res.get("status") == "ok" and not (
+        res["results"]["0"] or {}).get("error"), f"count cell: {res}")
+    return None if reset else _lit(res["results"])
+
+
+def plane_results(client, rids, timeout=600.0):
+    """Every rid's terminal ``serve_result``, polled."""
+    got: dict = {}
+    deadline = time.time() + timeout
+    while len(got) < len(rids):
+        check(time.time() < deadline, f"unfinished: "
+              f"{sorted(set(rids) - set(got))}: {client.serve_status()}")
+        for rid in rids:
+            if rid not in got:
+                r = client.serve_result(rid)
+                if r.get("done"):
+                    got[rid] = r
+        time.sleep(0.02)
+    return got
+
+
+def plane_slo(st):
+    """TTFT / TPOT p50 and p99 (ms) of a ``serve_status``."""
+    slo = st.get("slo") or {}
+    return {f"{k}_ms_{q}": (slo.get(f"{k}_ms") or {}).get(q)
+            for k in ("ttft", "tpot") for q in ("p50", "p99")}
+
+
+def journal_streams(run_dir, serving_tenant, rids):
+    """The streams a serving plane journaled, by rid."""
+    from nbdistributed_tpu_torch.gateway.serving import (ServeJournal,
+                                                         journal_path)
+    state = ServeJournal.load(journal_path(run_dir, serving_tenant))
+    return [state[r]["tokens"] for r in rids]
+
+
+def mid_decode(client, rids, timeout=300.0):
+    """Wait until some stream of ``rids`` has started and not ended."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        for rid in rids:
+            r = client.serve_result(rid)
+            if r.get("tokens") and not r.get("done"):
+                return rid, len(r["tokens"])
+        time.sleep(0.005)
+    check(False, f"no stream of {rids} seen mid-decode")
+
+
+def pool_serving_plane(nb, run_dir, attach, outputs_ref, solo32):
+    """Phase 26, items 8-12, on the pool of ``phase_pool`` after alice,
+    bob and carol have left: the serving plane in bf16 (``%dist_serve``),
+    the loadgen through the HTTP shim, overload verdicts, a plane
+    stopped mid-decode and recovered from its journal in fp32, and a
+    tenant migrated with its journal to a second pool.  Returns the
+    rows and the second pool's pids."""
+    import re
+    import signal
+
+    import torch
+    from nbdistributed_tpu_torch.gateway import daemon as gw
+    from nbdistributed_tpu_torch.gateway.client import (CellSubmitError,
+                                                        TenantClient)
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+    from nbdistributed_tpu_torch.models import init_params, smol_135m_config
+    from nbdistributed_tpu_torch.resilience import session
+    from nbdistributed_tpu_torch.serving_fast import (LoadConfig, run_load,
+                                                      validate_report)
+    from nbdistributed_tpu_torch.serving_fast.loadgen import HTTPTransport
+
+    cfg = smol_135m_config()
+    prompts = make_requests(cfg)
+    rows: dict = {}
+
+    # -- item 8: the plane in bf16 ------------------------------------
+    out = nb.run(f"%dist_attach --tenant srvadmin {run_dir}")
+    admin = DistributedMagics._tenant
+    nb.shell.user_ns["SPEC"] = SERVE_SPEC_BF16
+    t0 = time.perf_counter()
+    out = nb.run("%dist_serve start --spec SPEC --tenant serve-bf16 "
+                 "--max-batch 8 --max-len 1024")
+    start_s = time.perf_counter() - t0
+    check("🍽️ serving as tenant 'serve-bf16': 8 KV slots · max_len 1024"
+          in out, f"%dist_serve start: {out}")
+    plane_counts(admin, reset=True)
+    t0 = time.perf_counter()
+    rids = [admin.serve_submit(p, PLANE_NEW)["rid"] for p in prompts[:-1]]
+    out = nb.run(f"%dist_serve submit --prompt "
+                 f"{','.join(map(str, prompts[-1]))} --max-new {PLANE_NEW} "
+                 f"--wait")
+    m = re.search(r"✅ accepted (r\d+)", out)
+    check(m is not None and f"🧾 {m.group(1)} completed:" in out,
+          f"%dist_serve submit --wait: {out}")
+    rids.append(m.group(1))
+    got = plane_results(admin, rids)
+    wall = time.perf_counter() - t0
+    counts = plane_counts(admin)
+    st = admin.serve_status()
+    streams = [got[r]["tokens"] for r in rids]
+    check(all(got[r]["status"] == "completed" for r in rids)
+          and all(len(x) == PLANE_NEW for x in streams),
+          f"bf16 plane: {[(r, got[r]['status'], len(got[r]['tokens'])) for r in rids]}")
+    check(st["dup_dropped"] == 0 and st["completed"] == len(rids),
+          f"bf16 plane status: {st}")
+    # K4 once per layer per decode step: a positive multiple of the
+    # depth, and at least the longest stream's decode steps.  Prefill
+    # is the plain cached attention (``models/generate.py``
+    # ``_cached_attention``, as in the JAX package), so K1 is not on
+    # this path: its count is reported.
+    steps_min = N_LAYERS_SMOL * (PLANE_NEW - 1)
+    check(counts["k4"] > 0 and counts["k4"] % N_LAYERS_SMOL == 0
+          and counts["k4"] >= steps_min,
+          f"bf16 plane's launches {counts}: K4 a positive multiple of "
+          f"{N_LAYERS_SMOL} and at least {steps_min}")
+    lat = nb.run("%dist_serve lat --last 2")
+    check("⏱ serving stage decomposition (12 recorded" in lat,
+          f"%dist_serve lat: {lat}")
+    stat = nb.run("%dist_serve status")
+    n_tok = PLANE_NEW * len(rids)
+    rows["serve_plane"] = dict(
+        requests=len(rids), k4_launches=counts["k4"],
+        k1_launches=counts["k1"], k4_decode_steps=counts["k4"]
+        // N_LAYERS_SMOL, streams_equal_phase17=sum(
+            a == b for a, b in zip(streams, outputs_ref)),
+        tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+        start_s=start_s, dup_dropped=st["dup_dropped"], **plane_slo(st),
+        stage_table=lat, status=stat)
+    say("pool_serve_plane", **{k: v for k, v in rows["serve_plane"].items()
+                               if k not in ("stage_table", "status")})
+
+    # -- item 9: the loadgen through the HTTP shim ---------------------
+    shim = subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "nbd_torch_serve.py"),
+         "--run-dir", run_dir, "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = shim.stdout.readline()
+        check(line.startswith("NBD_SERVE_HTTP ready on 127.0.0.1:"),
+              f"the HTTP shim: {line}")
+        port = int(line.split()[3].rsplit(":", 1)[1])
+        plane_counts(admin, reset=True)
+        cfg_load = LoadConfig(**PLANE_LOADGEN, drain_s=120.0)
+        rep = run_load(HTTPTransport(f"http://127.0.0.1:{port}"), cfg_load)
+        counts9 = plane_counts(admin)
+    finally:
+        shim.send_signal(signal.SIGINT)
+        shim_rc = shim.wait(30)
+    validate_report(rep)
+    check(rep["hung"] == 0 and rep["failed"] == 0 and shim_rc == 0,
+          f"loadgen report: {rep}, shim exit {shim_rc}")
+    check(counts9["k4"] > 0 and counts9["k4"] % N_LAYERS_SMOL == 0,
+          f"loadgen run's launches {counts9}")
+    client = rep["client"]
+    rows["serve_plane_loadgen"] = dict(
+        config=cfg_load.to_dict(), offered=rep["offered"],
+        accepted=rep["accepted"], completed=rep["completed"],
+        shed=rep["shed"], rejected=rep["rejected"], hung=rep["hung"],
+        tokens_total=rep["tokens_total"],
+        tokens_per_s=rep["tokens_per_s"], duration_s=rep["duration_s"],
+        ttft_ms=client["ttft_ms"], tpot_ms=client["tpot_ms"],
+        e2e_ms=client["e2e_ms"], k4_launches=counts9["k4"],
+        k1_launches=counts9["k1"])
+    say("pool_serve_plane_loadgen", **rows["serve_plane_loadgen"])
+    out = nb.run("%dist_serve stop")
+    check("🛑 serving stopped:" in out, f"%dist_serve stop: {out}")
+
+    # -- item 10: overload verdicts, the serving tenant's cells -------
+    hi, _ = attach("hi", priority=5)
+    admin.serve_start(SERVE_SPEC_BF16, tenant="serve-over", max_batch=1,
+                      max_len=1024, steps=1, queue_depth=2, inflight=2)
+    v0 = admin.serve_submit(prompts[0], 30)
+    v1 = admin.serve_submit(prompts[1], 30)
+    check(v0["status"] == v1["status"] == "accepted" and v1["queued"],
+          f"overload: {v0}, {v1}")
+    try:
+        admin.serve_submit(prompts[2], 30)
+        check(False, "a submit past the tenant's in-flight cap was "
+              "accepted")
+    except CellSubmitError as e:
+        rejected = e.verdict
+    hi_rids = [hi.serve_submit(p, 8)["rid"] for p in prompts[3:5]]
+    shed = _poll(lambda: (lambda r: r if r.get("status") == "shed"
+                          else None)(admin.serve_result(v1["rid"])),
+                 "the delivered shed verdict", 60)
+    plane_results(hi, hi_rids)
+    st = admin.serve_status()
+    check(rejected["status"] == "rejected" and shed["done"]
+          and st["shed"] >= 1 and st["rejected"] >= 1,
+          f"overload verdicts: {rejected}, {shed}, {st}")
+    hi.close(detach=True)
+    srv_kernel, _ = attach("serve-over")
+    try:
+        srv_kernel.execute("x = 1")
+        check(False, "the serving tenant's cell ran")
+    except CellSubmitError as e:
+        refused = e.verdict
+    check(refused["status"] == "rejected"
+          and refused["reason"] == "serving-tenant"
+          and "%dist_serve" in refused["error"], f"refusal: {refused}")
+    srv_kernel.close(detach=True)
+    admin.serve_stop()
+    rows["serve_plane_overload"] = dict(
+        rejected=rejected["reason"], shed_delivered=True,
+        cell_refused=refused["reason"])
+    say("pool_serve_plane_overload", **rows["serve_plane_overload"])
+
+    # -- item 11: fp32, stopped mid-decode, recovered -----------------
+    cfg32 = smol_135m_config_fp32()
+    params32 = init_params(cfg32, 0)
+    kw32 = dict(tenant="serve-fp32", max_batch=8, max_len=1024, steps=4)
+    admin.serve_start(SERVE_SPEC_FP32, **kw32)
+    plane_counts(admin, reset=True)
+    rids = [admin.serve_submit(p, PLANE_NEW)["rid"] for p in prompts[:8]]
+    mid, n_mid = mid_decode(admin, rids)
+    admin.serve_stop()
+    t0 = time.perf_counter()
+    admin.serve_start(SERVE_SPEC_FP32, **kw32)
+    again = plane_results(admin, [r for r in rids
+                                  if admin.serve_result(r).get("status")
+                                  != "unknown"])
+    recover_s = time.perf_counter() - t0
+    counts11 = plane_counts(admin)
+    st = admin.serve_status()
+    streams = journal_streams(run_dir, "serve-fp32", rids)
+    check(again and all(again[r]["tokens"] == streams[rids.index(r)]
+                        for r in again),
+          f"recovered: {sorted(again)} (mid-decode {mid})")
+    check(st["replayed"] >= 1 and st["dup_dropped"] == 0
+          and counts11["k4"] > 0 and counts11["k4"] % N_LAYERS_SMOL == 0,
+          f"recovered plane: {st}, launches {counts11}")
+    gaps = near_tie_check("serve_plane_recovered_vs_solo", params32, cfg32,
+                          prompts[:8], streams, solo32[:8])
+    admin.serve_stop()
+    rows["serve_plane_recovered"] = dict(
+        requests=len(rids), recovered=len(again), replayed=st["replayed"],
+        mid_decode=dict(rid=mid, tokens=n_mid), recover_s=recover_s,
+        dup_dropped=st["dup_dropped"], near_tie_gaps=gaps,
+        k4_launches=counts11["k4"], k1_launches=counts11["k1"])
+    say("pool_serve_plane_recovered", **rows["serve_plane_recovered"])
+
+    # -- item 12: migration to a second pool -------------------------
+    b_dir = str(POOL_RUNS / "pool-b")
+    t0 = time.perf_counter()
+    out = nb.run(f"%dist_pool start -n 1 --backend gpu --run-dir {b_dir}")
+    b_start_s = time.perf_counter() - t0
+    mb = gw.read_gateway_manifest(b_dir)
+    b_pids = [mb["pid"]] + list(session.read_manifest(b_dir)["pids"]
+                               .values())
+    mover, _ = attach("mover")
+    tok, epoch = mover.token, mover.epoch
+    mover.serve_start(SERVE_SPEC_FP32, tenant="serve-mig", max_batch=8,
+                      max_len=1024, steps=1)
+    mrids = [mover.serve_submit(p, PLANE_NEW)["rid"] for p in prompts[8:]]
+    mid_decode(mover, mrids)
+    mover.serve_stop()                     # the streams are unfinished
+    mover.close()
+    t0 = time.perf_counter()
+    out = nb.run(f"%dist_pool migrate --tenant mover --to {b_dir} --force")
+    migrate_s = time.perf_counter() - t0
+    check(f"✅ migrated to {b_dir} (epoch" in out
+          and "serve journal: yes" in out, f"%dist_pool migrate: {out}")
+    check("mover" not in admin.pool_status()["tenants"]["tenants"],
+          "the source pool still knows the tenant")
+    mbt = TenantClient(mb["tenant_plane"]["host"],
+                       mb["tenant_plane"]["port"], "mover",
+                       pool_token=mb["pool_token"], token=tok)
+    try:
+        check(mbt.token == tok and mbt.epoch >= epoch,
+              f"reattached at B: epoch {mbt.epoch} (was {epoch})")
+        plane_counts(mbt, reset=True)
+        t0 = time.perf_counter()
+        mbt.serve_start(SERVE_SPEC_FP32, tenant="serve-mig", max_batch=8,
+                        max_len=1024)
+        adopted = plane_results(mbt, [r for r in mrids
+                                      if mbt.serve_result(r).get("status")
+                                      != "unknown"])
+        finish_s = time.perf_counter() - t0
+        counts12 = plane_counts(mbt)
+        st = mbt.serve_status()
+        mstreams = journal_streams(b_dir, "serve-mig", mrids)
+        check(adopted and st["replayed"] >= 1 and st["dup_dropped"] == 0
+              and counts12["k4"] > 0
+              and counts12["k4"] % N_LAYERS_SMOL == 0,
+              f"the adopting plane: {st}, launches {counts12}")
+        mgaps = near_tie_check("serve_plane_migrated_vs_solo", params32,
+                               cfg32, prompts[8:], mstreams, solo32[8:])
+        mbt.serve_stop()
+    finally:
+        mbt.close(detach=True)
+    del params32
+    torch.cuda.empty_cache()
+    out = nb.run(f"%dist_pool stop --run-dir {b_dir}")
+    check(f"🛑 pool {b_dir}: stopping" in out, f"stop B: {out}")
+    _poll(lambda: all(_proc_gone(p) for p in b_pids),
+          "pool B's daemon and rank", 60, 0.05)
+    rows["serve_plane_migrated"] = dict(
+        requests=len(mrids), adopted=len(adopted), replayed=st["replayed"],
+        dup_dropped=st["dup_dropped"], near_tie_gaps=mgaps,
+        b_start_s=b_start_s, migrate_s=migrate_s, finish_s=finish_s,
+        epoch_before=epoch, epoch_after=mbt.epoch,
+        k4_launches=counts12["k4"], k1_launches=counts12["k1"])
+    say("pool_serve_plane_migrated", **rows["serve_plane_migrated"])
+    admin.close(detach=True)
+    DistributedMagics._tenant = None
+    DistributedMagics._pool_info = None
+    return rows, b_pids
+
+
 POOL_SUM_CELL = """\
 t = torch.full((4,), float(rank + 1), device=device)
 dist.all_reduce(t)
@@ -6173,12 +6562,78 @@ float(t[0])
 """
 
 
-def phase_pool_mesh(n=2, grow=MESH_WORLD):
+def pool_mesh_serving(nb, client, run_dir, grow, solo32):
+    """Phase 26, item 7's serving half, on the pool of 2 NCCL ranks: an
+    fp32 plane decoding on both ranks, decode rank 1 SIGKILLed while it
+    holds placed requests (failover to rank 0, re-open, journal
+    replay), then a resize to ``grow`` while requests are in flight
+    (``pause``, ``resume_after_resize`` and its re-seed); every stream
+    held to solo ``generate`` under the near-tie rule."""
+    import os
+    import signal
+
+    import torch
+    from nbdistributed_tpu_torch.models import init_params
+    from nbdistributed_tpu_torch.resilience import session
+
+    cfg32 = smol_135m_config_fp32()
+    prompts = make_requests(cfg32)
+    client.serve_start(SERVE_SPEC_FP32, tenant="serve-mesh", max_batch=8,
+                       max_len=1024, steps=1, decode_ranks=2)
+    t0 = time.perf_counter()
+    rids = [client.serve_submit(p, PLANE_NEW)["rid"] for p in prompts]
+    _poll(lambda: ((client.serve_status()["ranks"].get("1") or {})
+                   .get("placed", 0) > 0
+                   and any(client.serve_result(r).get("tokens")
+                           for r in rids)),
+          "requests decoding on rank 1", 300, 0.01)
+    placed = {r: v["placed"] for r, v in
+              client.serve_status()["ranks"].items()}
+    os.kill(int(session.read_manifest(run_dir)["pids"]["1"]),
+            signal.SIGKILL)
+    t_kill = time.perf_counter()
+    _poll(lambda: client.serve_status()["failovers"] >= 1,
+          "the plane's failover", 120, 0.01)
+    failover_s = time.perf_counter() - t_kill
+    pending = [r for r in rids if not client.serve_result(r).get("done")]
+    check(pending, "every request finished before the resize")
+    out = nb.run(f"%dist_pool resize -n {grow} --run-dir {run_dir}")
+    check(f"✅ resized: {grow} ranks" in out and "TIMED OUT" not in out,
+          f"resize under serving: {out}")
+    flip = _resize_numbers(out)
+    got = plane_results(client, rids)
+    wall = time.perf_counter() - t0
+    st = client.serve_status()
+    streams = [got[r]["tokens"] for r in rids]
+    check(all(got[r]["status"] == "completed" for r in rids)
+          and st["failovers"] >= 1 and st["replayed"] >= 1
+          and st["dup_dropped"] == 0,
+          f"the mesh plane: {st}")
+    params32 = init_params(cfg32, 0)
+    if solo32 is None:
+        solo32 = solo_outputs(params32, cfg32, prompts)
+    gaps = near_tie_check("serve_plane_mesh_vs_solo", params32, cfg32,
+                          prompts, streams, solo32)
+    del params32
+    torch.cuda.empty_cache()
+    client.serve_stop()
+    return dict(requests=len(rids), placed_at_kill=placed,
+                failover_s=failover_s, pending_at_resize=len(pending),
+                resize=flip, decode_ranks_after=st["decode_ranks"],
+                failovers=st["failovers"], replayed=st["replayed"],
+                dup_dropped=st["dup_dropped"], near_tie_gaps=gaps,
+                wall_s=wall)
+
+
+def phase_pool_mesh(n=2, grow=MESH_WORLD, solo32=None):
     """Phase 26, item 7, four cards: a pool of ``n`` NCCL ranks resized
     ``n`` → ``grow`` → ``n``, a tenant's all-reduce checked after each
     flip, an all-reduce queued across the first flip delivered as a
     stale verdict (run nowhere), a template replayed on each new fleet,
-    and a resize past the cards refused with the pool still answering."""
+    and a resize past the cards refused with the pool still answering;
+    then the serving plane's failover and resize (``pool_mesh_serving``;
+    ``solo32``: phase 5's fp32 solo streams, computed here when
+    None)."""
     import shutil
     import threading
 
@@ -6274,6 +6729,8 @@ def phase_pool_mesh(n=2, grow=MESH_WORLD):
               f"{grow + 1} ranks refused" in out, f"resize past the cards: "
               f"{out}")
         summed(n)
+        serving = pool_mesh_serving(nb, client, run_dir, grow, solo32)
+        say("pool_mesh_serving", **serving)
         out = nb.run(f"%dist_pool stop --run-dir {run_dir}")
         check(f"🛑 pool {run_dir}: stopping" in out, out)
         _poll(lambda: gw.read_gateway_manifest(run_dir) is None,
@@ -6294,9 +6751,10 @@ def phase_pool_mesh(n=2, grow=MESH_WORLD):
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / f"pool_mesh_cells_n{grow}.json").write_text(
             json.dumps(nb.log, indent=1))
-    rows = dict(ranks=[n, grow, n], start_to_ready_s=start_s, flips=flips,
-                queued_across_flip="stale", template_replayed=True,
-                refused=grow + 1, seconds=time.perf_counter() - ts)
+    rows = dict(ranks=[n, grow, n, grow], start_to_ready_s=start_s,
+                flips=flips, queued_across_flip="stale",
+                template_replayed=True, refused=grow + 1, serving=serving,
+                seconds=time.perf_counter() - ts)
     say("pool_mesh", **rows)
     return rows
 
@@ -6736,7 +7194,7 @@ def main_mesh_nccl() -> int:
     notebook = phase_notebook(*refs, n=MESH_WORLD)
     notebook_async = phase_notebook_async(*refs, n=MESH_WORLD)
     supervision_mesh = phase_supervision_mesh()
-    pool_mesh = phase_pool_mesh()
+    pool_mesh = phase_pool_mesh(solo32=solo)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
@@ -6816,7 +7274,8 @@ def main() -> int:
                            dense["outputs"], train["losses"][0])
     supervision = timed("supervision", phase_supervision, dense["outputs"],
                         train["losses"][0])
-    pool = timed("pool", phase_pool, dense["outputs"], train["losses"])
+    pool = timed("pool", phase_pool, dense["outputs"], train["losses"],
+                 solo32)
     timing = timed("timing", phase_timing)
     say("phase_seconds", total=time.perf_counter() - t0, **phase_s)
 
@@ -6854,7 +7313,8 @@ def main() -> int:
                     notebook_async["serve"]["k4_launches"],
                 "supervision_healed_serve":
                     supervision["heal"]["serve"]["k4_launches"],
-                "pool_serve": pool["bob"]["k4_launches"]}
+                "pool_serve": pool["bob"]["k4_launches"],
+                **{path: pool[path]["k4_launches"] for path in PLANE_PATHS}}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "train": train["k1"],

@@ -12,7 +12,8 @@ epochs (:mod:`~.tenancy`) fence a stale or crashed tenant, a crashed
 tenant's in-flight results park in its own mailbox partition for
 exactly-once redelivery on reattach, and overload sheds the
 lowest-priority queued cells with a visible verdict.  The serving
-plane (``serving``, ``router``) lands with ROADMAP A5.6b.
+plane (``serving``) runs continuous-batching generation for a tenant,
+and ``router`` moves a tenant with its serving journal between pools.
 """
 
 from .scheduler import (CellRejected, CellShed, SchedPolicy,  # noqa: F401
@@ -31,6 +32,8 @@ _LAZY = {
     "TenantClient": "client", "CellSubmitError": "client",
     "GatewayGone": "client", "TenantFenced": "client",
     "pool_status_probe": "client", "pool_shutdown": "client",
+    "ServingManager": "serving", "ServeJournal": "serving",
+    "merge_emission": "serving", "journal_path": "serving",
 }
 
 

@@ -359,8 +359,7 @@ class TenantClient:
                                  timeout=timeout).data or {})
 
     # ------------------------------------------------------------------
-    # serving plane (%dist_serve): wire calls only.  The daemon answers
-    # them with an error until the serving plane lands (ROADMAP A5.6b).
+    # serving plane (%dist_serve)
 
     def serve_start(self, spec: str | None = None, *,
                     tenant: str | None = None,
@@ -531,3 +530,28 @@ def pool_template(host: str, port: int, pool_token: str | None,
     return _admin_request(host, port, pool_token, "pool_template",
                           data, timeout=timeout)
 
+
+def tenant_export(host: str, port: int, pool_token: str | None,
+                  tenant: str, *, timeout: float = 60.0) -> dict:
+    """Non-destructive migration snapshot of a tenant's durable
+    state (token, epoch, parked results, serve journal)."""
+    return _admin_request(host, port, pool_token, "tenant_export",
+                          {"token": pool_token, "tenant": tenant},
+                          timeout=timeout)
+
+
+def tenant_import(host: str, port: int, pool_token: str | None,
+                  snapshot: dict, *, timeout: float = 60.0) -> dict:
+    """Idempotently adopt an exported tenant at this pool."""
+    return _admin_request(host, port, pool_token, "tenant_import",
+                          {"token": pool_token, "snapshot": snapshot},
+                          timeout=timeout)
+
+
+def tenant_release(host: str, port: int, pool_token: str | None,
+                   tenant: str, *, force: bool = False,
+                   timeout: float = 60.0) -> dict:
+    """Drop a migrated-away tenant from its source pool."""
+    return _admin_request(host, port, pool_token, "tenant_release",
+                          {"token": pool_token, "tenant": tenant,
+                           "force": force}, timeout=timeout)

@@ -41,9 +41,10 @@ A port rank owns one GPU (``manager/topology.py``) and NCCL refuses two
 ranks of one communicator on one device, so a ``gpu`` pool never holds
 more ranks than the host has cards: a start or a resize past them is
 refused before anything is spawned or torn down.  The serving plane
-(``serve_*`` frames, ``ServingManager``) and the router's migration
-plane (``tenant_export``/``tenant_import``/``tenant_release``) land with
-ROADMAP A5.6b; until then those frames get an error verdict naming it.
+(``serve_*`` frames, :class:`~.serving.ServingManager`) runs a tenant's
+generation requests on the pool's ranks, and the router's migration
+plane (``tenant_export``/``tenant_import``/``tenant_release``) moves a
+tenant, with its serving journal, to another pool.
 
 Run it as ``python -m nbdistributed_tpu_torch.gateway.daemon -n 4`` or via
 ``tools/nbd_torch_gateway.py`` / ``%dist_pool start``.  Its device is the
@@ -69,15 +70,6 @@ from .scheduler import CellRejected, CellShed, SchedPolicy, Scheduler
 from .tenancy import TenantRegistry, TenantRejected
 
 GATEWAY_MANIFEST_NAME = "gateway.json"
-
-SERVE_NOT_PORTED = ("the serving plane (%dist_serve, serve_* frames) is "
-                    "not ported to nbdistributed_tpu_torch yet: it lands "
-                    "with ROADMAP A5.6b")
-MIGRATION_NOT_PORTED = ("the router's migration plane (%dist_pool migrate, "
-                        "tenant_export/import/release frames) is not "
-                        "ported to nbdistributed_tpu_torch yet: it lands "
-                        "with ROADMAP A5.6b")
-
 
 def gpu_refusal(backend: str, world_size: int) -> str | None:
     """Why a ``gpu`` pool of ``world_size`` ranks cannot run on this
@@ -108,14 +100,12 @@ _PRE_HELLO = frozenset({"tenant_hello", "pool_status", "pool_shutdown",
                         "tenant_export", "tenant_import",
                         "tenant_release"})
 
-# Serving-plane and migration-plane request types: answered with an
-# error verdict naming ROADMAP A5.6b until the serving plane and the
-# router that calls the migration plane are ported.
+# Serving-plane request types, served off-listener like
+# execute/mailbox: submit journals to disk, start dispatches a model
+# spec, and none of that may stall other tenants' frames.
 _SERVE_TYPES = frozenset({"serve_start", "serve_stop", "serve_status",
                           "serve_submit", "serve_result",
                           "serve_stream"})
-_MIGRATION_TYPES = frozenset({"tenant_export", "tenant_import",
-                              "tenant_release"})
 
 
 def gateway_manifest_path(run_dir: str) -> str:
@@ -211,7 +201,7 @@ class GatewayDaemon:
         # the session manifest's auth_token.
         self.pool_token = pool_token or session_mod.mint_token()
         self.request_timeout = request_timeout
-        self._lock = threading.Lock()   # mailbox park/claim
+        self._lock = threading.Lock()   # mailbox park/claim + serving
         # Manifest publishing gets its OWN lock: it serializes two
         # writers sharing one .tmp path, and file IO under the hot
         # _lock would stall every park/claim/serve-count behind disk.
@@ -224,6 +214,9 @@ class GatewayDaemon:
         # reply, so "scheduler idle + mailbox empty" alone can evict
         # a tenant whose result is mid-park and lose it.
         self._serving: dict[str, int] = {}
+        # The serving plane: one ServingManager per daemon, created by
+        # serve_start.  Plain rebinds under _lock.
+        self._serve_mgr = None
         self._close_lock = threading.Lock()
         self._close_started = False
         # One process, one black box: the CommunicationManager created
@@ -333,7 +326,8 @@ class GatewayDaemon:
                 self._metrics_httpd = obs_httpd.start_for_comm(
                     self.comm, port=max(0, mp), host=host,
                     token=self.pool_token,
-                    extra_health=self._health_extra)
+                    extra_health=self._health_extra,
+                    extra_latency=self._latency_extra)
             except BaseException:
                 self._tenants_listener.close()
                 self.pm.shutdown()
@@ -441,7 +435,8 @@ class GatewayDaemon:
 
         Phase 1 (drain): the scheduler stops promoting (queued cells
         HOLD — they are not lost, their serve threads stay parked on
-        their tickets), and we wait — bounded by ``NBD_RESIZE_DRAIN_TIMEOUT_S`` — for
+        their tickets), the serving driver parks between ticks, and
+        we wait — bounded by ``NBD_RESIZE_DRAIN_TIMEOUT_S`` — for
         in-flight cells to finish.  Phase 2 (flip): the old fleet is
         torn down, the coordinator's world is reset under
         ``epoch+1``, and a fresh fleet spawns against the SAME
@@ -454,8 +449,9 @@ class GatewayDaemon:
 
         Stated limit: tenant worker namespaces do not survive the
         flip (the processes die).  Tenant identity, mailboxes, queued
-        cells all do; namespaces are lazily re-seeded by the next
-        cell, which template replay makes cheap.
+        cells, and the serve journal all do; namespaces are lazily
+        re-seeded by the next cell, which template replay makes
+        cheap.
 
         A ``gpu`` pool never grows past the host's cards (one GPU a
         rank): such a target is refused here, before the drain, and
@@ -487,6 +483,9 @@ class GatewayDaemon:
             self._write_manifest()   # publish the DRAINING view early
             # Phase 1: drain barrier.
             self.comm.scheduler.pause(f"resize:{reason}")
+            mgr = self._serve_mgr
+            if mgr is not None:
+                mgr.pause(timeout=30.0)
             deadline = time.monotonic() + knobs.get_float(
                 "NBD_RESIZE_DRAIN_TIMEOUT_S", 120.0)
             drained = False
@@ -570,13 +569,18 @@ class GatewayDaemon:
                     self._watchdog.attach(self.comm, self.pm)
                 except Exception:
                     self._watchdog = None
-            # Resume the scheduler BEFORE template replay: it runs
-            # ordinary ``execute`` cells, which admission would
-            # otherwise queue against the still-paused scheduler — a
-            # self-inflicted drain barrier that stalls the resize for
-            # the cells' full timeout.
+            # Resume the scheduler BEFORE template replay and the
+            # serving re-seed: both run ordinary ``execute`` cells,
+            # which admission would otherwise queue against the still-
+            # paused scheduler — a self-inflicted drain barrier that
+            # stalls the resize for the cells' full timeout.  The
+            # serving driver itself stays parked (its own pause flag)
+            # until resume_after_resize below, so no decode tick can
+            # race the re-seed.
             promoted = self.comm.scheduler.resume()
             self._replay_templates()
+            if mgr is not None:
+                mgr.resume_after_resize(target)
             wall_s = time.monotonic() - t0
             a = self._autoscaler
             if a is not None:
@@ -659,7 +663,12 @@ class GatewayDaemon:
                 return
             try:
                 sched = self.comm.scheduler.snapshot()
-                backlog = 0   # the serving backlog arrives with A5.6b
+                backlog = 0
+                mgr = self._serve_mgr
+                if mgr is not None:
+                    d = mgr.describe()
+                    backlog = (int(d.get("pending") or 0)
+                               + int(d.get("decoding") or 0))
                 summ = self.comm.lat.summary()
                 p95_ms = ((summ.get("stages") or {}).get("queue")
                           or {}).get("p95", 0)
@@ -755,11 +764,16 @@ class GatewayDaemon:
                              name=f"nbd-gw-{tenant.name}",
                              daemon=True).start()
         elif mt in _SERVE_TYPES:
-            self._send_to_client(client_id, msg.reply(
-                data={"status": "error", "error": SERVE_NOT_PORTED}))
-        elif mt in _MIGRATION_TYPES:
-            self._send_to_client(client_id, msg.reply(
-                data={"status": "error", "error": MIGRATION_NOT_PORTED}))
+            # Off the listener thread (submit journals to disk, start
+            # runs a model-spec cell); counted like execute so a
+            # detach cannot evict the tenant mid-request.
+            with self._lock:
+                self._serving[tenant.name] = self._serving.get(
+                    tenant.name, 0) + 1
+            threading.Thread(target=self._serve_plane,
+                             args=(tenant, msg, client_id),
+                             name=f"nbd-gw-srv-{tenant.name}",
+                             daemon=True).start()
         elif mt == "mailbox":
             # Off the listener thread: a drain reply carries up to the
             # whole mailbox (32 MB in-memory bound; oversized parked
@@ -874,6 +888,109 @@ class GatewayDaemon:
             threading.Thread(target=_do_template,
                              name="nbd-gw-template",
                              daemon=True).start()
+        elif mt == "tenant_export":
+            data = msg.data or {}
+            if data.get("token") != self.pool_token:
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": "pool token mismatch"}))
+                return
+            name = str(data.get("tenant") or "")
+            snap = self.registry.export_tenant(name)
+            if snap is None:
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": f"no tenant {name!r} in this "
+                                   "pool"}))
+                return
+            # The tenant's serving history rides along: its lines are
+            # filtered out of every serving journal under the run dir
+            # (a serving plane's journal interleaves all submitters),
+            # and the destination's serving plane re-admits the
+            # unfinished ones.
+            from .serving import export_tenant_journal
+            journal = export_tenant_journal(self.run_dir, name)
+            if journal:
+                snap["serve_journal"] = journal
+            self.flight.record("tenant_exported", tenant=name,
+                               parked=len(snap.get("parked") or {}))
+            self._send_to_client(client_id, msg.reply(
+                data={"status": "ok", "snapshot": snap}))
+        elif mt == "tenant_import":
+            data = msg.data or {}
+            if data.get("token") != self.pool_token:
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": "pool token mismatch"}))
+                return
+            snap = data.get("snapshot")
+            if not isinstance(snap, dict):
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": "tenant_import needs a snapshot"}))
+                return
+            t, why = self.registry.import_tenant(snap)
+            if t is None:
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": f"tenant_import refused: {why}"}))
+                return
+            from ..messaging.codec import Message
+            with self._lock:
+                for mid, d in sorted(
+                        (snap.get("parked") or {}).items()):
+                    # park() refreshes an existing msg_id in place, so
+                    # a router retry re-importing the same snapshot
+                    # converges instead of duplicating.
+                    t.mailbox.park(mid, Message(
+                        msg_type="response", msg_id=mid, data=d))
+            journal = snap.get("serve_journal")
+            if isinstance(journal, str) and journal:
+                from .serving import migrated_journal_path
+                jp = migrated_journal_path(self.run_dir, t.name)
+                # Staged, not live: this pool's serving plane adopts
+                # the stash (re-journal + re-admit) at its next
+                # start.  Write-if-absent keeps the import idempotent:
+                # a router retry must not clobber a stash the serving
+                # plane may be mid-adoption on.
+                if not os.path.exists(jp):
+                    try:
+                        with open(jp, "w") as f:
+                            f.write(journal)
+                    except OSError:
+                        pass
+            self.flight.record("tenant_imported", tenant=t.name,
+                               epoch=t.epoch,
+                               parked=len(snap.get("parked") or {}))
+            obs_metrics.registry().counter(
+                "nbd_tenant_migrations_total",
+                "tenant migrations by direction",
+                {"direction": "in"}).inc()
+            self._write_manifest()
+            self._send_to_client(client_id, msg.reply(
+                data={"status": "imported", "tenant": t.name,
+                      "epoch": t.epoch,
+                      "parked": len(snap.get("parked") or {})}))
+        elif mt == "tenant_release":
+            data = msg.data or {}
+            if data.get("token") != self.pool_token:
+                self._send_to_client(client_id, msg.reply(
+                    data={"error": "pool token mismatch"}))
+                return
+            name = str(data.get("tenant") or "")
+            ok = self.registry.release(name,
+                                       force=bool(data.get("force")))
+            if ok:
+                self.comm.scheduler.forget_tenant(name)
+                obs_metrics.registry().remove_label_series("tenant",
+                                                           name)
+                obs_metrics.registry().counter(
+                    "nbd_tenant_migrations_total",
+                    "tenant migrations by direction",
+                    {"direction": "out"}).inc()
+                self.flight.record("tenant_released", tenant=name)
+                self._write_manifest()
+            self._send_to_client(client_id, msg.reply(
+                data={"status": "released" if ok else "error",
+                      **({} if ok else
+                         {"error": f"tenant {name!r} not released "
+                                   "(unknown, or attached without "
+                                   "force)"})}))
         else:
             self._send_to_client(client_id, msg.reply(
                 data={"error": f"unknown tenant-plane request "
@@ -1069,6 +1186,25 @@ class GatewayDaemon:
     def _serve_execute_inner(self, tenant, msg,
                              submit_cid: int) -> None:
         name = tenant.name
+        mgr = self._serve_mgr
+        if mgr is not None and name == mgr.tenant:
+            # Serving-tenant mode: a cell queued behind the decode
+            # loop would wait forever (the driver ticks continuously)
+            # and could clobber the DecodeServer's params mid-decode.
+            # Refuse with the serving front door named instead.
+            obs_metrics.registry().counter(
+                "nbd_tenant_cells_total",
+                "tenant cells by terminal status",
+                {"tenant": name, "status": "rejected"}).inc()
+            self._deliver(tenant, msg.reply(data={
+                "status": "rejected", "reason": "serving-tenant",
+                "error": f"tenant {name!r} is the serving plane's "
+                         "tenant — %%distributed cells cannot run "
+                         "behind its decode loop; submit generation "
+                         "requests with %dist_serve submit, or "
+                         "attach under a different tenant name"}),
+                submit_cid)
+            return
         with self._lock:
             # Serve threads of the SAME tenant run concurrently when
             # mesh_slots > 1: the counter bumps are read-modify-writes.
@@ -1174,6 +1310,137 @@ class GatewayDaemon:
                     {"tenant": name, "status": status}).inc()
         self._deliver(tenant, reply, submit_cid)
 
+    # ------------------------------------------------------------------
+    # serving plane
+
+    def _serve_plane(self, tenant, msg, client_id: int) -> None:
+        """Dispatch one serve_* request (its own thread).  Replies go
+        straight to the requesting connection — a dead requester's
+        SUBMIT still stands (the request is journaled and will decode;
+        its terminal result parks), only the verdict frame is lost."""
+        try:
+            data = msg.data if isinstance(msg.data, dict) else {}
+            mt = msg.msg_type
+            if mt == "serve_start":
+                reply = self._serve_start(tenant, data)
+            else:
+                mgr = self._serve_mgr
+                if mgr is None:
+                    reply = {"status": "off",
+                             "error": "no serving plane is running "
+                                      "(start one: %dist_serve start)"}
+                elif mt == "serve_submit":
+                    reply = mgr.submit(
+                        tenant.name, data.get("prompt") or (),
+                        int(data.get("max_new_tokens") or 0),
+                        priority=int(data["priority"])
+                        if data.get("priority") is not None
+                        else tenant.priority)
+                elif mt == "serve_result":
+                    reply = mgr.result(str(data.get("rid")))
+                elif mt == "serve_stream":
+                    reply = mgr.stream(str(data.get("rid")),
+                                       int(data.get("from") or 0))
+                elif mt == "serve_status":
+                    reply = {"status": "serving", **mgr.describe()}
+                else:  # serve_stop
+                    with self._lock:
+                        self._serve_mgr = None
+                    mgr.stop()
+                    self.flight.record("serving_stopped",
+                                       tenant=mgr.tenant,
+                                       by=tenant.name)
+                    reply = {"status": "stopped", **mgr.describe()}
+        except Exception as e:
+            reply = {"status": "error",
+                     "error": f"{type(e).__name__}: {e}"}
+        finally:
+            # The decrement must be unconditional (its siblings
+            # _serve_execute/_serve_mailbox do the same): a reply that
+            # fails to encode/send must not leak a _serving slot and
+            # make the tenant unevictable forever.
+            try:
+                self._send_to_client(client_id, msg.reply(data=reply))
+            finally:
+                self._serve_done(tenant.name)
+
+    def _serve_start(self, tenant, data: dict) -> dict:
+        from .serving import ServingManager
+        name = str(data.get("tenant") or "serve").strip() or "serve"
+        if self.registry.get(name) is not None:
+            return {"status": "error",
+                    "error": f"tenant name {name!r} is in use by an "
+                             f"attached tenant — pick another serving "
+                             f"tenant name"}
+        # Constructed OUTSIDE the lock (it opens the journal file);
+        # the claim below is the race arbiter.
+        mgr = ServingManager(
+            self.comm, self.run_dir, tenant=name,
+            params_name=data.get("params") or "params",
+            cfg_name=data.get("cfg") or "cfg",
+            spec=data.get("spec"),
+            max_batch=data.get("max_batch"),
+            max_len=data.get("max_len"),
+            pad_to=int(data.get("pad_to") or 16),
+            eos_id=data.get("eos_id"),
+            temperature=float(data.get("temperature") or 0.0),
+            steps=data.get("steps"),
+            queue_depth=data.get("queue_depth"),
+            inflight=data.get("inflight"),
+            world_size=self.world_size,
+            decode_ranks=data.get("decode_ranks"),
+            kv_block_tokens=data.get("kv_block_tokens"),
+            kv_blocks=data.get("kv_blocks"),
+            prefill_chunk=data.get("prefill_chunk"),
+            kv_quantized=bool(data.get("kv_quantized")),
+            deliver=self._serve_deliver,
+            notify=self._serve_notify, flight=self.flight)
+        with self._lock:
+            if self._serve_mgr is not None:
+                loser = True
+            else:
+                loser = False
+                self._serve_mgr = mgr
+        if loser:
+            mgr.journal.close()
+            return {"status": "already-serving",
+                    "error": "a serving plane is already running — "
+                             "%dist_serve stop first"}
+        try:
+            mgr.start()
+        except Exception as e:
+            with self._lock:
+                self._serve_mgr = None
+            try:
+                mgr.stop(close_workers=False)
+            except Exception:
+                pass
+            return {"status": "error",
+                    "error": f"serve_start failed: {e}"}
+        self.flight.record("serving_started", tenant=name,
+                           by=tenant.name)
+        return {"status": "serving", **mgr.describe()}
+
+    def _serve_deliver(self, tenant_name: str, reply) -> None:
+        """Terminal serving results ride the tenant mailbox
+        discipline: delivered to the live kernel or parked for
+        exactly-once redelivery on reattach."""
+        t = self.registry.get(tenant_name)
+        if t is None:
+            # Submitter evicted mid-generation: the journal still
+            # holds the stream; only the push is droppable.
+            self.flight.record("serve_result_dropped",
+                               tenant=tenant_name,
+                               msg_id=reply.msg_id)
+            return
+        self._deliver(t, reply)
+
+    def _serve_notify(self, tenant_name: str, msg) -> None:
+        t = self.registry.get(tenant_name)
+        if t is None or t.client_id is None:
+            return
+        self._send_to_client(t.client_id, msg)
+
     def _gc_tenant_ns(self, name: str) -> bool:
         """Drop a departed tenant's per-worker namespaces from every
         LIVE rank — a dead worker's process took its namespace dicts
@@ -1249,9 +1516,15 @@ class GatewayDaemon:
             self.comm.scheduler.forget_tenant(name)
             # Metrics hygiene: an evicted tenant's per-tenant label
             # series would otherwise accumulate one set per name for
-            # the daemon's lifetime.
+            # the daemon's lifetime.  Serve-plane series are keyed by
+            # the SERVING tenant's name, so they survive.
             dropped = obs_metrics.registry().remove_label_series(
                 "tenant", name)
+            # getattr: unit tests drive this path on skeletal daemons
+            # built with __new__ (no serving plane constructed).
+            mgr = getattr(self, "_serve_mgr", None)
+            if mgr is not None:
+                mgr.forget_tenant(name)
             self.flight.record("tenant_evicted", tenant=name,
                                metric_series_dropped=dropped)
             self._write_manifest()
@@ -1333,7 +1606,15 @@ class GatewayDaemon:
                                or {}),
                 "queued": sched.get("queued", 0),
                 "active": sched.get("active", 0),
-                "serving": False}
+                "serving": self._serve_mgr is not None}
+
+    def _latency_extra(self) -> dict:
+        """Serving block of the /latency.json payload: the serving
+        observatory's stage summary + utilization ring."""
+        mgr = self._serve_mgr
+        if mgr is None:
+            return {}
+        return {"serving": mgr.obs.status_block()}
 
     def status(self) -> dict:
         """The ``%dist_pool status`` payload: scheduler counters,
@@ -1381,6 +1662,9 @@ class GatewayDaemon:
                "latency": self.comm.lat.status_block()}
         if self._metrics_httpd is not None:
             out["metrics_port"] = self._metrics_httpd.port
+        mgr = self._serve_mgr
+        if mgr is not None:
+            out["serving"] = mgr.describe()
         return out
 
     def close(self) -> None:
@@ -1395,6 +1679,16 @@ class GatewayDaemon:
             return
         self.flight.record("gateway_stop")
         self._autoscale_stop.set()
+        mgr = self._serve_mgr
+        if mgr is not None:
+            # Before the fleet teardown: the driver thread must stop
+            # ticking (and flush its journal) while workers can still
+            # answer the serve_close broadcast.
+            try:
+                mgr.stop()
+            except Exception:
+                pass
+            self._serve_mgr = None
         if self._watchdog is not None:
             try:
                 self._watchdog.stop()

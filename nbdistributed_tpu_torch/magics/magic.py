@@ -26,14 +26,15 @@ follow the JAX package; its TPU options become their GPU forms
 
 Durable sessions and the gateway's tenant plane: ``%dist_attach`` (a
 surviving fleet, or ``--tenant NAME`` on a pool), ``%dist_init
---attach``, ``%dist_pool start|status|stop|resize|template``,
+--attach``, ``%dist_pool start|status|stop|resize|template|migrate``,
 ``%%distributed --priority`` in tenant mode and ``%dist_gc``; in tenant
 mode ``%dist_status``, ``%dist_top`` and ``%dist_lat`` read the pool.
+The gateway's serving plane: ``%dist_serve
+start|submit|result|stream|status|lat|stop``.
 
-Magics whose modules have not been ported yet stay registered and raise
-:class:`NotImplementedError` naming their ROADMAP entry (``_DEFERRED``),
-as do the options of those modules (``%dist_pool migrate``;
-``%dist_init --hosts``, ``--agents``, ``--coordinator-addr``,
+Options whose modules have not been ported yet raise
+:class:`NotImplementedError` naming their ROADMAP entry
+(``%dist_init --hosts``, ``--agents``, ``--coordinator-addr``,
 ``--chips-per-worker``; ``%dist_lint self``).
 
 This module does not import IPython.  Each magic is a plain method of
@@ -65,10 +66,6 @@ _COLLECTIVE_TOKENS = re.compile(
     r"\b(all_reduce_quantized|all_reduce|all_gather|broadcast|"
     r"reduce_scatter|barrier|psum|pmean|pmax|pmin|ppermute|all_to_all|"
     r"sync_global_devices|shard_map|dist\.(?:scatter|gather|reduce))\b")
-
-# The ROADMAP entry each not-yet-ported magic lands with.
-_DEFERRED = {"dist_serve": "A5.6b"}
-
 
 # The longest %dist_shutdown / %dist_reset wait for the async window:
 # a cell still running after it is cut off by the teardown.
@@ -126,12 +123,14 @@ events) · %%distributed --deadline S · %dist_heal [--restore ckpt] ·
 checkpoint) · %dist_postmortem [--last] (crash bundles) · %dist_guard
 status|on|off|audit · %dist_attach [RUN_DIR] (reattach a surviving
 fleet; --tenant NAME joins a pool) · %dist_pool start|status|stop|
-resize|template (shared multi-tenant GPU pool; %%distributed --priority
-in tenant mode) · %dist_gc [--dry-run] (stale run dirs) ·
+resize|template|migrate (shared multi-tenant GPU pool; %%distributed
+--priority in tenant mode) · %dist_serve start|submit|result|stream|
+status|lat|stop (continuous-batching serving on a pool) ·
+%dist_gc [--dry-run] (stale run dirs) ·
 %timeline_show · %timeline_sidecar (in-notebook persistence) ·
 %dist_shutdown (fleet teardown) · %dist_reset
 Not ported yet (they raise, naming their ROADMAP entry):
-%dist_serve, %dist_pool migrate (A5.6b) · %dist_lint self (A5.7)
+%dist_init --hosts/--agents (A5.5) · %dist_lint self (A5.7)
 """
 
 
@@ -515,6 +514,59 @@ _PARSERS = {
         _arg("--root", default=None,
              help="runs root to sweep (default: <tmpdir>/nbd_runs)"),
     ),
+    "dist_serve": _parser(
+        "dist_serve",
+        _arg("command", nargs="?", default="status",
+             choices=["start", "status", "stop", "submit", "result",
+                      "stream", "lat"]),
+        _arg("--spec", default=None,
+             help="kernel variable holding the model-spec cell "
+                  "(code that binds params/cfg in the serving "
+                  "tenant's namespace on every rank)"),
+        _arg("--tenant", default=None,
+             help="serving tenant name (default 'serve')"),
+        _arg("--params", default=None,
+             help="params name in the serving namespace"),
+        _arg("--cfg", default=None,
+             help="config name in the serving namespace"),
+        _arg("--max-batch", type=int, default=None,
+             help="KV slots (continuous-batching width)"),
+        _arg("--max-len", type=int, default=None),
+        _arg("--pad-to", type=int, default=None),
+        _arg("--eos", type=int, default=None),
+        _arg("--steps", type=int, default=None,
+             help="decode steps per serve tick"),
+        _arg("--queue-depth", type=int, default=None),
+        _arg("--inflight", type=int, default=None),
+        _arg("--decode-ranks", type=int, default=None,
+             help="decode ranks to drive (0 = every live rank; "
+                  "default NBD_SERVE_DECODE_RANKS)"),
+        _arg("--kv-block-tokens", type=int, default=None,
+             help="paged-KV block size in tokens "
+                  "(default NBD_KV_BLOCK_TOKENS)"),
+        _arg("--kv-blocks", type=int, default=None,
+             help="KV blocks per decode rank (0 = dense capacity; "
+                  "default NBD_KV_BLOCKS_PER_RANK)"),
+        _arg("--prefill-chunk", type=int, default=None,
+             help="chunked-prefill size in tokens — long prompts "
+                  "interleave with decode ticks "
+                  "(default NBD_PREFILL_CHUNK_TOKENS)"),
+        _arg("--kv-quantized", action="store_true",
+             help="int8 KV cache on the decode servers"),
+        _arg("--prompt", default=None,
+             help="comma-separated token ids (submit)"),
+        _arg("--max-new", type=int, default=16),
+        _arg("--priority", type=int, default=None),
+        _arg("--rid", default=None, help="request id (result/stream)"),
+        _arg("--from", dest="from_offset", type=int, default=0,
+             help="resume offset (stream) — your last acked token"),
+        _arg("--wait", action="store_true",
+             help="submit: block until the request finishes and "
+                  "print its tokens"),
+        _arg("--last", type=int, default=0,
+             help="lat: also render the stage waterfall of the "
+                  "last N completed requests"),
+    ),
     "dist_pool": _parser(
         "dist_pool",
         _arg("command", nargs="?", default="status",
@@ -552,12 +604,12 @@ _PARSERS = {
                   "NBD_AUTOSCALE_* knobs); status: render the "
                   "decision audit trail (no value needed)"),
         _arg("--tenant", default=None,
-             help="migrate: the tenant to move (A5.6b: raises)"),
+             help="migrate: the tenant to move"),
         _arg("--to", dest="dest", default=None,
-             help="migrate: destination pool run dir (A5.6b: raises)"),
+             help="migrate: destination pool run dir (default: the "
+                  "least-loaded other live pool)"),
         _arg("--force", action="store_true",
-             help="migrate: move an ATTACHED tenant too (A5.6b: "
-                  "raises)"),
+             help="migrate: move an ATTACHED tenant too"),
         _arg("--name", default="default",
              help="template: template name"),
         _arg("--file", dest="tpl_file", default=None,
@@ -3573,8 +3625,9 @@ class DistributedMagics:
         autoscaler, and ``template --file CELL.py`` registers a
         warm-start cell re-run on every resized fleet.  A ``gpu`` pool
         holds at most one rank a card: a start or a resize past the
-        host's GPUs is refused.  ``migrate`` lands with the serving
-        plane (ROADMAP A5.6b) and raises.  Scheduling/admission
+        host's GPUs is refused.  ``migrate --tenant T [--to RUN_DIR]``
+        moves a tenant, its parked results and its serving journal to
+        another pool.  Scheduling/admission
         defaults come from the ``NBD_POOL_*``/``NBD_TENANT_*``
         knobs."""
         import subprocess
@@ -3582,8 +3635,6 @@ class DistributedMagics:
 
         from ..gateway import daemon as gw_mod
         args = _parse("dist_pool", line)
-        if args.command == "migrate":
-            raise _not_ported("%dist_pool migrate", "A5.6b")
         if args.command == "start":
             # "auto" is the GPU and raises on a host without one, as
             # %dist_init --backend auto does: never the CPU unasked.
@@ -3738,6 +3789,45 @@ class DistributedMagics:
             else:
                 print(f"❌ {res.get('error') or res}")
             return
+        if args.command == "migrate":
+            if not args.tenant:
+                print("❌ migrate needs --tenant NAME")
+                return
+            from ..gateway.router import (MigrationError,
+                                          PoolDirectory,
+                                          migrate_tenant)
+            dest = args.dest
+            if not dest:
+                placed = PoolDirectory().place(exclude=d)
+                if placed is None:
+                    print("❌ no OTHER live pool to migrate to "
+                          "(start one, or name it with --to)")
+                    return
+                dest = placed[0]
+            print(f"🚚 migrating tenant {args.tenant!r}: {d} → "
+                  f"{dest} ...")
+            try:
+                res = migrate_tenant(args.tenant, d, dest,
+                                     force=args.force)
+            except MigrationError as e:
+                print(f"❌ migration refused: {e}")
+                return
+            except Exception as e:
+                print(f"❌ migration failed: {type(e).__name__}: {e}")
+                return
+            print(f"✅ migrated to {dest} (epoch "
+                  f"{res.get('epoch')}) · parked results moved: "
+                  f"{res.get('parked_moved')} · serve journal: "
+                  f"{'yes' if res.get('journal_moved') else 'no'}"
+                  + ("" if res.get("src_alive") else
+                     " · source pool was DEAD — recovered from its "
+                     "manifest + journal")
+                  + ("" if res.get("released") else
+                     " · ⚠ source copy NOT released (re-run the "
+                     "migration once the source answers)"))
+            print(f"   reattach kernels with: %dist_attach --tenant "
+                  f"{args.tenant} {dest}")
+            return
         if args.command == "template":
             from ..gateway.client import pool_template
             code = None
@@ -3870,7 +3960,8 @@ class DistributedMagics:
         rows = [(r, v) for r, v in sorted(ranks.items(),
                                           key=lambda kv:
                                           int(kv[0]))
-                if v.get("busy_type") or r in draining or r in stalled
+                if v.get("busy_type") or v.get("srv")
+                or r in draining or r in stalled
                 or (mranks.get(r) or {}).get("join_epoch", 1) > 1]
         for r, v in rows:
             who = (f" · tenant {v['tenant']}" if v.get("tenant")
@@ -3886,7 +3977,16 @@ class DistributedMagics:
             je = (mranks.get(r) or {}).get("join_epoch")
             joined = (f" · joined ep {je}"
                       if je is not None and je > 1 else "")
-            print(f"   rank {r}: {busy}{joined}{who}")
+            srv = v.get("srv") or {}
+            kvb = srv.get("kvb") or ()
+            scol = (f" · 🔄 {srv.get('tps', 0)} tok/s · KV "
+                    f"{srv.get('occ', 0)}/{srv.get('slots', 0)}"
+                    + (f" · {kvb[0]}/{kvb[1]} blk" if len(kvb) == 2
+                       else "")
+                    if srv else "")
+            print(f"   rank {r}: {busy}{joined}{who}{scol}")
+        if st.get("serving"):
+            self._render_serve_status(st["serving"])
         for v in st.get("hang_verdicts") or ():
             print(f"   ⚠ HUNG [{v.get('kind')}] {v.get('detail')}")
 
@@ -4005,13 +4105,206 @@ class DistributedMagics:
         return results
 
     # ==================================================================
-    # magics of later slices: registered, raising with their entry
-
-    def _deferred(self, name: str):
-        raise _not_ported(f"%{name}", _DEFERRED[name])
+    # the gateway's serving plane
 
     def dist_serve(self, line):
-        self._deferred("dist_serve")
+        """Serving through the gateway (tenant mode): ``%dist_serve
+        start --spec SPEC_VAR`` opens a continuous-batching decode
+        loop on the pool; ``submit --prompt 1,2,3 --max-new 16``
+        enters a generation request (explicit accepted/shed/rejected
+        verdicts, tokens stream back live); ``result``/``stream
+        --from K`` poll or resume a stream; ``status``/``stop`` manage
+        the plane.  Accepted requests are journaled and survive rank
+        death — see README "The gateway's serving plane"."""
+        from ..gateway.client import CellSubmitError, GatewayGone
+        client = DistributedMagics._tenant
+        if client is None:
+            print("❌ not attached to a gateway pool — %dist_attach "
+                  "--tenant NAME first (%dist_pool start spawns one)")
+            return
+        args = _parse("dist_serve", line)
+        try:
+            if args.command == "start":
+                spec = None
+                if args.spec:
+                    spec = self.shell.user_ns.get(args.spec)
+                    if not isinstance(spec, str):
+                        print(f"❌ --spec {args.spec}: no string "
+                              "variable of that name in this kernel")
+                        return
+                st = client.serve_start(
+                    spec, tenant=args.tenant, params=args.params,
+                    cfg=args.cfg, max_batch=args.max_batch,
+                    max_len=args.max_len, pad_to=args.pad_to,
+                    eos_id=args.eos, steps=args.steps,
+                    queue_depth=args.queue_depth,
+                    inflight=args.inflight,
+                    decode_ranks=args.decode_ranks,
+                    kv_block_tokens=args.kv_block_tokens,
+                    kv_blocks=args.kv_blocks,
+                    prefill_chunk=args.prefill_chunk,
+                    kv_quantized=(True if args.kv_quantized
+                                  else None))
+                kv = st.get("kv") or {}
+                print(f"🍽️ serving as tenant {st.get('tenant')!r}: "
+                      f"{st.get('slots')} KV slots · max_len "
+                      f"{st.get('max_len')} · decode rank "
+                      f"{st.get('decode_rank')}"
+                      + (f" · {kv.get('blocks_per_rank')} KV blocks"
+                         f"/rank × {kv.get('block_tokens')} tok"
+                         if kv else ""))
+            elif args.command == "submit":
+                if not args.prompt:
+                    print("❌ submit needs --prompt 1,2,3")
+                    return
+                prompt = [int(t) for t in args.prompt.replace(",", " ")
+                          .split()]
+                v = client.serve_submit(prompt, args.max_new,
+                                        priority=args.priority)
+                rid = v.get("rid")
+                pos = (f" (queued at {v['position']})"
+                       if v.get("queued") else "")
+                print(f"✅ accepted {rid}{pos} — tokens stream here; "
+                      f"%dist_serve result --rid {rid} to poll")
+                if args.wait:
+                    while True:
+                        r = client.serve_result(rid)
+                        if r.get("done"):
+                            print(f"🧾 {rid} {r.get('status')}: "
+                                  f"{r.get('tokens')}")
+                            break
+                        time.sleep(0.3)
+            elif args.command == "result":
+                if not args.rid:
+                    print("❌ result needs --rid rN")
+                    return
+                r = client.serve_result(args.rid)
+                print(f"{args.rid}: {r.get('status')} "
+                      f"{r.get('tokens')}"
+                      + (f" — {r['error']}" if r.get("error") else ""))
+            elif args.command == "stream":
+                if not args.rid:
+                    print("❌ stream needs --rid rN")
+                    return
+                r = client.serve_stream(args.rid, args.from_offset)
+                print(f"{args.rid}[{r.get('offset')}:]: "
+                      f"{r.get('tokens')} "
+                      f"({'done' if r.get('done') else 'decoding'})")
+            elif args.command == "stop":
+                st = client.serve_stop()
+                print(f"🛑 serving stopped: {st.get('completed')} "
+                      f"completed · {st.get('tokens_total')} tokens")
+            elif args.command == "lat":
+                st = client.serve_status()
+                if st.get("status") == "off":
+                    print("(no serving plane running — %dist_serve "
+                          "start)")
+                    return
+                self._render_serve_lat(st.get("lat") or {},
+                                       last=args.last)
+            else:  # status
+                st = client.serve_status()
+                if st.get("status") == "off":
+                    print("(no serving plane running — %dist_serve "
+                          "start)")
+                    return
+                self._render_serve_status(st)
+        except CellSubmitError as e:
+            v = e.verdict
+            mark = "🪓" if v.get("status") == "shed" else "🚦"
+            print(f"{mark} {v.get('error')}")
+        except GatewayGone as e:
+            print(f"💀 {e}")
+        except Exception as e:
+            print(f"❌ {type(e).__name__}: {e}")
+
+    @staticmethod
+    def _render_serve_status(st: dict) -> None:
+        dranks = st.get("decode_ranks") or []
+        rank_str = (str(st.get("decode_rank")) if len(dranks) <= 1
+                    else ",".join(str(r) for r in sorted(dranks)))
+        print(f"🍽️ serving[{st.get('tenant')}] · decode rank"
+              f"{'s' if len(dranks) > 1 else ''} {rank_str} · KV "
+              f"{st.get('decoding', 0)}/{st.get('slots')} · pending "
+              f"{st.get('pending', 0)} · tokens "
+              f"{st.get('tokens_total', 0)}")
+        kv = st.get("kv") or {}
+        if kv.get("used") or kv.get("free"):
+            per_rank = " · ".join(
+                f"r{r}: {v.get('placed', 0)} req, "
+                f"{v.get('kv_used', 0)} blk"
+                for r, v in sorted((st.get("ranks") or {}).items(),
+                                   key=lambda kv_: int(kv_[0])))
+            print(f"   KV blocks {kv.get('used', 0)}/"
+                  f"{kv.get('used', 0) + kv.get('free', 0)} used · "
+                  f"{kv.get('block_tokens')} tok/block"
+                  + (f" · {per_rank}" if per_rank else ""))
+            tb = kv.get("tenants") or {}
+            if tb:
+                print("   blocks by tenant: " + " · ".join(
+                    f"{t}: {n}" for t, n in sorted(tb.items())))
+        # Utilization line: recent batch fill + the
+        # prefill/decode token split + per-rank fragmentation.
+        util = (st.get("lat") or {}).get("util") or {}
+        if util.get("count"):
+            frag = " · ".join(
+                f"r{r}: run {v.get('frag', '?')}"
+                + (f", defer {v['pending']}"
+                   if v.get("pending") else "")
+                for r, v in sorted((util.get("ranks") or {}).items(),
+                                   key=lambda kv_: int(kv_[0])))
+            print(f"   util: batch fill {util.get('fill_mean', 0):.0%}"
+                  f" mean / {util.get('fill_max', 0):.0%} max · "
+                  f"prefill share "
+                  f"{util.get('prefill_share', 0):.0%} of "
+                  f"{util.get('prefill_toks', 0) + util.get('decode_toks', 0)}"
+                  f" tok" + (f" · {frag}" if frag else ""))
+        print(f"   accepted {st.get('accepted', 0)} · completed "
+              f"{st.get('completed', 0)} · shed {st.get('shed', 0)} · "
+              f"rejected {st.get('rejected', 0)} · replayed "
+              f"{st.get('replayed', 0)} · resumed "
+              f"{st.get('resumed', 0)} · failovers "
+              f"{st.get('failovers', 0)} · dup-dropped "
+              f"{st.get('dup_dropped', 0)}")
+        slo = st.get("slo") or {}
+
+        def _pp(block: dict, key: str) -> str:
+            s = (block or {}).get(key + "_ms")
+            return (f"{s['p50']:g}/{s['p99']:g}" if s else "–")
+
+        if slo:
+            print(f"   SLO p50/p99 ms · TTFT {_pp(slo, 'ttft')} · "
+                  f"TPOT {_pp(slo, 'tpot')} · queue "
+                  f"{_pp(slo, 'queue')} · e2e {_pp(slo, 'e2e')}")
+            for t, b in sorted((slo.get("tenants") or {}).items()):
+                print(f"     {t}: TTFT {_pp(b, 'ttft')} · TPOT "
+                      f"{_pp(b, 'tpot')} · queue {_pp(b, 'queue')} · "
+                      f"e2e {_pp(b, 'e2e')}")
+        if st.get("last_error"):
+            print(f"   ⚠ last driver error: {st['last_error']}")
+
+    @staticmethod
+    def _render_serve_lat(lat: dict, *, last: int = 0) -> None:
+        """``%dist_serve lat``: per-stage percentile table over the
+        observatory ring, plus (with ``--last N``) the ASCII stage
+        waterfall of the most recent completions."""
+        from ..observability import servingobs as _sobs
+        summ = lat.get("summary") or {}
+        if not summ.get("count"):
+            print("(no completed serving requests recorded yet — "
+                  "submit some, or check NBD_SERVE_LAT)")
+            return
+        print(f"⏱ serving stage decomposition ({summ['count']} "
+              f"recorded, {summ.get('dropped', 0)} dropped):")
+        print(_sobs.format_serve_stage_table(summ))
+        if last:
+            recs = (lat.get("records") or [])[-last:]
+            if recs:
+                print()
+                print(_sobs.format_serve_waterfall(recs))
+            else:
+                print("(no per-request records in the status "
+                      "payload)")
 
     # ==================================================================
     # timeline magics (reference: magic.py:1778-1870)

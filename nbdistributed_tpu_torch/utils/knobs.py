@@ -282,10 +282,11 @@ _ALL = (
        "Recent per-request serving stage records (and utilization "
        "samples) kept for %dist_serve lat and /latency.json.",
        "observability"),
-    _k("NBD_PERFWATCH_BASELINE", "BENCH_BASELINES.json", "str",
+    _k("NBD_PERFWATCH_BASELINE", "", "str",
        "nbd-perfwatch: baseline file the perf-regression sentinel "
-       "scores loadgen reports against (repo-root relative or "
-       "absolute).", "observability"),
+       "scores loadgen reports against (no default: the port keeps "
+       "no baselines file yet, and none measured on another device "
+       "applies).", "observability"),
     _k("NBD_PERFWATCH_BAND_SCALE", "1", "float",
        "nbd-perfwatch: uniform multiplier on every baseline noise "
        "band (e.g. 2.0 on a noisy shared runner; bands themselves "

@@ -667,43 +667,170 @@ def test_gpu_pool_holds_one_rank_a_card(monkeypatch):
                                 {"target": 3, "error": msg})]
 
 
-def test_serve_frames_answer_naming_a56b():
-    d = object.__new__(t_daemon.GatewayDaemon)
-    sent = []
-    d._send_to_client = lambda cid, m: sent.append(m.data)
-    reg = t_tenancy.TenantRegistry()
-    d.registry = reg
-    reg.hello("alice", None, 5)
-    for mt in sorted(t_daemon._SERVE_TYPES):
-        msg = t_codec.Message(msg_type=mt, data={}, rank=5)
-        d._on_tenant_message(5, msg)
-    assert len(sent) == len(t_daemon._SERVE_TYPES) == 6
-    for data in sent:
-        assert data["status"] == "error"
-        assert "ROADMAP A5.6b" in data["error"]
+# ----------------------------------------------------------------------
+# the serving and migration frames, answered as the JAX daemon answers
+
+def _fake_comm_cls(name: str):
+    """The fake comm of ``tests/unit/test_serving_plane.py`` for one
+    package (its ``WorkerDied`` is that package's)."""
+    import jax_unit_cases
+    return jax_unit_cases.load("test_serving_plane.py", name)["FakeComm"]
 
 
-@pytest.mark.parametrize("mt", ["tenant_export", "tenant_import",
-                                "tenant_release"])
-def test_migration_frames_answer_naming_a56b(mt):
-    """The router's migration plane is A5.6b: its frames are refused
-    with an error verdict before and after a hello, and nothing in the
-    registry changes."""
-    d = object.__new__(t_daemon.GatewayDaemon)
+class _PoolSched:
+    def __init__(self):
+        self.forgot = []
+
+    def forget_tenant(self, name):
+        self.forgot.append(name)
+
+
+def _frame_daemon(name: str, run_dir: str):
+    """A skeletal daemon of one package: the registry, the tenant
+    plane's bookkeeping and a fake comm speaking the serve protocol."""
+    pkg = PKGS[name]
+    d = object.__new__(pkg.daemon.GatewayDaemon)
     sent = []
-    d._send_to_client = lambda cid, m: sent.append(m.data)
-    reg = t_tenancy.TenantRegistry()
-    d.registry = reg
-    reg.hello("alice", None, 5)
-    before = reg.export_tenant("alice")
-    for cid in (5, 6):     # alice's connection, then one with no hello
-        d._on_tenant_message(cid, t_codec.Message(
-            msg_type=mt, data={"tenant": "alice", "snapshot": before},
-            rank=cid))
-    assert sent == [{"status": "error",
-                     "error": t_daemon.MIGRATION_NOT_PORTED}] * 2
-    assert "ROADMAP A5.6b" in t_daemon.MIGRATION_NOT_PORTED
-    assert reg.export_tenant("alice") == before
+    got = threading.Condition()
+
+    def send(cid, m):
+        with got:
+            sent.append((cid, m.msg_type, m.data))
+            got.notify_all()
+        return True
+
+    d._send_to_client = send
+    d._lock = threading.Lock()
+    d._serving = {}
+    d._serve_mgr = None
+    d.flight = _Flight()
+    d.pool_token = "pool-token"
+    d.run_dir = run_dir
+    d.world_size = 2
+    d.comm = _fake_comm_cls(name)(num_workers=2)
+    d.comm.scheduler = _PoolSched()
+    d._write_manifest = lambda: None
+    d.registry = pkg.tenancy.TenantRegistry()
+    return d, sent, got
+
+
+# (client id, frame type, payload): cid 6 never said hello, cid 5 is
+# alice's connection.
+_FRAMES = [
+    (6, "serve_status", {}), (6, "serve_submit", {"prompt": [1]}),
+    (6, "serve_result", {"rid": "r0"}), (6, "serve_stream", {}),
+    (6, "serve_stop", {}), (6, "serve_start", {}),
+    (5, "serve_status", {}),
+    (5, "serve_submit", {"prompt": [5, 9], "max_new_tokens": 3}),
+    (5, "serve_result", {"rid": "r0"}), (5, "serve_stream", {"rid": "r0"}),
+    (5, "serve_stop", {}),
+    (5, "serve_start", {"tenant": "alice"}),
+    (5, "serve_start", {"max_batch": 2, "max_len": 32, "steps": 8,
+                        "queue_depth": 1, "inflight": 1}),
+    (5, "serve_start", {}),
+    (5, "serve_submit", {"prompt": [], "max_new_tokens": 3}),
+    (5, "serve_submit", {"prompt": [5, 9], "max_new_tokens": 3}),
+    (5, "serve_result", {"rid": "r9"}),
+    (5, "serve_stream", {"rid": "r0", "from": 1}),
+    (5, "serve_stop", {}),
+    (5, "serve_status", {}),
+    (6, "tenant_export", {"token": "wrong", "tenant": "alice"}),
+    (6, "tenant_export", {"token": "pool-token", "tenant": "nobody"}),
+    (6, "tenant_export", {"token": "pool-token", "tenant": "alice"}),
+    (5, "tenant_import", {"token": "pool-token", "snapshot": None}),
+    (6, "tenant_import", {"token": "pool-token", "snapshot": "BOB"}),
+    (6, "tenant_import", {"token": "pool-token", "snapshot": "BOB"}),
+    (6, "tenant_release", {"token": "pool-token", "tenant": "alice"}),
+    (6, "tenant_release", {"token": "pool-token", "tenant": "bob",
+                           "force": True}),
+    (5, "tenant_release", {"token": "wrong", "tenant": "bob"}),
+]
+
+# Fields that carry clocks or minted tokens, not decisions.
+_VOLATILE = {"lat", "slo", "token", "ts", "last_seen", "attached_ts",
+             "created_ts", "submitted_ts"}
+
+
+def _stable(obj):
+    if isinstance(obj, dict):
+        return {k: _stable(v) for k, v in obj.items()
+                if k not in _VOLATILE}
+    if isinstance(obj, list):
+        return [_stable(v) for v in obj]
+    return obj
+
+
+def _run_frames(name: str, run_dir: str) -> list:
+    d, sent, got = _frame_daemon(name, run_dir)
+    pkg = PKGS[name]
+    d.registry.hello("alice", None, 5)
+    bob = pkg.tenancy.TenantRegistry()
+    bob.hello("bob", None, 9)
+    bob_snap = bob.export_tenant("bob")
+    try:
+        for cid, mt, data in _FRAMES:
+            if data.get("snapshot") == "BOB":
+                data = dict(data, snapshot=bob_snap)
+            n = len(sent)
+            d._on_tenant_message(cid, pkg.codec.Message(
+                msg_type=mt, data=dict(data), rank=cid))
+            with got:
+                assert got.wait_for(lambda: any(
+                    m[1] == "response" for m in sent[n:]), timeout=20)
+            if mt == "serve_submit" and d._serve_mgr is not None:
+                # Let the one accepted request finish before the next
+                # frame, so every reply is a function of the frames.
+                mgr = d._serve_mgr
+                rid = (sent[-1][2] or {}).get("rid")
+                if rid:
+                    deadline = 100
+                    while not mgr.result(rid)["done"] and deadline:
+                        with got:
+                            got.wait(0.05)
+                        deadline -= 1
+    finally:
+        if d._serve_mgr is not None:
+            d._serve_mgr.stop()
+    return [(cid, mt, _stable(data)) for cid, mt, data in sent]
+
+
+def test_serve_and_migration_frames_answer_as_jax(tmp_path):
+    """Each of the six ``serve_*`` frames and the three migration
+    frames answers as the JAX daemon's does, before a hello (the
+    serve frames are refused, the migration frames checked against the
+    pool token) and after it: a plane started, a submit served to its
+    ``serve_done``, a second start refused, stop, status off; an
+    export with the serving journal riding along, an import (idempotent
+    on retry) and a release."""
+    got = {}
+    for name in ("jax", "torch"):
+        run = tmp_path / name
+        run.mkdir()
+        got[name] = _run_frames(name, str(run))
+    assert got["torch"] == got["jax"]
+    replies = [m for m in got["torch"] if m[1] == "response"]
+    assert len(replies) == len(_FRAMES)
+    st = [r[2].get("status") for r in replies]
+    assert st[:6] == [None] * 6       # no hello: refused
+    assert all("no tenant_hello" in r[2]["error"] for r in replies[:6])
+    assert st[6:11] == ["off"] * 5
+    assert st[11] == "error"          # a tenant's name is taken
+    assert st[12:20] == ["serving", "already-serving", "rejected",
+                         "accepted", "unknown", "completed", "stopped",
+                         "off"]
+    done = [m for m in got["torch"] if m[1] == "serve_done"]
+    assert len(done) == 1 and done[0][2]["status"] == "completed"
+    assert replies[20][2] == {"error": "pool token mismatch"}
+    assert "no tenant 'nobody'" in replies[21][2]["error"]
+    snap = replies[22][2]["snapshot"]
+    assert replies[22][2]["status"] == "ok" and snap["tenant"] == "alice"
+    assert '"e":"accept"' in snap["serve_journal"]
+    assert "needs a snapshot" in replies[23][2]["error"]
+    assert replies[24][2]["status"] == replies[25][2]["status"] \
+        == "imported"
+    assert replies[26][2]["status"] == "error"     # attached: no force
+    assert replies[27][2] == {"status": "released"}
+    assert replies[28][2] == {"error": "pool token mismatch"}
 
 
 def test_auto_backend_raises_without_a_gpu(monkeypatch):

@@ -14,7 +14,8 @@ reattach draining it exactly once; the stale-epoch fence; a
 ``tiny_config`` training cell whose losses are bitwise the in-process
 step's; a resize 2 → 3 → 2 with an all-reduce queued across each flip
 and refused as stale, and a template replayed on each new fleet; the
-one-GPU-a-rank refusal; the serving plane's A5.6b refusals; ``%dist_gc`` keeping the live pool; and
+one-GPU-a-rank refusal; ``%dist_serve`` and ``%dist_pool migrate``
+through the magics; ``%dist_gc`` keeping the live pool; and
 ``%dist_pool stop`` leaving no process behind.
 
 Every wait polls under its own deadline.
@@ -450,13 +451,71 @@ def test_gpu_pool_past_the_cards_is_refused(pool, monkeypatch):
         pool.run("dist_pool", "start -n 1 --backend auto")
 
 
-def test_serving_plane_raises_naming_a56b(pool):
-    with pytest.raises(NotImplementedError, match="A5.6b"):
-        pool.run("dist_pool", "migrate --tenant alice")
-    with pytest.raises(NotImplementedError, match="A5.6b"):
-        pool.run("dist_serve", "status")
-    st = _magics()._tenant.serve_status()
-    assert st["status"] == "error" and "ROADMAP A5.6b" in st["error"]
+SERVE_SPEC = """\
+import torch
+torch.set_num_threads(1)
+from nbdistributed_tpu_torch.models import init_params, tiny_config
+cfg = tiny_config(dtype=torch.float32)
+params = init_params(cfg, 0, device="cpu")
+"""
+
+
+def test_dist_serve_and_migrate_through_the_magics(pool):
+    """``%dist_serve`` from alice's kernel: a plane for the tenant
+    ``srv`` on the pool, a request submitted with ``--wait`` whose
+    tokens are the in-process greedy ``generate``'s, the status, stage
+    table and stream resume, the plane on ``%dist_pool status``, and
+    stop; ``%dist_pool migrate`` refusing a destination with no live
+    gateway."""
+    import torch
+
+    from nbdistributed_tpu_torch.models import (generate, init_params,
+                                                tiny_config)
+    run = pool.run
+    pool.magics.shell.user_ns["SPEC"] = SERVE_SPEC
+    out, _ = run("dist_serve", "start --spec NOPE")
+    assert out == ("❌ --spec NOPE: no string variable of that name in "
+                   "this kernel\n")
+    out, _ = run("dist_serve", "start --spec SPEC --tenant srv "
+                 "--max-batch 2 --max-len 64 --steps 4")
+    assert out.startswith("🍽️ serving as tenant 'srv': 2 KV slots · "
+                          "max_len 64 · decode rank "), out
+    out, _ = run("dist_serve", "start --spec SPEC --tenant srv2")
+    assert "a serving plane is already running" in out, out
+    cfg = tiny_config(dtype=torch.float32)
+    want = generate(init_params(cfg, 0, device="cpu"), [[5, 9, 2]], cfg,
+                    6)[0, 3:].tolist()
+    out, _ = run("dist_serve", "submit --prompt 5,9,2 --max-new 6 --wait")
+    assert out.startswith("✅ accepted r0 — tokens stream here"), out
+    assert f"🧾 r0 completed: {want}" in out, out
+    out, _ = run("dist_serve", "stream --rid r0 --from 2")
+    assert out == f"r0[2:]: {want[2:]} (done)\n", out
+    out, _ = run("dist_serve", "result --rid r0")
+    assert out == f"r0: completed {want}\n", out
+    out, _ = run("dist_serve", "status")
+    assert out.startswith("🍽️ serving[srv] · decode rank 1 · KV 0/2"), out
+    assert ("accepted 1 · completed 1 · shed 0 · rejected 0 · replayed 0"
+            " · resumed 1 · failovers 0 · dup-dropped 0") in out, out
+    out, _ = run("dist_serve", "lat --last 1")
+    assert "⏱ serving stage decomposition (1 recorded" in out, out
+    assert "r0" in out and "decode" in out, out
+    out, _ = run("dist_pool", "status")
+    assert "🍽️ serving[srv]" in out, out
+    out, _ = run("dist_serve", "submit --prompt 1 --max-new 100")
+    assert "too-long" in out or "exceeds the server's max_len" in out, out
+    out, _ = run("dist_pool", f"migrate --tenant bob --to "
+                 f"{pool.root}/no-such-pool")
+    assert out.splitlines()[-1] == (
+        f"❌ migration refused: no live gateway at "
+        f"{pool.root}/no-such-pool"), out
+    out, _ = run("dist_pool", "migrate")
+    assert out == "❌ migrate needs --tenant NAME\n"
+    out, _ = run("dist_serve", "stop")
+    assert out == "🛑 serving stopped: 1 completed · 6 tokens\n", out
+    out, _ = run("dist_serve", "status")
+    assert out == "(no serving plane running — %dist_serve start)\n"
+    out, _ = run("dist_pool", "status")
+    assert "serving[" not in out
 
 
 def test_tenant_mode_magics_and_gc(pool):

@@ -141,11 +141,13 @@ def test_init_banner_names_the_torch_namespace(ip, capsys):
                  "%dist_heal [--restore ckpt]", "%dist_supervise",
                  "%dist_postmortem [--last]", "%dist_guard",
                  "%dist_attach [RUN_DIR]", "%dist_pool start|status|stop|",
-                 "%dist_gc [--dry-run]", "%dist_serve, %dist_pool migrate "
-                 "(A5.6b)", "%dist_lint self (A5.7)"):
+                 "%dist_gc [--dry-run]", "resize|template|migrate",
+                 "%dist_serve start|submit|result|stream|",
+                 "%dist_init --hosts/--agents (A5.5)",
+                 "%dist_lint self (A5.7)"):
         assert name in text
     assert "jax" not in text.lower() and "A5.4" not in text
-    assert "(A5.6)" not in text
+    assert "(A5.6)" not in text and "A5.6b" not in text
 
 
 def test_plain_cell_auto_distributes(ip, capsys):
@@ -484,11 +486,17 @@ def test_dist_lint_self_raises_naming_a57(ip):
         ip.run_line_magic("dist_lint", "self")
 
 
-@pytest.mark.parametrize("name,entry", [("dist_serve", "A5.6b")])
-def test_deferred_magic_raises_naming_its_entry(ip, name, entry):
-    with pytest.raises(NotImplementedError,
-                       match=rf"%{name} .*ROADMAP {entry}$"):
-        ip.run_line_magic(name, "status")
+@pytest.mark.parametrize("line", ["status", "start --spec S",
+                                  "submit --prompt 1,2", "stop"])
+def test_dist_serve_outside_a_pool_says_so(ip, capsys, line):
+    """``%dist_serve`` runs on a gateway pool: in a plain ``%dist_init``
+    world every subcommand says so, as the JAX magic does, and sends
+    nothing."""
+    capsys.readouterr()
+    ip.run_line_magic("dist_serve", line)
+    assert capsys.readouterr().out == (
+        "❌ not attached to a gateway pool — %dist_attach --tenant NAME "
+        "first (%dist_pool start spawns one)\n")
 
 
 def test_timeline_records_distributed_cells(ip, capsys):

@@ -327,7 +327,16 @@ def test_magic_options_parse_as_ipython_parses_them():
              ("dist_profile", "start --log-dir /tmp/p"),
              ("dist_trace", "save t.json"), ("dist_trace", ""),
              ("dist_metrics", "--prom --save m.json"),
-             ("dist_lat", "--last 3 --save l.json")]
+             ("dist_lat", "--last 3 --save l.json"),
+             ("dist_serve", "start --spec SPEC --tenant srv --max-batch 8 "
+                            "--max-len 1024 --decode-ranks 2 "
+                            "--kv-block-tokens 16 --kv-blocks 64 "
+                            "--prefill-chunk 32 --kv-quantized --steps 4 "
+                            "--queue-depth 3 --inflight 2 --eos 2"),
+             ("dist_serve", "submit --prompt 1,2,3 --max-new 32 --wait "
+                            "--priority 2"),
+             ("dist_serve", "stream --rid r3 --from 7"),
+             ("dist_serve", "lat --last 4"), ("dist_serve", "")]
     for name, line in cases:
         got = vars(port_magic._parse(name, line))
         want = vars(parse_argstring(getattr(Jax, name), line))
@@ -350,3 +359,61 @@ def test_memory_totals_as_in_jax():
         assert tel.hbm_totals(snap) == jax_tel.hbm_totals(snap)
     assert tel.peak_hbm(snaps) == jax_tel.peak_hbm(snaps) == \
         {"0": 9, "1": 3}
+
+
+def test_pool_migrate_options_parse_as_in_jax():
+    from nbdistributed_tpu.magics.magic import DistributedMagics as Jax
+    from IPython.core.magic_arguments import parse_argstring
+    for line in ("migrate --tenant alice --to /tmp/b --force",
+                 "migrate --tenant bob", "status --run-dir /tmp/a"):
+        got = vars(port_magic._parse("dist_pool", line))
+        want = vars(parse_argstring(Jax.dist_pool, line))
+        # The one difference by design: a pool's ranks default to the
+        # GPU, never to the CPU unasked.
+        assert got.pop("backend") == "gpu"
+        assert got == {k: want[k] for k in got}
+
+
+def _serving_status(serving, run_dir):
+    """A real ``ServingManager``'s status after a few served requests,
+    over the fake comm of ``tests/unit/test_serving_plane.py``."""
+    import jax_unit_cases
+    pkg = ("torch" if serving.__name__.startswith("nbdistributed_tpu_torch")
+           else "jax")
+    comm = jax_unit_cases.load("test_serving_plane.py", pkg)["FakeComm"](
+        num_workers=2, per_tick=2)
+    clock = iter(range(10 ** 6))
+    mgr = serving.ServingManager(
+        comm, run_dir, world_size=2, max_batch=2, max_len=64, steps=2,
+        step_timeout=5.0, queue_depth=4, inflight=4, decode_ranks=2,
+        kv_block_tokens=8)
+    mgr.obs._now = lambda: float(next(clock))
+    for i in range(3):
+        mgr.submit(f"t{i % 2}", [i + 1, 5, 9], 4)
+    for _ in range(6):
+        mgr._tick()
+    st = {"status": "serving", **mgr.describe()}
+    mgr.stop(close_workers=False)
+    return st
+
+
+def test_serve_status_and_lat_render_as_in_jax(tmp_path, capsys):
+    """``%dist_serve status`` and ``lat`` print the same lines from the
+    same status payload as the JAX magics do."""
+    from nbdistributed_tpu.gateway import serving as jax_serving
+    from nbdistributed_tpu.magics.magic import DistributedMagics as Jax
+    from nbdistributed_tpu_torch.gateway import serving as port_serving
+    (tmp_path / "a").mkdir()
+    st = _serving_status(port_serving, str(tmp_path / "a"))
+    (tmp_path / "b").mkdir()
+    st_j = _serving_status(jax_serving, str(tmp_path / "b"))
+    assert st["completed"] == st_j["completed"] == 3
+    for render in ("_render_serve_status", "_render_serve_lat"):
+        arg = st if render == "_render_serve_status" else st["lat"]
+        kw = {} if render == "_render_serve_status" else {"last": 2}
+        getattr(Jax, render)(arg, **kw)
+        want = capsys.readouterr().out
+        getattr(port_magic.DistributedMagics, render)(arg, **kw)
+        got = capsys.readouterr().out
+        assert got == want and got.strip()
+    assert "serving[serve]" in want or "stage" in want
