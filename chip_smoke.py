@@ -365,6 +365,24 @@ every K4 count is per layer.
    round trip and the seconds from the kill to the pushed exit, to the
    world ready and to the step redone are printed.  Cells go to
    ``chiprun_out/multihost_cells_n1.json``.
+28. (run after phase 27) the self-lint, the self-test and the
+   quickstart: ``python3 tools/nbd_torch_lint.py --self --format json``
+   (started before the kernels' build, collected here) must report all
+   ten passes clean; ``python3 -m nbdistributed_tpu_torch.selftest``
+   with ``NBD_SELFTEST_FAULTS=1 NBD_SELFTEST_OBS=1`` (one card, so one
+   NCCL rank) must exit 0 with "N/N checks passed", N >= 15, its
+   model-stack check launching K1 once (fp32, error printed); beside
+   it, every code cell of ``examples/00_torch_quickstart.ipynb``, read
+   with ``json``, runs in order through ``NotebookSession`` with
+   ``%dist_init -n 1 --backend gpu`` (the HF cell is named and skipped
+   only where ``transformers`` does not import), the counts reset just
+   before each cell and read through ``%dist_pull`` just after: K1, K2
+   and K3 once a layer a training step, K1 once a layer an eval, K4
+   once a layer a decode step, nothing elsewhere; before its
+   ``%dist_shutdown`` the same world serves phase 17's 12 requests
+   (streams equal, K4 30 a decode step) and runs ``%dist_lint self``,
+   clean.  Cells go to ``chiprun_out/quickstart_cells_n1.json``, the
+   self-test's report to ``chiprun_out/selftest_n1.txt``.
 
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
@@ -382,7 +400,9 @@ mesh training runs' K1/K2/K3 launches on rank 0 (``train_mesh_*``,
 (``supervision_*``), phase 26's (``pool_train``, ``pool_serve``, and
 K4's ``serve_plane``, ``serve_plane_loadgen``, ``serve_plane_recovered``
 and ``serve_plane_migrated``) and phase 27's (``multihost_serve``,
-``multihost_train``, ``multihost_healed_train``).
+``multihost_train``, ``multihost_healed_train``) and phase 28's
+(``selftest_k1``, ``quickstart_train``, ``quickstart_generate``,
+``quickstart_serve``, ``quickstart_smol_serve``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
 ranks, phase 22's guarded replicas, phases 23 and 24
@@ -406,7 +426,9 @@ distinct cards summing 10; a seeded control-plane partition of hostB
 for 12 s mid-cell under ``%dist_supervise on`` with a 60 s partition
 grace: hostB suspected, no heal, the far ranks reattached, the
 in-flight result drained exactly once; a SIGKILL under hostB's agent
-healed through it by the supervisor) alone on four cards, one NCCL
+healed through it by the supervisor) and phase 28's self-test (``-n
+2`` with all three gates on cards 0 and 1: its serving smoke's decode
+rank SIGKILLed on NCCL) alone on four cards, one NCCL
 rank per card (what one card cannot show: NCCL, its
 ``reduce_scatter_tensor``, its point-to-point ring and pipeline hops
 overlapping compute, ``all_to_all_single``, and the links between
@@ -2098,6 +2120,18 @@ t0 = time.monotonic()
 while time.monotonic() - t0 < 120:
     c = a @ a
 """
+
+
+# The self-lint's blocking-under-lock exemption for this script
+# (nbdistributed_tpu_torch/analysis/concur.py), as the port's async
+# window exempts its own admission wait.
+_LINT_BLOCKING_OK = {
+    "_Streams.wait_for:wait":
+        "Condition.wait RELEASES the condition's lock while it "
+        "blocks: waiting for a pushed text under the condition that "
+        "its notify_all signals is the designed pattern, not IO "
+        "under a held lock",
+}
 
 
 class _Streams:
@@ -6043,8 +6077,10 @@ def phase_pool(outputs_ref, losses_ref, solo32):
             check(False, "a fourth tenant was admitted")
         except RuntimeError as e:
             check("max_tenants=3" in str(e), f"hello refusal: {e}")
+        # Daemon threads here and below: a failed check must not keep
+        # the process waiting for a client call still in flight.
         holder = threading.Thread(target=lambda: bob.execute(
-            f"import time\ntime.sleep({POOL_HOLD_S})"))
+            f"import time\ntime.sleep({POOL_HOLD_S})"), daemon=True)
         holder.start()
         _poll(lambda: bob.pool_status()["scheduler"]["active"] == 1,
               "bob's cell holding the mesh slot")
@@ -6103,7 +6139,7 @@ def phase_pool(outputs_ref, losses_ref, solo32):
                 a1.execute("import time\ntime.sleep(2)\n'alice-parked'")
             except GatewayGone:
                 lost.append(True)
-        th = threading.Thread(target=inflight)
+        th = threading.Thread(target=inflight, daemon=True)
         th.start()
         _poll(lambda: bob.pool_status()["scheduler"]["active"] == 1,
               "alice's in-flight cell")
@@ -6737,15 +6773,19 @@ def phase_pool_mesh(n=2, grow=MESH_WORLD, solo32=None):
               out)
         warm(n)
         box, positions = {}, []
+        # Daemon threads: a failed check must not keep the process
+        # waiting for a client call still in flight.
         slow = threading.Thread(target=lambda: box.update(
-            slow=client.execute("import time\ntime.sleep(3)\n'slow'")))
+            slow=client.execute("import time\ntime.sleep(3)\n'slow'")),
+            daemon=True)
         slow.start()
         _poll(lambda: client.pool_status()["scheduler"]["active"] == 1,
               "the slow cell")
         queued = threading.Thread(target=lambda: box.update(
             queued=client.execute("shared['queued'] = rank\n"
                                   + POOL_SUM_CELL, on_queued=lambda q:
-                                  positions.append(q["position"]))))
+                                  positions.append(q["position"]))),
+            daemon=True)
         queued.start()
         _poll(lambda: positions, "the queued notice")
         flips = []
@@ -7344,6 +7384,350 @@ def _trees_equal(a, b):
             and bool(torch.equal(a, b)))
 
 
+# ----------------------------------------------------------------------
+# phase 28: the self-lint, the self-test and the quickstart notebook.
+# The lint is host Python: main() starts it before the kernels' build
+# and this phase collects it.  The self-test runs as a user runs it, on
+# one card and so one NCCL rank, beside the quickstart (its own world,
+# its own rank on the same card).  The quickstart's code cells run in
+# order through NotebookSession, the launch counts reset on the ranks
+# just before each cell and read through %dist_pull just after.
+
+LINT_PASSES = ("env-knobs", "codec-headers", "thread-shared-state",
+               "protocol-coverage", "lock-order", "blocking-under-lock",
+               "callback-under-lock", "resource-leak",
+               "bracket-discipline", "shutdown-completeness")
+SELFTEST_MIN_CHECKS = 15
+SELFTEST_TIMEOUT_S = 420
+QUICKSTART = ROOT / "examples" / "00_torch_quickstart.ipynb"
+QS_LAYERS = 2       # tiny_config()'s layers
+QS_STEPS = 5        # the training cell's DDP steps
+QS_NEW = 8          # generate's new tokens: the prefill's, then 7 steps
+QS_SERVE_NEW = 6    # the serving cell's new tokens a request
+# What a cell holding the marker must print (its asserts passed).
+QS_OUTPUTS = (("eval after restore", "(exact)"),
+              ("bit-identical to solo generate", "solo generate:"),
+              ("%dist_checkpoint --status", ": done"),
+              ("HF and converted tokens match", "tokens match:"))
+
+QS_RESET_CELL = """\
+%%distributed
+import nbdistributed_tpu_torch.ops.attention as _qs_a
+import nbdistributed_tpu_torch.ops.decode as _qs_d
+_qs_a.flash_attention.launches = 0
+_qs_a.flash_attention_bwd_dq.launches = 0
+_qs_a.flash_attention_bwd_dkv.launches = 0
+_qs_d.flash_decode_attention.launches = 0
+"""
+
+QS_READ_CELL = """\
+%%distributed
+_qs_counts = {"k1": _qs_a.flash_attention.launches,
+              "k2": _qs_a.flash_attention_bwd_dq.launches,
+              "k3": _qs_a.flash_attention_bwd_dkv.launches,
+              "k4": _qs_d.flash_decode_attention.launches}
+"""
+
+
+def _stopped_at_exit(proc):
+    """``proc``, killed when this script exits before collecting it."""
+    import atexit
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    atexit.register(stop)
+    return proc
+
+
+def start_self_lint():
+    """``tools/nbd_torch_lint.py --self --format json`` over this
+    checkout, started in the background (phase 28 collects it):
+    (process, start time)."""
+    return _stopped_at_exit(subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "nbd_torch_lint.py"),
+         "--self", "--format", "json", "--root", str(ROOT)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)), time.perf_counter()
+
+
+def self_lint_row(lint):
+    """Collect :func:`start_self_lint`: all ten passes clean."""
+    proc, t0 = lint
+    out, err = proc.communicate(timeout=600)
+    doc = json.loads(out) if out.strip().startswith("{") else {}
+    passes = doc.get("passes", {})
+    row = dict(rc=proc.returncode, total=doc.get("total"),
+               passes={k: len(v) for k, v in passes.items()},
+               seconds_since_start=time.perf_counter() - t0)
+    say("self_lint", **row)
+    check(proc.returncode == 0 and doc.get("total") == 0
+          and tuple(passes) == LINT_PASSES
+          and not any(passes.values()),
+          f"self-lint: rc {proc.returncode}, {out[-3000:]} {err[-2000:]}")
+    return row
+
+
+def start_selftest(n=None):
+    """``python3 -m nbdistributed_tpu_torch.selftest`` from the checkout's
+    root with ``NBD_SELFTEST_FAULTS=1 NBD_SELFTEST_OBS=1`` (and ``-n
+    n``), started in the background: (process, start time, n)."""
+    import os
+    env = {**os.environ, "NBD_SELFTEST_FAULTS": "1",
+           "NBD_SELFTEST_OBS": "1"}
+    env.pop("NBD_RUN_DIR", None)
+    argv = [sys.executable, "-m", "nbdistributed_tpu_torch.selftest"]
+    if n is not None:
+        argv += ["-n", str(n)]
+        env["NBD_SELFTEST_SERVE"] = "1"
+    return _stopped_at_exit(subprocess.Popen(
+        argv, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)), time.perf_counter(), n
+
+
+def selftest_row(run):
+    """Collect :func:`start_selftest`: exit 0, "N/N checks passed" with
+    N at least ``SELFTEST_MIN_CHECKS``, the model-stack check passed
+    with K1 launched once on the card within the check's limit."""
+    import re
+    proc, t0, n = run
+    try:
+        out, _ = proc.communicate(timeout=SELFTEST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate(timeout=60)
+        raise SmokeFailure(f"self-test timed out:\n{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"selftest_n{n or 1}.txt").write_text(out)
+    m = re.search(r"(\d+)/(\d+) checks passed", out)
+    k1 = re.search(r"K1 flash_attention fp32 \(1, 96, 4, 32\) on (\w+): "
+                   r"max abs error (\S+) \(limit (\S+)\), launches (\d+)",
+                   out)
+    row = dict(rc=proc.returncode, passed=int(m.group(1)) if m else None,
+               checks=int(m.group(2)) if m else None,
+               k1_device=k1.group(1) if k1 else None,
+               k1_max_abs_err=float(k1.group(2)) if k1 else None,
+               k1_limit=float(k1.group(3)) if k1 else None,
+               k1_launches=int(k1.group(4)) if k1 else None,
+               seconds=seconds,
+               banner=out.splitlines()[0] if out else "")
+    say("selftest" if n is None else f"selftest_n{n}", **row)
+    # With -n the serving smoke's gate is set too: one check more.
+    least = SELFTEST_MIN_CHECKS + (n is not None)
+    check(proc.returncode == 0 and m and m.group(1) == m.group(2)
+          and int(m.group(2)) >= least,
+          f"self-test failed:\n{out[-4000:]}")
+    check("  ✅ model stack (flash kernel exact, int8 sampled decode)"
+          in out and k1 and k1.group(1) == "cuda"
+          and int(k1.group(4)) == 1 and float(k1.group(2)) < 2e-5,
+          f"self-test K1 guard: {k1 and k1.group(0)}")
+    return row
+
+
+def quickstart_want(src):
+    """The launches a quickstart cell makes on a CUDA rank (K1, K2, K3,
+    K4) and the path they belong to: K1/K2/K3 once a layer a step
+    (``tiny_config`` has no remat, so K1 once), K4 once a layer a
+    decode step."""
+    L = QS_LAYERS
+    zero = dict(k1=0, k2=0, k3=0, k4=0)
+    if src.startswith("for step in range(%d):" % QS_STEPS):
+        return "quickstart_train", dict(zero, k1=QS_STEPS * L,
+                                        k2=QS_STEPS * L, k3=QS_STEPS * L)
+    if "trained a step during the save" in src:
+        return "quickstart_train", dict(zero, k1=L, k2=L, k3=L)
+    if "eval_loss = float(loss_fn(" in src \
+            or "restored_loss = float(loss_fn(" in src:
+        return "quickstart_train", dict(zero, k1=L)   # forward only
+    if "out_tokens = generate(" in src:
+        return "quickstart_generate", dict(zero, k4=(QS_NEW - 1) * L)
+    if "q8, q4 = quantize_params(" in src:          # two trees
+        return "quickstart_generate", dict(zero,
+                                           k4=2 * (QS_NEW - 1) * L)
+    if "srv.cache_prefix(" in src:
+        # Each admission's prefill (the suffix padded to pad_to) is the
+        # plain cached attention; the pair then decodes its other
+        # QS_SERVE_NEW - 1 tokens in as many shared steps, and solo
+        # generate takes QS_SERVE_NEW - 1 steps.
+        return "quickstart_serve", dict(
+            zero, k4=2 * (QS_SERVE_NEW - 1) * L)
+    # The HF cell's model runs with use_flash=False: no kernel.
+    return None, zero
+
+
+def quickstart_cells():
+    """The notebook's code cells, in order, read with ``json``."""
+    nb = json.loads(QUICKSTART.read_text())
+    return ["".join(c["source"]) for c in nb["cells"]
+            if c["cell_type"] == "code"]
+
+
+def _expand(text, ns):
+    """A line magic's ``{name}`` fields filled from the kernel
+    namespace, as IPython expands them."""
+    if text.startswith("%") and not text.startswith("%%"):
+        return text.format(**ns)
+    return text
+
+
+def phase_quickstart(outputs_ref, n=1):
+    """Every code cell of the quickstart through :class:`NotebookSession`
+    with ``%dist_init -n n --backend gpu``, the counts held per cell;
+    before its ``%dist_shutdown`` the same world serves phase 17's
+    requests and runs ``%dist_lint self``."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+
+    env_before = {k: os.environ.get(k) for k in
+                  ("NBD_NOTEBOOK_BACKEND", "NBD_NOTEBOOK_WORKERS")}
+    os.environ.update(NBD_NOTEBOOK_BACKEND="gpu",
+                      NBD_NOTEBOOK_WORKERS=str(n))
+    has_hf = importlib.util.find_spec("transformers") is not None
+    ts = time.perf_counter()
+    nb, log, cells_run = None, [], []
+    launches: dict = {}
+    not_run = []
+    extras = {}
+    try:
+        for src in quickstart_cells():
+            first = src.splitlines()[0]
+            if first == "%load_ext nbdistributed_tpu_torch":
+                nb = NotebookSession()       # %load_ext's own steps
+                log.append({"cell": src, "out": "(NotebookSession)"})
+                cells_run.append(first)
+                continue
+            if "from transformers import" in src and not has_hf:
+                not_run.append(first)
+                print("quickstart: the HF cell (`import dataclasses`, "
+                      "`from transformers import LlamaConfig, "
+                      "LlamaForCausalLM`) not run: transformers does "
+                      "not import on this machine", flush=True)
+                log.append({"cell": src, "out": "NOT RUN: transformers "
+                            "does not import on this machine"})
+                continue
+            if first == "%dist_shutdown":
+                extras = quickstart_extras(nb, outputs_ref, n)
+            live = DistributedMagics._comm is not None
+            if live and first != "%dist_shutdown":
+                nb.run(QS_RESET_CELL)
+            out = nb.run(_expand(src, nb.shell.user_ns))
+            cells_run.append(first)
+            log.append({"cell": src, "out": out})
+            if first.startswith("%dist_init"):
+                check(f"✅ {n} workers ready (backend=gpu" in out,
+                      f"quickstart %dist_init: {out}")
+            if not live or first == "%dist_shutdown":
+                continue
+            nb.run(QS_READ_CELL)
+            got = nb.pull("_qs_counts")
+            path, want = quickstart_want(src)
+            ranks = ([0] if first.startswith("%%rank [0]")
+                     else list(range(n)))
+            for r in range(n):
+                w = want if r in ranks else dict.fromkeys(want, 0)
+                check(got[r] == w, f"quickstart cell {first!r}: rank {r} "
+                      f"launched {got[r]}, want {w}")
+            if path is not None:
+                acc = launches.setdefault(path, dict.fromkeys(want, 0))
+                for k in acc:
+                    acc[k] += got[0][k]
+            for marker, needle in QS_OUTPUTS:
+                if marker in src:
+                    check(needle in out, f"quickstart cell {first!r}: "
+                          f"{needle!r} not in {out}")
+        check(DistributedMagics._comm is None, "the world outlived "
+              "%dist_shutdown")
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        # The notebook's checkpoints, under the temporary directory.
+        ckpt = os.path.join(tempfile.gettempdir(), "nbd_torch_demo_ckpt")
+        for d in (ckpt, ckpt + "_bg"):
+            shutil.rmtree(d, ignore_errors=True)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"quickstart_cells_n{n}.json").write_text(json.dumps(
+            (nb.log if nb is not None else []) or log, indent=1))
+        if DistributedMagics._comm is not None:
+            DistributedMagics.shutdown_all()
+    row = dict(cells=len(cells_run) + len(not_run), run=len(cells_run),
+               not_run=not_run, launches=launches, **extras,
+               seconds=time.perf_counter() - ts)
+    say("quickstart", **row)
+    return row
+
+
+def quickstart_extras(nb, outputs_ref, n):
+    """Before the quickstart's ``%dist_shutdown``: phase 17's full-width
+    SmolLM2-135M serving cell (the 12 bf16 requests, K4 once a layer a
+    decode step, streams equal to phase 17's) and ``%dist_lint self``,
+    clean."""
+    t0 = time.perf_counter()
+    nb.run(NOTEBOOK_SERVE_CELL)
+    served, outputs = nb.pull("served"), nb.pull("outputs")
+    for r in range(n):
+        s = served[r]
+        check(s["rebuilt"] == [] and s["device"] == f"cuda:{r}",
+              f"quickstart smol: rank {r}: rebuilt {s['rebuilt']}, on "
+              f"{s['device']}")
+        check(s["steps"] > 0 and s["k4"] == N_LAYERS_SMOL * s["steps"],
+              f"quickstart smol: rank {r}: K4 launched {s['k4']} times "
+              f"over {s['steps']} decode steps")
+        check(outputs[r] == outputs_ref, f"quickstart smol: rank {r}'s "
+              "streams differ from phase 17's")
+    nb.run("%%distributed\ndel params, outputs, served\n"
+           "torch.cuda.empty_cache()")
+    smol_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = nb.run("%dist_lint self")
+    lint_s = time.perf_counter() - t0
+    check(all(f"   · {name}: clean" in out for name in LINT_PASSES)
+          and "all passes clean ✅" in out, f"%dist_lint self: {out}")
+    n_tok = sum(len(o) for o in outputs_ref)
+    return dict(smol_serve=dict(k4_launches=served[0]["k4"],
+                                k1_launches=served[0]["k1"],
+                                decode_steps=served[0]["steps"],
+                                want_k4=N_LAYERS_SMOL * served[0]["steps"],
+                                tokens=n_tok,
+                                tokens_per_s=n_tok / served[0]["wall_s"],
+                                tokens_equal=True, cell_s=smol_s),
+                dist_lint_self=dict(clean=True, seconds=lint_s))
+
+
+def phase_selfcheck(lint, outputs_ref):
+    """Phase 28: the self-lint collected, the self-test beside the
+    quickstart's cells."""
+    ts = time.perf_counter()
+    run = start_selftest()
+    try:
+        quickstart = phase_quickstart(outputs_ref)
+    except BaseException:
+        run[0].kill()
+        run[0].wait(timeout=60)
+        raise
+    rows = dict(self_lint=self_lint_row(lint), selftest=selftest_row(run),
+                quickstart=quickstart, seconds=time.perf_counter() - ts)
+    say("selfcheck_seconds", seconds=rows["seconds"])
+    return rows
+
+
+def phase_selftest_mesh():
+    """``--mesh-nccl``'s part of phase 28: the self-test with ``-n 2
+    --backend gpu`` and all three gates on cards 0 and 1, its serving
+    smoke's rank SIGKILLed on NCCL."""
+    from nbdistributed_tpu_torch.ops import _build
+    _build.build_all()
+    return selftest_row(start_selftest(n=2))
+
+
 def phase_hf(params):
     """HF interop on the card: SmolLM2-135M (``params``, bf16) and
     Mixtral-8x7B at 2 layers laid out as ``transformers`` state dicts,
@@ -7713,13 +8097,15 @@ def main_mesh_nccl() -> int:
     supervision_mesh = phase_supervision_mesh()
     pool_mesh = phase_pool_mesh(solo32=solo)
     multihost_mesh = phase_multihost_mesh()
+    selftest_mesh = phase_selftest_mesh()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
          "train_sp": train_sp, "train_pp": train_pp, "guard": guard,
          "notebook": notebook, "notebook_async": notebook_async,
          "supervision_mesh": supervision_mesh, "pool_mesh": pool_mesh,
-         "multihost_mesh": multihost_mesh}, indent=1))
+         "multihost_mesh": multihost_mesh,
+         "selftest_mesh": selftest_mesh}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7736,6 +8122,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:] == ["--mesh-nccl"]:
         return main_mesh_nccl()
+    lint = start_self_lint()       # host Python, collected in phase 28
     from nbdistributed_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7796,6 +8183,7 @@ def main() -> int:
                  solo32)
     multihost = timed("multihost", phase_multihost, dense["outputs"],
                       train["losses"], cluster["spawn_to_ready_s"])
+    selfcheck = timed("selfcheck", phase_selfcheck, lint, dense["outputs"])
     timing = timed("timing", phase_timing)
     say("phase_seconds", total=time.perf_counter() - t0, **phase_s)
 
@@ -7835,7 +8223,14 @@ def main() -> int:
                     supervision["heal"]["serve"]["k4_launches"],
                 "pool_serve": pool["bob"]["k4_launches"],
                 **{path: pool[path]["k4_launches"] for path in PLANE_PATHS},
-                "multihost_serve": multihost["serve"]["k4_launches"]}
+                "multihost_serve": multihost["serve"]["k4_launches"],
+                # Phase 28: the quickstart's cells and, in its world,
+                # phase 17's requests.
+                **{path: row["k4"] for path, row in
+                   selfcheck["quickstart"]["launches"].items()
+                   if path != "quickstart_train"},
+                "quickstart_smol_serve":
+                    selfcheck["quickstart"]["smol_serve"]["k4_launches"]}
     k1_paths = {"serve": counts["k1"],
                 "cluster_serve": cluster["serve"]["k1_launches"],
                 "multihost_serve": multihost["serve"]["k1_launches"],
@@ -7881,9 +8276,14 @@ def main() -> int:
             MH_TRAIN_STEPS * multihost["train"]["launches_per_step"][k]
         paths["multihost_healed_train"] = \
             multihost["train"]["redone_launches"][k]
+        # Phase 28: the quickstart's training, eval and restore cells.
+        paths["quickstart_train"] = \
+            selfcheck["quickstart"]["launches"]["quickstart_train"][k]
     # Phase 25's stalled loop launched K1 until the interrupt.
     k1_paths["supervision_stall_loop"] = \
         supervision["stall"]["loop_k1_launches"]
+    # Phase 28's self-test: its model-stack cell's one fp32 launch.
+    k1_paths["selftest_k1"] = selfcheck["selftest"]["k1_launches"]
     tensor_cores = "wgmma bf16 / scalar fp32"
     split = "bf16 hi + lo operand"
     kernels = [
@@ -7891,7 +8291,8 @@ def main() -> int:
                "nbdistributed_tpu/ops/attention.py:405",
                sum(k1_paths.values()),
                max(k1_err, k23_err["k1"], hop_err["k1"],
-                   timing["K1_train"]["max_abs_err"]),
+                   timing["K1_train"]["max_abs_err"],
+                   selfcheck["selftest"]["k1_max_abs_err"]),
                "K1", tensor_cores,
                ("flash_fwd_wgmma_kernel", "flash_fwd_kernel"),
                launches_by_path=k1_paths,
@@ -7941,7 +8342,8 @@ def main() -> int:
          "train_sp": train_sp, "remat_dots": remat_dots,
          "train_pp": train_pp, "guard": guard, "notebook": notebook,
          "notebook_async": notebook_async, "supervision": supervision,
-         "pool": pool, "multihost": multihost, "phase_seconds": phase_s},
+         "pool": pool, "multihost": multihost, "selfcheck": selfcheck,
+         "phase_seconds": phase_s},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,9 +19,13 @@
   DAG (``%dist_lint deps``), which gates the async in-flight window
   (``messaging/pipeline.py``).
 
-The JAX package's other half — the framework self-lint over its own
-tree (``selfcheck``, ``concur``, ``lifecycle``, ``cli``,
-``%dist_lint self``) — is ROADMAP A5.7 for the port.
+- **Self-lint** (:mod:`selfcheck`, :mod:`concur`, :mod:`lifecycle`,
+  :mod:`cli`): the ten passes over the port's own tree — the env-knob,
+  codec and protocol registries, thread-shared state, lock order,
+  blocking calls and callbacks under a lock, resource leaks, bracket
+  discipline and shutdown completeness — run by
+  ``tools/nbd_torch_lint.py --self`` (``nbd-torch-lint``) and
+  ``%dist_lint self``.
 
 Everything here is stdlib-only (ast + re) and safe to import from
 any layer.

@@ -37,8 +37,8 @@ agent (``tools/nbd_torch_agent.py``) or through ssh; a rank owns one
 GPU, so ``host:N`` is N ranks and ``--chips-per-worker`` other than 1
 is refused.
 
-``%dist_lint self`` has not been ported yet: it raises
-:class:`NotImplementedError` naming its ROADMAP entry.
+``%dist_lint self`` runs the port's ten self-lint passes over the
+checkout (:mod:`..analysis.selfcheck`).
 
 This module does not import IPython.  Each magic is a plain method of
 :class:`DistributedMagics` taking the magic's line (and its cell), with
@@ -75,12 +75,6 @@ _COLLECTIVE_TOKENS = re.compile(
 _SHUTDOWN_DRAIN_S = 30.0
 
 
-def _not_ported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to nbdistributed_tpu_torch yet: it lands "
-        f"with ROADMAP {entry}")
-
-
 _BANNER = """\
 ✅ {n} workers ready (backend={backend}, attach {secs:.1f}s).
 
@@ -110,11 +104,12 @@ the window) · %%distributed --repeat k [--until EXPR] (compile once,
 loop worker-side) · %dist_mode -d/-e auto-run off/on ·
 %dist_pull/%dist_push vars · %dist_sync_ide ·
 %dist_checkpoint/%dist_restore path names (--background, --status) ·
-%dist_lint warn|strict|off|status|effects|deps (pre-dispatch cell
-vetting: rank-conditional collectives, subset hazards, host-syncs in
-loops — strict blocks error-severity cells; also %%distributed
---strict per cell; deps|effects render the session's cell effect
-footprints and dependency DAG) · %dist_chaos (fault injection) ·
+%dist_lint warn|strict|off|status|effects|deps|self (pre-dispatch
+cell vetting: rank-conditional collectives, subset hazards,
+host-syncs in loops — strict blocks error-severity cells; also
+%%distributed --strict per cell; deps|effects render the session's
+cell effect footprints and dependency DAG; self runs the framework's
+ten self-lint passes) · %dist_chaos (fault injection) ·
 %dist_profile start/stop (torch.profiler) · %dist_trace
 start/stop/save (Perfetto) · %dist_metrics · %dist_lat (per-cell
 stage attribution + waterfall) · %dist_top (live device telemetry) ·
@@ -134,8 +129,6 @@ status|lat|stop (continuous-batching serving on a pool) ·
 %dist_init --hosts/--agents/--coordinator-addr (multi-host launch
 through host agents or ssh; host:N = N ranks, one GPU each) ·
 %dist_shutdown (fleet teardown) · %dist_reset
-Not ported yet (it raises, naming its ROADMAP entry):
-%dist_lint self (A5.7)
 """
 
 
@@ -1778,11 +1771,41 @@ class DistributedMagics:
         dependency DAG (RAW/WAR/WAW hazard edges) — the gate of the
         async window; ``--dot`` emits it as Graphviz dot.
 
-        ``%dist_lint self`` (the framework's self-lint over its own
-        tree) is not ported yet: it raises, naming ROADMAP A5.7."""
+        ``%dist_lint self`` runs the framework's own ten self-lint
+        passes over the checkout — the CLI ``nbd-torch-lint --self``
+        in-notebook: env-knob / codec-header / protocol registries,
+        thread-shared-state, the lock-discipline passes (lock-order,
+        blocking-under-lock, callback-under-lock), and the lifecycle
+        passes (resource-leak, bracket-discipline,
+        shutdown-completeness) — and reports per-pass counts."""
         args = _parse("dist_lint", line)
         if args.command == "self":
-            raise _not_ported("%dist_lint self", "A5.7")
+            from ..analysis.cli import _repo_root
+            from ..analysis.selfcheck import _PKG, run_self_lint
+            root = _repo_root(None)
+            if root is None:
+                print(f"🔎 %dist_lint self needs a repo checkout "
+                      f"(README.md next to {_PKG}/) — from an "
+                      f"installed wheel run `nbd-torch-lint --self "
+                      f"--root <checkout>` instead")
+                return
+            results = run_self_lint(root)
+            total = sum(len(v) for v in results.values())
+            print(f"🔎 framework self-lint — {len(results)} passes "
+                  f"over {root}:")
+            for name, findings in results.items():
+                status = ("clean" if not findings
+                          else f"{len(findings)} finding(s)")
+                print(f"   · {name}: {status}")
+                for f in findings[:5]:
+                    print(f"     {f.render()}")
+                if len(findings) > 5:
+                    print(f"     … +{len(findings) - 5} more "
+                          f"(nbd-torch-lint --self for the full list)")
+            print("   all passes clean ✅" if not total
+                  else f"   {total} finding(s) — the self-lint gate "
+                       f"fails on these")
+            return
         if args.command in ("deps", "effects"):
             from ..analysis import preflight
             entries = preflight.effects_log()

@@ -380,6 +380,12 @@ _ALL = (
     _k("NBD_SELFTEST_SERVE", None, "bool",
        "nbd-selftest: also run the serving smoke section (2-rank "
        "pool, 3 requests, one injected rank kill).", "harness"),
+    _k("NBD_NOTEBOOK_BACKEND", "auto", "str",
+       "examples/00_torch_quickstart.ipynb: the backend of its "
+       "%dist_init (gpu, cpu or auto).", "harness"),
+    _k("NBD_NOTEBOOK_WORKERS", "2", "int",
+       "examples/00_torch_quickstart.ipynb: the ranks of its "
+       "%dist_init.", "harness"),
     _k("NBD_BENCH_ONLY", None, "str",
        "bench.py: comma-separated benchmark families to run.",
        "harness"),

@@ -158,3 +158,26 @@ def test_package_import_loads_no_notebook_surface():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["[]", "False", "False"]
+
+
+def test_analysis_modules_load_neither_jax_nor_the_jax_package():
+    """The four self-lint modules (``selfcheck``, ``concur``,
+    ``lifecycle``, ``cli``) and the self-test import neither JAX nor
+    any module of ``nbdistributed_tpu``: a fresh interpreter, so
+    nothing else has loaded them."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import nbdistributed_tpu_torch.analysis.selfcheck\n"
+            "import nbdistributed_tpu_torch.analysis.concur\n"
+            "import nbdistributed_tpu_torch.analysis.lifecycle\n"
+            "import nbdistributed_tpu_torch.analysis.cli\n"
+            "import nbdistributed_tpu_torch.selftest\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'nbdistributed_tpu')), "
+            "'nbdistributed_tpu_torch.analysis.cli' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]", "True"]

@@ -2,8 +2,8 @@
 nbdistributed_tpu_torch`` and ``%dist_init -n 2 --backend cpu`` (gloo
 workers), then the counterparts of the JAX package's magic tests
 (``tests/integration/test_magics_e2e.py``), the vetting, async-window
-and observability magics, the magics that raise until their ROADMAP
-entry lands, and the refusals of ``%dist_init``.
+and observability magics, ``%dist_lint self``, and the refusals of
+``%dist_init``.
 
 The shell is IPython's process-wide singleton, which another module of
 the same pytest process may have used: the fixture takes it with
@@ -141,8 +141,9 @@ def run(ip, code):
 
 def test_init_banner_names_the_torch_namespace(ip, capsys):
     """The banner of the fixture's %dist_init, re-rendered: the
-    reference's torch namespace, the vetting and async magics, the
-    multi-host options, and the entry of the magic that raises."""
+    reference's torch namespace, the vetting and async magics (the
+    self-lint among them), and the multi-host options; no magic is
+    left that raises for want of a port."""
     from nbdistributed_tpu_torch.magics.magic import _BANNER
     text = _BANNER.format(n=2, backend="cpu", secs=1.0)
     assert text.startswith("✅ 2 workers ready (backend=cpu, attach 1.0s).")
@@ -155,8 +156,9 @@ def test_init_banner_names_the_torch_namespace(ip, capsys):
                  "%dist_gc [--dry-run]", "resize|template|migrate",
                  "%dist_serve start|submit|result|stream|",
                  "%dist_init --hosts/--agents/--coordinator-addr",
-                 "%dist_lint self (A5.7)"):
+                 "%dist_lint warn|strict|off|status|effects|deps|self"):
         assert name in text
+    assert "Not ported" not in text and "A5.7" not in text
     assert "jax" not in text.lower() and "A5.4" not in text
     assert "A5.5" not in text
     assert "(A5.6)" not in text and "A5.6b" not in text
@@ -492,10 +494,20 @@ def test_vetting_window_and_observability_magics_run(ip, capsys, name,
         assert "\n0    ● alive" in out and "\n1    ● alive" in out
 
 
-def test_dist_lint_self_raises_naming_a57(ip):
-    with pytest.raises(NotImplementedError,
-                       match=r"%dist_lint self .*ROADMAP A5.7$"):
-        ip.run_line_magic("dist_lint", "self")
+def test_dist_lint_self_reports_ten_passes_clean(ip, capsys):
+    """``%dist_lint self`` runs the port's ten self-lint passes over
+    this checkout and prints each one clean."""
+    capsys.readouterr()
+    ip.run_line_magic("dist_lint", "self")
+    out = capsys.readouterr().out
+    assert "framework self-lint — 10 passes over" in out
+    for name in ("env-knobs", "codec-headers", "thread-shared-state",
+                 "protocol-coverage", "lock-order",
+                 "blocking-under-lock", "callback-under-lock",
+                 "resource-leak", "bracket-discipline",
+                 "shutdown-completeness"):
+        assert f"   · {name}: clean" in out, name
+    assert "all passes clean ✅" in out
 
 
 @pytest.mark.parametrize("line", ["status", "start --spec S",
