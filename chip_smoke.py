@@ -381,8 +381,22 @@ every K4 count is per layer.
    once a layer a decode step, nothing elsewhere; before its
    ``%dist_shutdown`` the same world serves phase 17's 12 requests
    (streams equal, K4 30 a decode step) and runs ``%dist_lint self``,
-   clean.  Cells go to ``chiprun_out/quickstart_cells_n1.json``, the
-   self-test's report to ``chiprun_out/selftest_n1.txt``.
+   clean.  Cells go to ``chiprun_out/00_torch_quickstart_cells_n1.json``,
+   the self-test's report to ``chiprun_out/selftest_n1.txt``.
+29. (beside phases 27 and 28, in a process of its own) the fine-tune
+   notebook: every cell of ``examples/02_torch_finetune.ipynb`` with
+   ``%dist_init -n 1 --backend gpu`` at SmolLM2-135M's full width and
+   30 layers: the checkpoint built with ``transformers`` and
+   ``save_pretrained`` in the kernel, loaded fp32 on the rank, four DDP
+   steps over the README / PARITY / SURVEY rows (K1, K2, K3 30 a
+   step), the chunked loss against the full one (K1 60, "match:
+   True"), 16 greedy tokens on rank 0 (K4 30 a decode step),
+   ``%dist_checkpoint``; then rank 0's
+   losses within 1e-4 relative of the same steps on the plain path in
+   that process, its batches bitwise those draws, and the continuation
+   to plain ``generate`` from the pulled tuned params by the near-tie
+   rule.  Cells go to ``chiprun_out/02_torch_finetune_cells_n1.json``,
+   the process's output to ``chiprun_out/finetune_n1.txt``.
 
 Phases 7-10 and 13-14 run each server with the launch counts reset
 just before and K4's read just after, held to one per layer per decode
@@ -402,7 +416,8 @@ K4's ``serve_plane``, ``serve_plane_loadgen``, ``serve_plane_recovered``
 and ``serve_plane_migrated``) and phase 27's (``multihost_serve``,
 ``multihost_train``, ``multihost_healed_train``) and phase 28's
 (``selftest_k1``, ``quickstart_train``, ``quickstart_generate``,
-``quickstart_serve``, ``quickstart_smol_serve``).
+``quickstart_serve``, ``quickstart_smol_serve``) and phase 29's
+(``finetune_train``, ``finetune_ce``, ``finetune_generate``).
 
 ``python3 chip_smoke.py --mesh-nccl`` runs phases 18, 19, 20 and 21's
 ranks, phase 22's guarded replicas, phases 23 and 24
@@ -428,7 +443,12 @@ grace: hostB suspected, no heal, the far ranks reattached, the
 in-flight result drained exactly once; a SIGKILL under hostB's agent
 healed through it by the supervisor) and phase 28's self-test (``-n
 2`` with all three gates on cards 0 and 1: its serving smoke's decode
-rank SIGKILLed on NCCL) alone on four cards, one NCCL
+rank SIGKILLed on NCCL) and phase 29's notebooks (the fine-tune with
+``-n 2`` on cards 0 and 1, rank 0's losses within 1e-5 of an
+in-process emulation of both ranks through the kernels; every cell of
+``examples/01_torch_parallelism.ipynb`` on four ranks, each self-check
+held, K1 launched in the zigzag cell only and K4 in the sp-sharded
+decode cell only, on every rank) alone on four cards, one NCCL
 rank per card (what one card cannot show: NCCL, its
 ``reduce_scatter_tensor``, its point-to-point ring and pipeline hops
 overlapping compute, ``all_to_all_single``, and the links between
@@ -4693,6 +4713,7 @@ class NotebookSession:
         import contextlib
         import io
         buf = io.StringIO()
+        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             lines = text.splitlines(keepends=True)
             for transform in self.shell.input_transformers_cleanup:
@@ -4708,7 +4729,8 @@ class NotebookSession:
                 exec(compile("".join(lines), "<cell>", "exec"),
                      self.shell.user_ns)
         out = buf.getvalue()
-        self.log.append({"cell": text, "out": out})
+        self.log.append({"cell": text, "out": out,
+                         "s": time.perf_counter() - t0})
         check(not ok or ("❌" not in out and "💀" not in out),
               f"cell {text.splitlines()[0]!r} failed:\n{out}")
         return out
@@ -5270,6 +5292,15 @@ SUP_ENV = {"NBD_HANG_POLL_S": "0.25", "NBD_HANG_SKEW_S": "3",
            "NBD_HANG_STALL_S": "5", "NBD_HANG_GRACE_S": "2"}
 SUP_CKPT = ROOT / "build" / "supervision_ckpt"
 SUP_SCRAPE_STEPS = 8
+# The scrape cell's last step waits for this file, which the operator
+# writes once its scrapes have answered: every scrape lands inside the
+# cell however fast the steps run.
+SUP_SCRAPE_DONE = ROOT / "build" / "supervision_scrapes_done"
+SUP_SCRAPE_CELL = """\
+scrape_losses.append(float(step(params, batch)))
+if len(scrape_losses) == cs.SUP_SCRAPE_STEPS:
+    cs.wait_for_scrapes()
+"""
 SUP_DEADLINE_STEPS = 20
 SUP_TIMED_STEPS = 3
 
@@ -5335,6 +5366,15 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def wait_for_scrapes(timeout=120.0):
+    """On the rank: hold the scrape cell open until the operator has
+    written :data:`SUP_SCRAPE_DONE` (or ``timeout`` has passed)."""
+    t0 = time.monotonic()
+    while (not SUP_SCRAPE_DONE.exists()
+           and time.monotonic() - t0 < timeout):
+        time.sleep(0.02)
 
 
 def _poll(cond, what, timeout=120.0, every=0.05):
@@ -5429,26 +5469,38 @@ def phase_supervision(outputs_ref, loss_ref, n=1):
         # 1. The scrape endpoint while a training cell runs.
         base = f"http://127.0.0.1:{port}"
         nb.run("scrape_losses = []\ncs.reset_launch_counts()")
-        th, box = _cell_in_thread(
-            nb, "scrape_losses.append(float(step(params, batch)))",
-            repeat=SUP_SCRAPE_STEPS)
+        SUP_SCRAPE_DONE.unlink(missing_ok=True)
+        th, box = _cell_in_thread(nb, SUP_SCRAPE_CELL,
+                                  repeat=SUP_SCRAPE_STEPS)
         scrapes = {}
+
+        def busy_ping():
+            # A ping that arrived after the cell was sent: the previous
+            # cell's last busy ping can still be the latest for up to a
+            # heartbeat after it ended.
+            at, data = comm.last_ping(0) or (0, {})
+            return (at >= box.get("t0", float("inf"))
+                    and data.get("busy_s") is not None)
+
         try:
-            _poll(lambda: (comm.last_ping(0) or (0, {}))[1].get("busy_s")
-                  is not None and comm.last_telemetry(0), "a busy ping")
+            _poll(lambda: busy_ping() and comm.last_telemetry(0),
+                  "a busy ping")
             for path in ("/metrics", "/healthz", "/latency.json"):
                 before = hbm_totals(comm.last_telemetry(0))
                 t0 = time.perf_counter()
                 with urllib.request.urlopen(base + path, timeout=30) as r:
                     body = r.read().decode()
                 ms = 1e3 * (time.perf_counter() - t0)
-                busy = (comm.last_ping(0) or (0, {}))[1].get("busy_s")
-                scrapes[path] = dict(ms=ms, busy_during=busy is not None,
+                busy = busy_ping() and "t1" not in box
+                scrapes[path] = dict(ms=ms, busy_during=busy,
                                      body=body, hbm_before=before,
                                      hbm_after=hbm_totals(
                                          comm.last_telemetry(0)))
         finally:
+            SUP_SCRAPE_DONE.parent.mkdir(parents=True, exist_ok=True)
+            SUP_SCRAPE_DONE.touch()
             th.join(600)
+            SUP_SCRAPE_DONE.unlink(missing_ok=True)
         check(box.get("res") and not any(
             m.data.get("error") for m in box["res"].values()),
             f"scrape cell: {box}")
@@ -7011,13 +7063,13 @@ def _trivial_cells(nb, n):
     return 1e3 * statistics.median(rt)
 
 
-def phase_multihost(outputs_ref, losses_ref, local_ready_s=None):
+def phase_multihost(outputs_ref, losses_ref):
     """Phase 27, one card: a rank spawned by a host agent at
     ``MH_AGENT``, reached over a token-authenticated control plane bound
     on all interfaces and dialled at ``MH_COORD``.  ``outputs_ref``:
     phase 17's streams; ``losses_ref``: phase 11's losses (the first
-    two are held); ``local_ready_s``: phase 17's local spawn-to-ready,
-    reported beside the agent's."""
+    two are held).  Its host-clock rows are taken beside phase 29's
+    process, so they are not set against phase 17's local spawn."""
     import os
     import secrets
     import signal
@@ -7152,8 +7204,7 @@ def phase_multihost(outputs_ref, losses_ref, local_ready_s=None):
         (OUT_DIR / "multihost_cells_n1.json").write_text(
             json.dumps(nb.log, indent=1))
     row = dict(card=gpu_name_and_power(), agent_ready_s=agent_ready_s,
-               spawn_to_ready_s=ready_s,
-               local_spawn_to_ready_s=local_ready_s,
+               spawn_to_ready_s=ready_s, beside="phase 29",
                cell_ms_median=cell_ms, serve=serve_row, train=train_row,
                kill_to_pushed_exit_s=exit_s, kill_to_world_ready_s=healed_s,
                kill_to_step_redone_s=redone_s,
@@ -7557,13 +7608,6 @@ def quickstart_want(src):
     return None, zero
 
 
-def quickstart_cells():
-    """The notebook's code cells, in order, read with ``json``."""
-    nb = json.loads(QUICKSTART.read_text())
-    return ["".join(c["source"]) for c in nb["cells"]
-            if c["cell_type"] == "code"]
-
-
 def _expand(text, ns):
     """A line magic's ``{name}`` fields filled from the kernel
     namespace, as IPython expands them."""
@@ -7572,77 +7616,90 @@ def _expand(text, ns):
     return text
 
 
+def notebook_cells(path):
+    """A notebook's code cells, in order, read with ``json``."""
+    nb = json.loads(path.read_text())
+    return ["".join(c["source"]) for c in nb["cells"]
+            if c["cell_type"] == "code"]
+
+
+def run_counted_notebook(path, n, want_of, before=None):
+    """Every code cell of the notebook at ``path`` through
+    :class:`NotebookSession` (the caller sets its ``NBD_NOTEBOOK_*``
+    knobs; its ``%dist_init`` must bring up ``n`` GPU ranks), each
+    cell's K1-K4 launches reset before it and read after it on every
+    rank and held to ``want_of(src) -> (path, counts)`` (zero on the
+    ranks a ``%%rank [0]`` cell skips).  ``before(nb, src)`` runs before
+    each cell.  Returns (cell, output) for every code cell and rank 0's
+    launches summed by path."""
+    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
+
+    nb, outs, launches = None, [], {}
+    try:
+        for src in notebook_cells(path):
+            first = src.splitlines()[0]
+            if first == "%load_ext nbdistributed_tpu_torch":
+                nb = NotebookSession()       # %load_ext's own steps
+                outs.append((src, ""))
+                continue
+            if before is not None:
+                before(nb, src)
+            live = DistributedMagics._comm is not None
+            if live and first != "%dist_shutdown":
+                nb.run(QS_RESET_CELL)
+            out = nb.run(_expand(src, nb.shell.user_ns))
+            outs.append((src, out))
+            if first.startswith("%dist_init"):
+                check(f"✅ {n} workers ready (backend=gpu" in out,
+                      f"{path.name} %dist_init: {out}")
+            if not live or first == "%dist_shutdown":
+                continue
+            nb.run(QS_READ_CELL)
+            got = nb.pull("_qs_counts")
+            name, want = want_of(src)
+            ranks = [0] if first.startswith("%%rank [0]") else range(n)
+            for r in range(n):
+                w = want if r in ranks else dict.fromkeys(want, 0)
+                check(got[r] == w, f"{path.name} cell {first!r}: rank {r} "
+                      f"launched {got[r]}, want {w}")
+            if name is not None:
+                acc = launches.setdefault(name, dict.fromkeys(want, 0))
+                for k in acc:
+                    acc[k] += got[0][k]
+        check(DistributedMagics._comm is None, "the world outlived "
+              "%dist_shutdown")
+    finally:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"{path.stem}_cells_n{n}.json").write_text(json.dumps(
+            nb.log if nb is not None else [], indent=1))
+        if DistributedMagics._comm is not None:
+            DistributedMagics.shutdown_all()
+    return outs, launches
+
+
 def phase_quickstart(outputs_ref, n=1):
     """Every code cell of the quickstart through :class:`NotebookSession`
     with ``%dist_init -n n --backend gpu``, the counts held per cell;
     before its ``%dist_shutdown`` the same world serves phase 17's
     requests and runs ``%dist_lint self``."""
-    import importlib.util
     import os
     import shutil
     import tempfile
-
-    from nbdistributed_tpu_torch.magics.magic import DistributedMagics
 
     env_before = {k: os.environ.get(k) for k in
                   ("NBD_NOTEBOOK_BACKEND", "NBD_NOTEBOOK_WORKERS")}
     os.environ.update(NBD_NOTEBOOK_BACKEND="gpu",
                       NBD_NOTEBOOK_WORKERS=str(n))
-    has_hf = importlib.util.find_spec("transformers") is not None
     ts = time.perf_counter()
-    nb, log, cells_run = None, [], []
-    launches: dict = {}
-    not_run = []
     extras = {}
+
+    def before(nb, src):
+        if src == "%dist_shutdown":
+            extras.update(quickstart_extras(nb, outputs_ref, n))
+
     try:
-        for src in quickstart_cells():
-            first = src.splitlines()[0]
-            if first == "%load_ext nbdistributed_tpu_torch":
-                nb = NotebookSession()       # %load_ext's own steps
-                log.append({"cell": src, "out": "(NotebookSession)"})
-                cells_run.append(first)
-                continue
-            if "from transformers import" in src and not has_hf:
-                not_run.append(first)
-                print("quickstart: the HF cell (`import dataclasses`, "
-                      "`from transformers import LlamaConfig, "
-                      "LlamaForCausalLM`) not run: transformers does "
-                      "not import on this machine", flush=True)
-                log.append({"cell": src, "out": "NOT RUN: transformers "
-                            "does not import on this machine"})
-                continue
-            if first == "%dist_shutdown":
-                extras = quickstart_extras(nb, outputs_ref, n)
-            live = DistributedMagics._comm is not None
-            if live and first != "%dist_shutdown":
-                nb.run(QS_RESET_CELL)
-            out = nb.run(_expand(src, nb.shell.user_ns))
-            cells_run.append(first)
-            log.append({"cell": src, "out": out})
-            if first.startswith("%dist_init"):
-                check(f"✅ {n} workers ready (backend=gpu" in out,
-                      f"quickstart %dist_init: {out}")
-            if not live or first == "%dist_shutdown":
-                continue
-            nb.run(QS_READ_CELL)
-            got = nb.pull("_qs_counts")
-            path, want = quickstart_want(src)
-            ranks = ([0] if first.startswith("%%rank [0]")
-                     else list(range(n)))
-            for r in range(n):
-                w = want if r in ranks else dict.fromkeys(want, 0)
-                check(got[r] == w, f"quickstart cell {first!r}: rank {r} "
-                      f"launched {got[r]}, want {w}")
-            if path is not None:
-                acc = launches.setdefault(path, dict.fromkeys(want, 0))
-                for k in acc:
-                    acc[k] += got[0][k]
-            for marker, needle in QS_OUTPUTS:
-                if marker in src:
-                    check(needle in out, f"quickstart cell {first!r}: "
-                          f"{needle!r} not in {out}")
-        check(DistributedMagics._comm is None, "the world outlived "
-              "%dist_shutdown")
+        outs, launches = run_counted_notebook(QUICKSTART, n,
+                                              quickstart_want, before)
     finally:
         for k, v in env_before.items():
             if v is None:
@@ -7653,13 +7710,12 @@ def phase_quickstart(outputs_ref, n=1):
         ckpt = os.path.join(tempfile.gettempdir(), "nbd_torch_demo_ckpt")
         for d in (ckpt, ckpt + "_bg"):
             shutil.rmtree(d, ignore_errors=True)
-        OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / f"quickstart_cells_n{n}.json").write_text(json.dumps(
-            (nb.log if nb is not None else []) or log, indent=1))
-        if DistributedMagics._comm is not None:
-            DistributedMagics.shutdown_all()
-    row = dict(cells=len(cells_run) + len(not_run), run=len(cells_run),
-               not_run=not_run, launches=launches, **extras,
+    for src, out in outs:
+        for marker, needle in QS_OUTPUTS:
+            if marker in src:
+                check(needle in out, f"quickstart cell "
+                      f"{src.splitlines()[0]!r}: {needle!r} not in {out}")
+    row = dict(cells=len(outs), launches=launches, **extras,
                seconds=time.perf_counter() - ts)
     say("quickstart", **row)
     return row
@@ -7704,7 +7760,7 @@ def quickstart_extras(nb, outputs_ref, n):
 
 def phase_selfcheck(lint, outputs_ref):
     """Phase 28: the self-lint collected, the self-test beside the
-    quickstart's cells."""
+    quickstart's cells (both beside phase 29's process on one card)."""
     ts = time.perf_counter()
     run = start_selftest()
     try:
@@ -7714,7 +7770,8 @@ def phase_selfcheck(lint, outputs_ref):
         run[0].wait(timeout=60)
         raise
     rows = dict(self_lint=self_lint_row(lint), selftest=selftest_row(run),
-                quickstart=quickstart, seconds=time.perf_counter() - ts)
+                quickstart=quickstart, seconds=time.perf_counter() - ts,
+                beside="phase 29")
     say("selfcheck_seconds", seconds=rows["seconds"])
     return rows
 
@@ -7726,6 +7783,346 @@ def phase_selftest_mesh():
     from nbdistributed_tpu_torch.ops import _build
     _build.build_all()
     return selftest_row(start_selftest(n=2))
+
+
+# ----------------------------------------------------------------------
+# Phase 29: the parallelism and fine-tune notebooks.  One card: every
+# cell of the fine-tune notebook at SmolLM2-135M's full width and depth
+# on one NCCL rank, in a process of its own beside phases 27 and 28 (its
+# world, then its references on the card); each cell's launches are reset
+# before it and read after it on every rank.  Four cards
+# (``--mesh-nccl``): the fine-tune on two ranks, held to an in-process
+# emulation of them, and the parallelism tour on four.  The tour is not
+# run on one card: there its ranks could only be gloo CPU ranks.
+
+FINETUNE = ROOT / "examples" / "02_torch_finetune.ipynb"
+PARALLELISM = ROOT / "examples" / "01_torch_parallelism.ipynb"
+FT_RUNS = ROOT / "build" / "finetune_runs"
+FT_STEPS = 4            # the training cell's DDP steps
+FT_NEW = 16             # the generation cell's new tokens
+FT_PROMPT = "The reference "
+FT_B = 2                # the notebook's per-rank batch
+FT_LR = 3e-4
+FT_LOSS_RTOL = 1e-4     # section 2 of PERF.md: fp32 training, kernels vs plain
+FT_MESH_LOSS_RTOL = 1e-5    # section 2 of PERF.md: training on a mesh
+FT_TIMEOUT_S = 600
+# Run on the ranks just before the training loop: the batches the loop
+# draws, recorded as they are drawn.
+FT_RECORD_CELL = """\
+%%distributed
+_ft_drawn = []
+_ft_iterator = batch_iterator
+def batch_iterator(*args, **kw):
+    for b in _ft_iterator(*args, **kw):
+        _ft_drawn.append(np.array(b["tokens"]))
+        yield b
+"""
+FT_STACK_CELL = """\
+%%distributed
+_ft_drawn = np.stack(_ft_drawn)
+_ft_losses = np.array(losses)
+"""
+PAR_ZIGZAG_K1 = MESH_WORLD * 4      # 4 ring hops, 4 half-pair launches a hop
+PAR_DECODE_K4 = 7 * 2               # 7 decode steps, tiny_config's 2 layers
+
+
+def parallelism_checks():
+    """The tour's self-checks, as the CPU tests hold them: the
+    ``failed_checks`` of ``examples/make_torch_parallelism_notebook.py``
+    (each sentence, and the exact checks' errors under their bounds)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_parallelism_notebook",
+        ROOT / "examples" / "make_torch_parallelism_notebook.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    return gen.failed_checks
+
+
+def finetune_want(src, L):
+    """The launches a fine-tune cell makes on a CUDA rank: K1, K2, K3
+    once a layer a step (no remat), K1 once a layer per forward of the
+    chunked-loss cell, K4 once a layer a decode step (the prefill is the
+    plain cached attention)."""
+    zero = dict(k1=0, k2=0, k3=0, k4=0)
+    if src.startswith("import time\nit = batch_iterator("):
+        return "finetune_train", dict(zero, k1=FT_STEPS * L,
+                                      k2=FT_STEPS * L, k3=FT_STEPS * L)
+    if "cfg_lean = dataclasses.replace(cfg, ce_chunk=" in src:
+        return "finetune_ce", dict(zero, k1=2 * L)
+    if f"generate(params, prompt, cfg, max_new_tokens={FT_NEW})" in src:
+        return "finetune_generate", dict(zero, k4=(FT_NEW - 1) * L)
+    return None, zero
+
+
+def finetune_rows():
+    """The notebook's rows: README, PARITY and SURVEY of this checkout,
+    byte-tokenized into rows of 128."""
+    import numpy as np
+    corpus = ""
+    for f in ("README.md", "PARITY.md", "SURVEY.md"):
+        p = ROOT / f
+        if p.exists():
+            corpus += p.read_text(encoding="utf-8") + "\n\n"
+    ids = np.frombuffer(corpus.encode("utf-8"), dtype=np.uint8)
+    n_rows = len(ids) // 128
+    return np.asarray(ids[:n_rows * 128], dtype=np.int32).reshape(n_rows,
+                                                                  128)
+
+
+def finetune_reference(ckpt_dir, n, use_flash):
+    """The notebook's four DDP steps in this process on card 0, from its
+    checkpoint: each of ``n`` emulated ranks' ``batch_iterator`` draws
+    and gradients, averaged as ``all_reduce(g, "mean")`` averages them.
+    Returns (rank 0's losses, each rank's draws (steps, B, 128))."""
+    import numpy as np
+    import torch
+    from nbdistributed_tpu_torch.models import (AdamW, load_hf_pretrained,
+                                                loss_fn, param_leaves)
+    from nbdistributed_tpu_torch.utils.data import batch_iterator
+
+    params, cfg = load_hf_pretrained(ckpt_dir, dtype=torch.float32,
+                                     device="cuda")
+    cfg = dataclasses.replace(cfg, use_flash=use_flash)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = AdamW(leaves, lr=FT_LR)
+    data = finetune_rows()
+    its = [batch_iterator({"tokens": data}, batch_size=FT_B, rank=r,
+                          world_size=n, seed=0, epochs=None)
+           for r in range(n)]
+    losses, drawn = [], [[] for _ in range(n)]
+    for _ in range(FT_STEPS):
+        grads = []
+        for r, it in enumerate(its):
+            tokens = next(it)["tokens"]
+            drawn[r].append(tokens)
+            for p in leaves:
+                p.grad = None
+            loss = loss_fn(params, {"tokens": torch.as_tensor(
+                tokens, device="cuda")}, cfg)
+            loss.backward()
+            grads.append([p.grad for p in leaves])
+            if r == 0:
+                losses.append(float(loss.detach()))
+        if n > 1:
+            for p, *gs in zip(leaves, *grads):
+                p.grad = sum(gs) / n
+        opt.step()
+    del params, leaves, opt, grads
+    torch.cuda.empty_cache()
+    return losses, [np.stack(d) for d in drawn]
+
+
+def phase_finetune(n=1):
+    """Phase 29's fine-tune: every cell of ``02_torch_finetune.ipynb``
+    with ``%dist_init -n n --backend gpu`` at SmolLM2-135M's 30 layers,
+    the launches held per cell, then rank 0's losses held to the steps
+    in this process on card 0 (one rank: the plain path, within
+    FT_LOSS_RTOL; two: an emulation of both ranks through the kernels,
+    within FT_MESH_LOSS_RTOL), every rank's batches to the emulated
+    draws bitwise, and the continuation to plain ``generate`` from the
+    pulled tuned params by the near-tie rule."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from nbdistributed_tpu_torch.models import config_from_hf, generate
+
+    ts = time.perf_counter()
+    run = FT_RUNS / f"n{n}"
+    shutil.rmtree(run, ignore_errors=True)
+    env = dict(NBD_NOTEBOOK_BACKEND="gpu", NBD_NOTEBOOK_WORKERS=str(n),
+               NBD_NOTEBOOK_CKPT_DIR=str(run / "ckpt"),
+               NBD_NOTEBOOK_CK_OUT=str(run / "ck_out"))
+    saved = {k: os.environ.get(k) for k in (*env, "NBD_NOTEBOOK_LAYERS")}
+    os.environ.update(env)
+    os.environ.pop("NBD_NOTEBOOK_LAYERS", None)
+    pulled = {}
+
+    def before(nb, src):
+        if src.startswith("import time\nit = batch_iterator("):
+            nb.run(FT_RECORD_CELL)
+        if src == "%dist_shutdown":
+            nb.run(FT_STACK_CELL)
+            pulled.update(losses=nb.pull("_ft_losses"),
+                          drawn=nb.pull("_ft_drawn"))
+            for name in ("toks", "params"):
+                nb.run(f"%dist_pull {name} --rank 0 --as _ft_{name}")
+                pulled[name] = nb.shell.user_ns.pop(f"_ft_{name}")
+
+    try:
+        L = N_LAYERS_SMOL
+        outs, launches = run_counted_notebook(
+            FINETUNE, n, lambda src: finetune_want(src, L), before)
+        notebook_s = time.perf_counter() - ts
+        text = "\n".join(out for _, out in outs)
+        from transformers import AutoConfig
+        cfg = config_from_hf(AutoConfig.from_pretrained(run / "ckpt"))
+        # The checkpoint as both transformers versions write and read
+        # it: SmolLM2-135M's shape and its rope_theta.
+        check((cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.rope_theta)
+              == (N_LAYERS_SMOL, 576, 49152, 1e5),
+              f"fine-tune checkpoint: {cfg}")
+        check("-param SmolLM2-135M-architecture checkpoint" in text,
+              "fine-tune: no checkpoint built")
+        for r in range(n):
+            check(f"rank {r}: loaded 162.8M params, d_model=576, layers="
+                  f"{N_LAYERS_SMOL}" in text, f"fine-tune: rank {r}'s "
+                  "load line")
+        check(text.count("(match: True)") == n, "fine-tune: the chunked "
+              "loss differs from the full one")
+        check(f"✅ {n} ranks saved" in text and "NOT improved" not in text,
+              "fine-tune: no checkpoint saved, or the loss did not fall")
+        want, drawn = finetune_reference(str(run / "ckpt"), n,
+                                         use_flash=n > 1)
+        got = [float(x) for x in np.asarray(pulled["losses"][0])]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        rtol = FT_MESH_LOSS_RTOL if n > 1 else FT_LOSS_RTOL
+        check(len(got) == FT_STEPS and rel <= rtol, f"fine-tune: rank 0's "
+              f"losses {got} against {want}: {rel} > {rtol}")
+        for r in range(n):
+            check(np.array_equal(np.asarray(pulled["drawn"][r]), drawn[r]),
+                  f"fine-tune: rank {r}'s batches differ from the draws")
+        # The continuation against plain generate from the tuned params.
+
+        def on_card(t):
+            if isinstance(t, dict):
+                return {k: on_card(v) for k, v in t.items()}
+            return torch.as_tensor(t).to("cuda")
+        tuned = on_card(pulled.pop("params"))
+        plain = dataclasses.replace(cfg, dtype=torch.float32,
+                                    use_flash=False)
+        prompt = list(FT_PROMPT.encode())
+        ref = generate(tuned, [prompt], plain, FT_NEW)[0, len(prompt):]
+        cont = torch.as_tensor(pulled["toks"])[0, len(prompt):]
+        gaps = near_tie_check("finetune_continuation", tuned, plain,
+                              [prompt], [cont.tolist()], [ref.tolist()])
+        del tuned
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(run, ignore_errors=True)
+    row = dict(ranks=n, cells=len(outs), launches=launches, losses=got,
+               losses_ref=want, loss_max_rel_err=rel, loss_rtol=rtol,
+               reference="emulated ranks, kernels" if n > 1 else "plain",
+               batches_equal=True, continuation=cont.tolist(),
+               continuation_gaps=gaps, notebook_s=notebook_s,
+               seconds=time.perf_counter() - ts)
+    say(f"finetune_n{n}", **row)
+    return row
+
+
+def finetune_child():
+    """Phase 29's one-card run in a process of its own
+    (:func:`start_finetune`): its row into ``chiprun_out``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    row = phase_finetune(1)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "finetune_n1.json").write_text(json.dumps(row, indent=1))
+
+
+def start_finetune():
+    """:func:`finetune_child` started in the background from the
+    checkout's root, its output in ``chiprun_out/finetune_n1.txt``:
+    (process, start time)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "finetune_n1.json").unlink(missing_ok=True)
+    with open(OUT_DIR / "finetune_n1.txt", "w") as log:
+        proc = _stopped_at_exit(subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke as c; c.finetune_child()"],
+            cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT))
+    return proc, time.perf_counter()
+
+
+def finetune_row(run):
+    """Collect :func:`start_finetune`: exit 0 and its row."""
+    proc, t0 = run
+    try:
+        proc.wait(timeout=FT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+    log = (OUT_DIR / "finetune_n1.txt").read_text()
+    out = OUT_DIR / "finetune_n1.json"
+    check(proc.returncode == 0 and out.exists(),
+          f"phase 29 (fine-tune) failed, rc {proc.returncode}:\n"
+          f"{log[-4000:]}")
+    row = json.loads(out.read_text())
+    row["seconds_since_start"] = time.perf_counter() - t0
+    say("finetune", seconds_since_start=row["seconds_since_start"],
+        launches=row["launches"])
+    return row
+
+
+def phase_finetune_main():
+    """Phase 29 alone on one card: the kernels built, then the fine-tune
+    in its own process."""
+    from nbdistributed_tpu_torch.ops import _build
+    _build.build_all()
+    return finetune_row(start_finetune())
+
+
+def parallelism_want(src):
+    """The launches a tour cell makes on a CUDA rank: K1 in the zigzag
+    cell (its ring's hops), K4 in the sp-sharded decode cell (a layer a
+    decode step, the prefill plain); every other cell keeps the JAX
+    cell's plain attention."""
+    zero = dict(k1=0, k2=0, k3=0, k4=0)
+    if 'schedule="zigzag"' in src:
+        return "parallelism_zigzag", dict(zero, k1=PAR_ZIGZAG_K1)
+    if "cfg_f = dataclasses.replace(cfg, use_flash=True)" in src:
+        return "parallelism_sp_decode", dict(zero, k4=PAR_DECODE_K4)
+    return None, zero
+
+
+def phase_parallelism(n=MESH_WORLD):
+    """Every cell of ``01_torch_parallelism.ipynb`` on ``n`` NCCL ranks,
+    the launches held per cell on every rank, each cell's self-check
+    sentence held."""
+    import os
+    ts = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in ("NBD_NOTEBOOK_BACKEND",
+                                            "NBD_NOTEBOOK_WORKERS")}
+    os.environ.update(NBD_NOTEBOOK_BACKEND="gpu",
+                      NBD_NOTEBOOK_WORKERS=str(n))
+    try:
+        outs, launches = run_counted_notebook(PARALLELISM, n,
+                                              parallelism_want)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    text = "\n".join(out for _, out in outs)
+    failed = parallelism_checks()(text)
+    check(not failed, f"parallelism tour: {failed}")
+    errors = [ln.strip() for ln in text.splitlines()
+              if "max |err|" in ln and "print(" not in ln]
+    row = dict(ranks=n, cells=len(outs), launches=launches, errors=errors,
+               seconds=time.perf_counter() - ts)
+    say(f"parallelism_n{n}", **row)
+    return row
+
+
+def phase_notebooks_mesh():
+    """``--mesh-nccl``'s part of phase 29: the fine-tune on cards 0 and
+    1 (a real NCCL all-reduce), then the parallelism tour on four."""
+    import torch
+    from nbdistributed_tpu_torch.ops import _build
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dict(finetune_n2=phase_finetune(2),
+                parallelism=phase_parallelism(MESH_WORLD))
 
 
 def phase_hf(params):
@@ -8063,9 +8460,11 @@ def gpu_name_and_power():
 def main_mesh_nccl() -> int:
     """``--mesh-nccl``: phases 18, 19, 20 and 21's ranks, phase 22's
     guarded replicas, phases 23 and 24's notebook, phase 25's hung
-    collective, phase 26's resized pool and phase 27's two-host world,
-    alone on four cards, one NCCL rank each, against the references
-    they compute first on card 0."""
+    collective, phase 26's resized pool, phase 27's two-host world,
+    phase 28's two-rank self-test and phase 29's notebooks (the
+    fine-tune on two ranks, the parallelism tour on four), alone on
+    four cards, one NCCL rank each, against the references they
+    compute first on card 0."""
     import torch
     from nbdistributed_tpu_torch.models import init_moe_model, init_params
     from nbdistributed_tpu_torch.ops import _build
@@ -8098,6 +8497,7 @@ def main_mesh_nccl() -> int:
     pool_mesh = phase_pool_mesh(solo32=solo)
     multihost_mesh = phase_multihost_mesh()
     selftest_mesh = phase_selftest_mesh()
+    notebooks_mesh = phase_notebooks_mesh()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_mesh_nccl.json").write_text(json.dumps(
         {"cards": cards, "mesh": mesh, "train_mesh": train_mesh,
@@ -8105,7 +8505,8 @@ def main_mesh_nccl() -> int:
          "notebook": notebook, "notebook_async": notebook_async,
          "supervision_mesh": supervision_mesh, "pool_mesh": pool_mesh,
          "multihost_mesh": multihost_mesh,
-         "selftest_mesh": selftest_mesh}, indent=1))
+         "selftest_mesh": selftest_mesh,
+         "notebooks_mesh": notebooks_mesh}, indent=1))
     print(cards[0], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8181,9 +8582,14 @@ def main() -> int:
                         train["losses"][0])
     pool = timed("pool", phase_pool, dense["outputs"], train["losses"],
                  solo32)
+    # Phase 29's fine-tune runs in its own process beside phases 27
+    # and 28 (their host-clock rows are taken under its load), and ends
+    # before phase 16 times the kernels.
+    finetune_run = start_finetune()
     multihost = timed("multihost", phase_multihost, dense["outputs"],
-                      train["losses"], cluster["spawn_to_ready_s"])
+                      train["losses"])
     selfcheck = timed("selfcheck", phase_selfcheck, lint, dense["outputs"])
+    finetune = timed("finetune", finetune_row, finetune_run)
     timing = timed("timing", phase_timing)
     say("phase_seconds", total=time.perf_counter() - t0, **phase_s)
 
@@ -8279,6 +8685,12 @@ def main() -> int:
         # Phase 28: the quickstart's training, eval and restore cells.
         paths["quickstart_train"] = \
             selfcheck["quickstart"]["launches"]["quickstart_train"][k]
+        # Phase 29: the fine-tune notebook's four DDP steps.
+        paths["finetune_train"] = finetune["launches"]["finetune_train"][k]
+    # Phase 29: its chunked-loss cell's two forwards, its generation.
+    k1_paths["finetune_ce"] = finetune["launches"]["finetune_ce"]["k1"]
+    k4_paths["finetune_generate"] = \
+        finetune["launches"]["finetune_generate"]["k4"]
     # Phase 25's stalled loop launched K1 until the interrupt.
     k1_paths["supervision_stall_loop"] = \
         supervision["stall"]["loop_k1_launches"]
@@ -8343,7 +8755,7 @@ def main() -> int:
          "train_pp": train_pp, "guard": guard, "notebook": notebook,
          "notebook_async": notebook_async, "supervision": supervision,
          "pool": pool, "multihost": multihost, "selfcheck": selfcheck,
-         "phase_seconds": phase_s},
+         "finetune": finetune, "phase_seconds": phase_s},
         indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,8 +41,12 @@ from .transformer import TransformerConfig
 def config_from_hf(hf_config) -> TransformerConfig:
     """Map a ``transformers`` Llama-family config onto
     :class:`TransformerConfig`.  Rejects rope-scaling variants this
-    forward does not implement rather than silently mis-rotating."""
-    scaling = getattr(hf_config, "rope_scaling", None)
+    forward does not implement rather than silently mis-rotating.
+    ``transformers`` 5 keeps the rotary base and type in
+    ``rope_parameters`` (and no ``rope_theta`` attribute); 4.x in
+    ``rope_theta`` and ``rope_scaling``.  Both are read."""
+    rope = getattr(hf_config, "rope_parameters", None) or {}
+    scaling = getattr(hf_config, "rope_scaling", None) or rope
     if scaling:
         rope_type = (scaling.get("rope_type")
                      or scaling.get("type") or "?")
@@ -77,7 +81,8 @@ def config_from_hf(hf_config) -> TransformerConfig:
                            hf_config.num_attention_heads),
         d_ff=hf_config.intermediate_size,
         max_seq_len=getattr(hf_config, "max_position_embeddings", 2048),
-        rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+        rope_theta=float(getattr(hf_config, "rope_theta", None)
+                         or rope.get("rope_theta", 10000.0)),
         norm_eps=float(getattr(hf_config, "rms_norm_eps", 1e-5)),
     )
 

@@ -381,11 +381,22 @@ _ALL = (
        "nbd-selftest: also run the serving smoke section (2-rank "
        "pool, 3 requests, one injected rank kill).", "harness"),
     _k("NBD_NOTEBOOK_BACKEND", "auto", "str",
-       "examples/00_torch_quickstart.ipynb: the backend of its "
+       "examples/0*_torch_*.ipynb: the backend of the notebooks' "
        "%dist_init (gpu, cpu or auto).", "harness"),
     _k("NBD_NOTEBOOK_WORKERS", "2", "int",
-       "examples/00_torch_quickstart.ipynb: the ranks of its "
-       "%dist_init.", "harness"),
+       "examples/0*_torch_*.ipynb: the ranks of the notebooks' "
+       "%dist_init (01_torch_parallelism's default is 4).", "harness"),
+    _k("NBD_NOTEBOOK_LAYERS", "30", "int",
+       "examples/02_torch_finetune.ipynb: the depth of its "
+       "SmolLM2-135M checkpoint (the widths stay).", "harness"),
+    _k("NBD_NOTEBOOK_CKPT_DIR", None, "str",
+       "examples/02_torch_finetune.ipynb: where its checkpoint is "
+       "saved and loaded (default: nbd_torch_smol135m_local under the "
+       "temporary directory).", "harness"),
+    _k("NBD_NOTEBOOK_CK_OUT", None, "str",
+       "examples/02_torch_finetune.ipynb: where %dist_checkpoint saves "
+       "the tuned params (default: nbd_torch_finetune_ck under the "
+       "temporary directory).", "harness"),
     _k("NBD_BENCH_ONLY", None, "str",
        "bench.py: comma-separated benchmark families to run.",
        "harness"),

@@ -164,6 +164,37 @@ def test_config_mapping_equals_jax():
             cfg.sliding_window) == (64, 2, 4, 2, 64)
 
 
+@pytest.mark.parametrize("rope_type,ok", [("default", True),
+                                          ("linear", False)])
+def test_config_reads_the_transformers5_rope_layout(rope_type, ok):
+    """``transformers`` 5 configs carry the rotary base in
+    ``rope_parameters`` and no ``rope_theta`` attribute (its
+    ``rope_scaling`` mirrors the dict): the base is read from there,
+    not defaulted, and a scaled type is refused as in 4.x."""
+    c = tiny_hf_llama().config
+    rope = {"rope_theta": 100000.0, "rope_type": rope_type}
+    config = types.SimpleNamespace(
+        vocab_size=c.vocab_size, hidden_size=c.hidden_size,
+        num_hidden_layers=c.num_hidden_layers,
+        num_attention_heads=c.num_attention_heads,
+        num_key_value_heads=c.num_key_value_heads,
+        intermediate_size=c.intermediate_size,
+        max_position_embeddings=c.max_position_embeddings,
+        rms_norm_eps=c.rms_norm_eps, rope_parameters=rope,
+        rope_scaling=dict(rope))
+    if not ok:
+        with pytest.raises(ValueError, match="rope_scaling"):
+            hf.config_from_hf(config)
+        return
+    assert hf.config_from_hf(config).rope_theta == 100000.0
+    del config.rope_scaling
+    assert hf.config_from_hf(config).rope_theta == 100000.0
+    # The 4.x layout still maps as the JAX package maps it.
+    c.rope_theta = 100000.0
+    assert hf.config_from_hf(c).rope_theta == \
+        jhf.config_from_hf(c).rope_theta == 100000.0
+
+
 def test_moe_default_capacity_is_lossless():
     model = tiny_hf_mixtral()
     cfg = hf.moe_config_from_hf(model.config)

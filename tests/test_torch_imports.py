@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: no module of the port, no
-``tools/nbd_torch_*.py``, and neither ``chip_smoke.py`` nor
-``chip_kernel_ab.py``, imports JAX (or its ecosystem) or anything of
+``tools/nbd_torch_*.py``, neither ``chip_smoke.py`` nor
+``chip_kernel_ab.py``, no ``examples/make_torch_*.py`` and no code cell
+of the port's notebooks imports JAX (or its ecosystem) or anything of
 the JAX package.
 
 The scan reads the source (AST): in a process that already has JAX
@@ -9,6 +10,7 @@ loaded, ``sys.modules`` cannot tell who imported it.
 
 import ast
 import importlib
+import json
 import pathlib
 
 import pytest
@@ -18,12 +20,15 @@ PORT = ROOT / "nbdistributed_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "nbdistributed_tpu"}
 SOURCES = (sorted(PORT.rglob("*.py"))
            + sorted((ROOT / "tools").glob("nbd_torch_*.py"))
-           + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"])
+           + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"]
+           + sorted((ROOT / "examples").glob("make_torch_*.py")))
+NOTEBOOKS = sorted((ROOT / "examples").glob("0*_torch_*.ipynb"))
 
 
-def _imported_roots(path: pathlib.Path) -> set[str]:
+def _imported_roots(path: pathlib.Path, text: str | None = None) -> set[str]:
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    text = path.read_text() if text is None else text
+    for node in ast.walk(ast.parse(text, str(path))):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -46,6 +51,24 @@ def test_port_sources_exist():
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_imports(path):
     assert not (_imported_roots(path) & BANNED), path
+
+
+def test_notebooks_exist():
+    assert [p.name for p in NOTEBOOKS] == [
+        "00_torch_quickstart.ipynb", "01_torch_parallelism.ipynb",
+        "02_torch_finetune.ipynb"]
+
+
+@pytest.mark.parametrize("path", NOTEBOOKS, ids=[p.name for p in NOTEBOOKS])
+def test_no_jax_imports_in_notebook_cells(path):
+    """Each code cell, its magic lines dropped (a ``%%rank`` header, a
+    line magic), scanned as Python."""
+    cells = ["".join(c["source"]) for c in json.loads(path.read_text())[
+        "cells"] if c["cell_type"] == "code"]
+    for i, src in enumerate(cells):
+        code = "\n".join(line for line in src.splitlines()
+                         if not line.lstrip().startswith("%"))
+        assert not (_imported_roots(path, code) & BANNED), (path, i)
 
 
 def test_scanner_catches_banned_forms(tmp_path):
