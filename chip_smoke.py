@@ -1061,8 +1061,11 @@ def phase_main_path(seed=0):
 
 def profile_steps(step, n_steps):
     """``torch.profiler`` over ``n_steps`` calls of ``step``: device
-    kernel time per step against the host's wall time, the idle share,
-    kernels per step and the kernels that take the most time."""
+    kernel time per step against the host's wall time, kernels per step
+    and the kernels that take the most time.  Kernel times are summed,
+    so work that overlaps counts twice: the device's idle share is the
+    benchmark's (``benchmark/metrics/idle_share.py``, from the union of
+    device intervals), not read here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1090,7 +1093,6 @@ def profile_steps(step, n_steps):
     busy = sum(k[0] for k in kernels)
     return dict(wall_ms_per_step=wall_ms,
                 device_ms_per_step=busy if kernels else "not measured",
-                idle_share=1 - busy / wall_ms if kernels else "not measured",
                 kernels_per_step=sum(k[1] for k in kernels),
                 top=[dict(name=k[2][:80], ms_per_step=k[0],
                           calls_per_step=k[1]) for k in kernels[:8]])
@@ -1709,12 +1711,6 @@ def phase_train(seed=0):
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
 
     row = profile_steps(lambda: step(params, batch), 1)
-    # The profiler slows the host, so its idle share overstates an
-    # unprofiled step's.  Estimate the latter from the profiled device
-    # time over the unprofiled median step: an estimate, not a reading.
-    if isinstance(row["device_ms_per_step"], float):
-        row["idle_share_estimate_unprofiled"] = \
-            1 - row["device_ms_per_step"] / ms
     say("profile_train_step", **row)
     return ({"k1": counts["k1"], "k2": counts["k2"], "k3": counts["k3"],
              "steps": TRAIN_STEPS, "ms_per_step": ms,
@@ -2031,9 +2027,6 @@ def phase_train_moe(params, cfg):
           f"non-finite MoE train loss: {losses}")
     check(losses[-1] < losses[0], f"MoE train loss did not fall: {losses}")
     profile = profile_steps(step, 1)
-    if isinstance(profile["device_ms_per_step"], float):
-        profile["idle_share_estimate_unprofiled"] = \
-            1 - profile["device_ms_per_step"] / ms
     say("profile_train_moe_step", **profile)
 
     opt.state.clear()

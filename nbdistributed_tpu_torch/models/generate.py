@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from ..observability.spans import maybe_span
 from ..ops import flash_decode_attention
 from ..ops._common import NEG_INF, resolve_device
 from ..parallel.mesh import P, local_slice, shard_batch, spec_split
@@ -187,22 +188,25 @@ def _cached_attention(q, kc, vc, positions, scale, window=None,
     B, S, H, Dh = q.shape
     Hkv, T = kc.shape[1], kc.shape[2]
     group = H // Hkv
-    qg = (q.float() * scale).reshape(B, S, Hkv, group, Dh)
-    s = torch.einsum("bskgd,bktd->bkgst", qg, kc.float())
-    t_idx = torch.arange(T, device=q.device)
-    mask = t_idx[None, None, :] <= positions[:, :, None]        # (B, S, T)
-    if window is not None:
-        mask = mask & (t_idx[None, None, :] > positions[:, :, None] - window)
-    s = s.masked_fill(~mask[:, None, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bskgd", p, vc.float())
-    if not return_lse:
-        return o.reshape(B, S, H * Dh).to(q.dtype)
-    seen = mask.any(dim=-1)                                     # (B, S)
-    lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(B, S, H)
-    lse = torch.where(seen[..., None], lse, NEG_INF)
-    o = torch.where(seen[..., None, None, None], o, 0.0)
-    return o.reshape(B, S, H, Dh), lse
+    with maybe_span("attn/cached"):
+        qg = (q.float() * scale).reshape(B, S, Hkv, group, Dh)
+        s = torch.einsum("bskgd,bktd->bkgst", qg, kc.float())
+        t_idx = torch.arange(T, device=q.device)
+        mask = t_idx[None, None, :] <= positions[:, :, None]    # (B, S, T)
+        if window is not None:
+            mask = mask & (t_idx[None, None, :]
+                           > positions[:, :, None] - window)
+        s = s.masked_fill(~mask[:, None, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgst,bktd->bskgd", p, vc.float())
+        if not return_lse:
+            return o.reshape(B, S, H * Dh).to(q.dtype)
+        seen = mask.any(dim=-1)                                 # (B, S)
+        lse = torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2).reshape(
+            B, S, H)
+        lse = torch.where(seen[..., None], lse, NEG_INF)
+        o = torch.where(seen[..., None, None, None], o, 0.0)
+        return o.reshape(B, S, H, Dh), lse
 
 
 def _sp_combine(o, lse, mesh, dtype):

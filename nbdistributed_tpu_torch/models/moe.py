@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from ..observability.spans import maybe_span
 from ..ops._common import resolve_device
 from ..ops.xent import shifted_chunked_xent
 from ..parallel.expert import init_moe_params, moe_ffn, moe_param_shardings
@@ -135,13 +136,14 @@ def _moe_mlp_block(x, layer, cfg: MoEConfig, mesh=None, ep_axis: str = "ep",
     ``x``'s tokens are this rank's block over ``token_axes`` (and its
     sequence chunk over ``seq_axis``), routed by the dropless ``ep``
     path as ``token_blocks`` blocks."""
-    h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    y, aux = moe_ffn(h, layer["moe"], top_k=cfg.top_k,
-                     capacity_factor=cfg.capacity_factor, mesh=mesh,
-                     ep_axis=ep_axis, dispatch_mode=cfg.moe_dispatch,
-                     token_mask=token_mask, token_axes=token_axes,
-                     token_blocks=token_blocks, seq_axis=seq_axis)
-    return x + y, aux
+    with maybe_span("moe/block"):
+        h = _rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        y, aux = moe_ffn(h, layer["moe"], top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, mesh=mesh,
+                         ep_axis=ep_axis, dispatch_mode=cfg.moe_dispatch,
+                         token_mask=token_mask, token_axes=token_axes,
+                         token_blocks=token_blocks, seq_axis=seq_axis)
+        return x + y, aux
 
 
 def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from ..observability.spans import maybe_span
 from ..serving_fast.paging import BlocksExhausted
 from .generate import (_check_sampling, _decode_mesh, _sample, _token_blocks,
                        forward_with_cache, init_kv_cache, kv_cache_shardings,
@@ -517,7 +518,8 @@ class DecodeServer:
                 self._prefilling[slot] = [rid, prompt, budget, 0]
                 self._set_frontier(slot, 0)
                 continue
-            self._admit_now(slot, rid, prompt, budget)
+            with maybe_span("serve/prefill"):
+                self._admit_now(slot, rid, prompt, budget)
 
     def _admit_now(self, slot: int, rid: int, prompt: list[int],
                    budget: int) -> None:
@@ -563,7 +565,8 @@ class DecodeServer:
         if (self._mesh is not None and self._paged is None
                 and "dp" not in self._drop):
             t = self._mesh.broadcast(t, "dp", owner)
-        tok = int(t[0])
+        with maybe_span("sync/first_token"):
+            tok = int(t[0])
         self.outputs[rid].append(tok)
         self._lens[slot] = len(prompt)
         self._last[slot] = tok
@@ -599,20 +602,21 @@ class DecodeServer:
         ck = self._prefill_chunk
         last = len(prompt) - written <= ck
         seg = prompt[written:] if last else prompt[written:written + ck]
-        seg_t = self._segment(seg, min(ck, self._T - written) if last
-                              else ck)
-        self._cache, logits = self._prefill_fn(
-            self._params, self._cache, seg_t, slot, written, len(seg))
-        if self._draft_cfg is not None:
-            self._prefill_d(self._draft_params, self._cache_d, seg_t, slot,
-                            written, len(seg))
-        self.prefill_tokens_total += len(seg)
-        if not last:
-            st[3] = written + ck
-            self._set_frontier(slot, st[3])
-            return
-        del self._prefilling[slot]
-        self._activate(slot, rid, prompt, budget, logits)
+        with maybe_span("serve/prefill"):
+            seg_t = self._segment(seg, min(ck, self._T - written) if last
+                                  else ck)
+            self._cache, logits = self._prefill_fn(
+                self._params, self._cache, seg_t, slot, written, len(seg))
+            if self._draft_cfg is not None:
+                self._prefill_d(self._draft_params, self._cache_d, seg_t,
+                                slot, written, len(seg))
+            self.prefill_tokens_total += len(seg)
+            if not last:
+                st[3] = written + ck
+                self._set_frontier(slot, st[3])
+                return
+            del self._prefilling[slot]
+            self._activate(slot, rid, prompt, budget, logits)
 
     def _set_frontier(self, slot: int, written: int) -> None:
         """Point a mid-prefill slot's cache pointers (the draft's too) at
@@ -647,17 +651,21 @@ class DecodeServer:
         {request_id: tokens emitted this step} — one token per step, or
         1..gamma+1 in speculative mode.  Admits pending requests first,
         then advances at most one mid-prefill chunk (interleave mode)."""
-        self._admit_pending()
-        self._advance_prefill()
-        if not self._slot_req:
-            return {}
-        if self._draft_cfg is not None:
-            return self._spec_step()
-        toks = self._decode_step().tolist()
-        emitted = {rid: self._emit(slot, rid, [toks[slot]])
-                   for slot, rid in list(self._slot_req.items())}
-        self._admit_pending()
-        return emitted
+        with maybe_span("serve/step"):
+            self._admit_pending()
+            self._advance_prefill()
+            if not self._slot_req:
+                return {}
+            if self._draft_cfg is not None:
+                return self._spec_step()
+            with maybe_span("serve/decode"):
+                nxt = self._decode_step()
+                with maybe_span("sync/tokens"):
+                    toks = nxt.tolist()
+            emitted = {rid: self._emit(slot, rid, [toks[slot]])
+                       for slot, rid in list(self._slot_req.items())}
+            self._admit_pending()
+            return emitted
 
     def _spec_round(self, active):
         """One speculative round of every slot (``active`` rows
@@ -687,8 +695,11 @@ class DecodeServer:
         and the correction/bonus token.  Budget and EOS cut a stream by
         truncating its emission; the slot's stale device state dies with
         the slot (re-admission prefills from 0)."""
-        cand, n_acc = self._spec_round(self._active)
-        rows = torch.cat([cand, n_acc[:, None]], dim=1).tolist()  # one sync
+        with maybe_span("serve/decode"):
+            cand, n_acc = self._spec_round(self._active)
+            rows = torch.cat([cand, n_acc[:, None]], dim=1)
+            with maybe_span("sync/tokens"):
+                rows = rows.tolist()                           # one sync
         emitted = {rid: self._emit(slot, rid,
                                    rows[slot][:rows[slot][-1] + 1])
                    for slot, rid in list(self._slot_req.items())}
@@ -728,8 +739,10 @@ class DecodeServer:
         self._admit_pending()
         if not self._slot_req:
             return {}
-        toks = torch.stack([self._decode_step() for _ in range(n)])
-        toks = toks.tolist()                     # (n, B), one sync
+        with maybe_span("serve/decode"):
+            toks = torch.stack([self._decode_step() for _ in range(n)])
+            with maybe_span("sync/tokens"):
+                toks = toks.tolist()             # (n, B), one sync
         emitted = {rid: self._emit(slot, rid, [row[slot] for row in toks])
                    for slot, rid in list(self._slot_req.items())}
         self._admit_pending()
@@ -753,12 +766,16 @@ class DecodeServer:
         if not self._slot_req:
             return {}
         rounds = []
-        for _ in range(n):
-            act = self._active & (self._lens + self._gamma + 1 <= self._T)
-            cand, n_acc = self._spec_round(act)
-            rounds.append(torch.cat([cand, n_acc[:, None],
-                                     act[:, None].long()], dim=1))
-        rounds = torch.stack(rounds).tolist()    # (n, B, g+3), one sync
+        with maybe_span("serve/decode"):
+            for _ in range(n):
+                act = self._active & (self._lens + self._gamma + 1
+                                      <= self._T)
+                cand, n_acc = self._spec_round(act)
+                rounds.append(torch.cat([cand, n_acc[:, None],
+                                         act[:, None].long()], dim=1))
+            rounds = torch.stack(rounds)
+            with maybe_span("sync/tokens"):
+                rounds = rounds.tolist()         # (n, B, g+3), one sync
         emitted = {}
         for slot, rid in list(self._slot_req.items()):
             toks = []

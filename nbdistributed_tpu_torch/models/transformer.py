@@ -52,6 +52,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..observability.spans import maybe_span
 from ..ops import attention_reference, flash_attention
 from ..ops.xent import chunked_softmax_xent, shifted_chunked_xent
 from ..ops._common import resolve_device
@@ -1042,9 +1043,12 @@ def _optimizer_step(optimizer, loss_of):
     def step(*args):
         for p in leaves:
             p.grad = None
-        loss = loss_of(*args)
-        loss.backward()
-        optimizer.step()
+        with maybe_span("train/forward"):
+            loss = loss_of(*args)
+        with maybe_span("train/backward"):
+            loss.backward()
+        with maybe_span("train/optimizer"):
+            optimizer.step()
         return loss.detach()
 
     return step

@@ -21,10 +21,19 @@ correcting each rank by its estimated clock offset
 per-process thread ordinal so overlapping spans from different threads
 (e.g. the magic's send helper vs the cell wrapper) render on separate
 tracks instead of producing an invalid stack.
+
+While a ``torch.profiler`` records in the process (``%dist_profile``, a
+benchmark's profiled window), :func:`maybe_span` also opens a
+``torch.profiler.record_function`` range of the same name: the span
+lands in the profiler's Chrome trace as a ``user_annotation``, on the
+profiler's clock, beside the kernels launched inside it.  torch is
+looked up in ``sys.modules`` only, so this module stays stdlib-only
+where torch is never loaded (the coordinator).
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 import uuid
@@ -81,6 +90,31 @@ class _NullCtx:
 
 
 _NULL_CTX = _NullCtx()
+
+# torch's profiler module, whose ``_is_profiler_enabled`` is True while a
+# profiler records anywhere in the process.
+_PROFILER = "torch.autograd.profiler"
+
+
+class _ProfiledCtx:
+    """A profiler range (``record_function``) around a tracer span, or
+    around :data:`_NULL_CTX` when only the profiler is on."""
+
+    __slots__ = ("_range", "_inner")
+
+    def __init__(self, rng, inner):
+        self._range = rng
+        self._inner = inner
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self._inner.__exit__(*exc)
+        finally:
+            self._range.__exit__(*exc)
 
 
 class _SpanCtx:
@@ -305,9 +339,15 @@ def tracer() -> Tracer:
 
 def maybe_span(name: str, kind: str = "", attrs: dict | None = None):
     """Module-level ``with maybe_span("collective/all_reduce"):`` for
-    instrumentation sites — one flag check, zero allocation when
-    tracing is off."""
+    instrumentation sites: a tracer span while ``%dist_trace`` is on,
+    and a profiler range of the same name while a ``torch.profiler``
+    records.  With both off it is two flag reads and returns the shared
+    :data:`_NULL_CTX`, allocating nothing."""
     t = _TRACER
+    prof = sys.modules.get(_PROFILER)
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        inner = t.span(name, kind, attrs=attrs) if t.enabled else _NULL_CTX
+        return _ProfiledCtx(prof.record_function(name), inner)
     if not t.enabled:
         return _NULL_CTX
     return t.span(name, kind, attrs=attrs)

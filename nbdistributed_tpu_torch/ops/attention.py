@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from ..observability.spans import maybe_span
 from . import _build
 from ._common import DTYPE_CODE, NEG_INF, check_contiguous, kernel_route
 
@@ -367,10 +368,11 @@ def _flash_backward(q, k, v, out, lse, g, *, causal: bool, scale: float,
     args = dict(causal=causal, scale=scale, offsets=offsets,
                 window=window, segment_ids=segment_ids,
                 kv_segment_ids=kv_segment_ids)
-    if kernel_route(q, k, v, out, lse, g, segment_ids,
-                    kv_segment_ids) == "cpu":
-        return _flash_backward_plain(q, k, v, out, lse, g, **args)
-    return _flash_backward_cuda(q, k, v, out, lse, g, **args)
+    with maybe_span("attn/k2k3"):
+        if kernel_route(q, k, v, out, lse, g, segment_ids,
+                        kv_segment_ids) == "cpu":
+            return _flash_backward_plain(q, k, v, out, lse, g, **args)
+        return _flash_backward_cuda(q, k, v, out, lse, g, **args)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -408,8 +410,9 @@ def flash_attention(q, k, v, causal: bool = True,
         raise ValueError("segment_ids requires Sq == Sk (packed "
                          "self-attention)")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, causal, scale, window,
-                                 segment_ids)
+    with maybe_span("attn/k1"):
+        return _FlashAttention.apply(q, k, v, causal, scale, window,
+                                     segment_ids)
 
 
 flash_attention.launches = 0

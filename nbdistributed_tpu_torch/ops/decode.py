@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ..observability.spans import maybe_span
 from . import _build
 from ._common import DTYPE_CODE, NEG_INF, check_contiguous, kernel_route
 from .attention import _ptr, check_window
@@ -155,13 +156,14 @@ def flash_decode_attention(q, kc, vc, pos, *, scale: float | None = None,
         raise NotImplementedError("flash_decode_attention is inference-"
                                   "only")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    if kernel_route(q, kc, vc, pos, k_s, v_s) == "cpu":
-        out, lse = decode_reference(q, kc, vc, pos, scale=scale,
-                                    window=window, k_s=k_s, v_s=v_s)
-    else:
-        out, lse = _decode_cuda(q, kc, vc, pos, scale=scale,
-                                window=window, k_s=k_s, v_s=v_s,
-                                return_lse=return_lse)
+    with maybe_span("attn/k4"):
+        if kernel_route(q, kc, vc, pos, k_s, v_s) == "cpu":
+            out, lse = decode_reference(q, kc, vc, pos, scale=scale,
+                                        window=window, k_s=k_s, v_s=v_s)
+        else:
+            out, lse = _decode_cuda(q, kc, vc, pos, scale=scale,
+                                    window=window, k_s=k_s, v_s=v_s,
+                                    return_lse=return_lse)
     return (out, lse) if return_lse else out
 
 

@@ -50,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..observability.spans import maybe_span
 from ..utils import fan_in_normal
 from .mesh import P, local_slice, spec_split
 
@@ -182,7 +183,8 @@ def _dropless_ffn(xt, params, gates, expert_idx, E: int, token_mask=None):
     every real segment and are never computed."""
     T, D = xt.shape
     order, e_sorted, tok, counts = _route_sort(expert_idx, E, token_mask)
-    sizes = counts[:E].tolist()
+    with maybe_span("sync/moe_counts"):
+        sizes = counts[:E].tolist()
     _dropless_ffn.host_reads += 1
     n = sum(sizes)
     tok, order = tok[:n], order[:n]
@@ -262,7 +264,8 @@ def _dropless_ffn_ep(xt, params, logits, top_k: int, E: int, mesh,
         gates = mesh.copy_to(gates, ep_axis)
         mask = None if token_mask is None else token_mask[rows]
         order, _, tok, counts = _route_sort(expert_idx, E, mask)
-        cnt = counts[:E].tolist()
+        with maybe_span("sync/moe_counts"):
+            cnt = counts[:E].tolist()
         _dropless_ffn.host_reads += 1
         start = sum(cnt[:lo])
         sizes, off = [], 0

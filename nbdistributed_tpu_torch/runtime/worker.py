@@ -34,6 +34,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -1048,8 +1049,9 @@ class DistributedWorker:
                                    f"(started with {self._profile_dir}); "
                                    "stop it first"},
                     rank=self.rank)
-            log_dir = f"{msg.data.get('log_dir', '/tmp/nbd_profile')}" \
-                      f"/rank{self.rank}"
+            base = msg.data.get("log_dir", os.path.join(
+                tempfile.gettempdir(), "nbd_profile"))
+            log_dir = os.path.join(base, f"rank{self.rank}")
             try:
                 from torch.profiler import ProfilerActivity, profile
                 acts = [ProfilerActivity.CPU]

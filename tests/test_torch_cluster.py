@@ -15,6 +15,7 @@ aborts a cell and leaves the workers serving, and a death raises
 No test sleeps: every wait polls its condition under its own deadline.
 """
 
+import json
 import threading
 import time
 
@@ -442,6 +443,12 @@ def test_profile_trace_metrics_and_chaos(cluster, tmp_path):
         assert m.data["trace"] == str(tmp_path / f"rank{rank}" /
                                       "trace.json")
         assert (tmp_path / f"rank{rank}" / "trace.json").stat().st_size
+        with open(tmp_path / f"rank{rank}" / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        # The program's span around the executed cell rides the
+        # profiler's own trace.
+        assert any(e.get("name") == "cell"
+                   and e.get("cat") == "user_annotation" for e in events)
     stop = comm.send_to_rank(0, "profile", {"action": "stop"}).data
     assert stop["error"] == "no profiler trace is running"
 
