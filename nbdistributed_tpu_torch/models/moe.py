@@ -32,7 +32,7 @@ from ..utils import fan_in_normal
 from .transformer import (TransformerConfig, _as_tokens, _attention_block,
                           _chunked_tail, _embed, _head, _layout,
                           _model_inputs, _rms_norm, _sp_inputs, _sp_mesh,
-                          _sp_nll_sum, _sp_xent, dp_loss_scale, layer_params,
+                          _sp_nll_sum, _sp_xent, dp_loss_scale, layer_slices,
                           packed_positions, shifted_xent)
 
 
@@ -165,8 +165,7 @@ def moe_forward_hidden(params: dict, tokens, cfg: MoEConfig, *, mesh=None,
                                                    segment_ids, device, sp)
     x = _embed(params, tokens, cfg, lay)
     aux = torch.zeros((), dtype=torch.float32, device=device)
-    for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
+    for layer in layer_slices(params):
         if lay is not None:
             layer = lay.layer(layer)
         x = _attention_block(x, layer, cfg, positions, segment_ids, lay, sp)

@@ -28,7 +28,7 @@ from ..parallel.mesh import _tree_map
 from ..parallel.pipeline import (make_pipeline_1f1b_full, pipeline_forward,
                                  shard_stage_params)
 from .transformer import (TransformerConfig, _as_tokens, _optimizer_step,
-                          _rms_norm, _slice_layer, _trainable, make_layer_fn,
+                          _rms_norm, _trainable, _unbind_layers, make_layer_fn,
                           param_leaves, qlinear, shifted_xent)
 
 
@@ -82,14 +82,13 @@ def pp_gather_params(params_pp: dict, mesh, *, pp_axis: str = "pp") -> dict:
 
 def _stage_fn(cfg: TransformerConfig, positions):
     """One pipeline stage: this stage's layers in order, each through
-    ``make_layer_fn`` (the one layer definition)."""
+    ``make_layer_fn`` (the one layer definition), the stage's stacked
+    leaves cut once a call (``transformer.layer_slices``)."""
     one_layer = make_layer_fn(cfg, positions)
 
     def stage(stage_layers, x):
-        leaves = []
-        _tree_map(leaves.append, stage_layers)
-        for i in range(leaves[0].shape[0]):
-            x = one_layer(x, _slice_layer(stage_layers, i))
+        for layer in _unbind_layers(stage_layers):
+            x = one_layer(x, layer)
         return x
 
     return stage

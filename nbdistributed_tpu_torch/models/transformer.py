@@ -236,8 +236,35 @@ def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked per-layer tensors (views).  A
     nested subtree (a quantized leaf ``{"q8", "s"}`` or ``{"q4", "s"}``,
     the MoE ``moe`` group, quantized experts inside it) is sliced leaf
-    by leaf."""
+    by leaf.  For the paths that need no gradient (the cached
+    generation under ``no_grad``).  The training forwards take
+    :func:`layer_slices` instead: the backward of each ``t[i]`` here is
+    a zero-filled tensor the size of the whole stacked leaf, added into
+    its gradient, so slicing every layer this way writes, reads and adds
+    all L layers' gradient L times a backward."""
     return _slice_layer(params["layers"], i)
+
+
+def _unbind_layers(t):
+    """A stacked (sub)tree cut into its per-layer trees, each tensor once
+    by ``torch.unbind``: a tuple of views for a tensor, a list of dicts
+    for a dict."""
+    if not isinstance(t, dict):
+        return torch.unbind(t, 0)
+    parts = {k: _unbind_layers(v) for k, v in t.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def layer_slices(params: dict) -> list:
+    """Every layer's :func:`layer_params` at once: the L per-layer trees
+    (views), each stacked tensor cut once by ``torch.unbind``.  The
+    training forwards (``forward_hidden``, ``moe_forward_hidden``, a
+    pipeline stage) cut once per forward so that the backward assembles
+    each stacked leaf's gradient once, one read and one write of the
+    leaf (``UnbindBackward0`` stacks the L slices' gradients), where a
+    per-layer select costs a whole-leaf fill and add per layer."""
+    return _unbind_layers(params["layers"])
 
 
 # ----------------------------------------------------------------------
@@ -734,8 +761,8 @@ def forward_hidden(params: dict, tokens, cfg: TransformerConfig,
                                                    segment_ids, device, sp)
     x = _embed(params, tokens, cfg, lay)
     one_layer = make_layer_fn(cfg, positions, segment_ids, lay, sp)
-    for i in range(cfg.n_layers):
-        x = one_layer(x, layer_params(params, i))
+    for layer in layer_slices(params):
+        x = one_layer(x, layer)
     norm = params["final_norm"] if lay is None else \
         lay.gather(params["final_norm"], lay.spec("final_norm"))
     return _rms_norm(x, norm, cfg.norm_eps)
